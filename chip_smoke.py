@@ -6,19 +6,38 @@ Phases, each fatal on failure:
 
 1. device: the card's name and power limit, torch and CUDA versions;
    compute capability 9.0 is required;
-2. build: the k-NN kernels from ``libpointmatcher_tpu_torch/csrc`` (nvcc);
-3. kernels: K1, K9 and K5 against their plain torch versions on the card,
-   at the serving shapes 20480 x 12459 and 25000 x 100000, timed with CUDA
-   events beside the plain version and a ``torch.cdist`` yardstick;
-4. registration: a synthetic indoor scene of about 100 000 points and
-   scans of 25 000 points (numpy, seeded). One one-shot ``ICP`` of two
-   scans, ``ICPSequence.set_map`` on the scene and eight scans through
-   ``compute``, each pose held to the ground truth (rotation < 0.02 rad,
-   translation < 0.05 m). Kernel launch counts are set to 0 just before
-   and read just after; the same is done for a matcher with ``epsilon`` at
-   the K9 floor (the K9 route) and one with ``knn`` = 5 (the K5 route);
-5. each kernel once more at the shapes the registration gave it, for the
-   JSON line of kernels (times, error, bound, launches).
+2. build: every kernel source of ``libpointmatcher_tpu_torch/csrc``, one
+   nvcc each, all started together; ptxas's register and spill report;
+3. dense kernels: K1, K9 and K5 against their plain torch versions on the
+   card, at the serving shapes 20480 x 12459 and 25000 x 100000, timed with
+   CUDA events beside the plain version and a ``torch.cdist`` yardstick;
+4. one-shot and sequence registration: a synthetic indoor scene of about
+   100 000 points and scans of 25 000 points (numpy, seeded). One one-shot
+   ``ICP`` of two scans, ``ICPSequence.set_map`` on the scene and eight
+   scans through ``compute``, each pose held to the ground truth (rotation
+   < 0.02 rad, translation < 0.05 m). Kernel launch counts are set to 0
+   just before and read just after; the same is done for a matcher with
+   ``epsilon`` at the K9 floor (the K9 route) and one with ``knn`` = 5
+   (the K5 route);
+5. K1, K9 and K5 once more at the shapes the sequence gave them;
+6. survivor kernels: K2, K3 and K4 against their plain versions on a batch
+   of 8 scans of 25 000 points, flattened, against the scene's map of
+   50 147 rows (K4) and the map of a 60 000-point scene (about 30 000
+   rows, K3), cold and with a transported bound: K2's bounds and flags
+   equal, K3 and K4 equal to their plain versions and to each other, the
+   survivor route's d2 equal to K1's bit for bit and its ids equal to K1's
+   through the Morton order where the neighbour is unique, and every valid
+   query's true neighbour in a surviving chunk;
+7. batch serving: ``register_batch_to_map`` of 8 scans on the 50 147-row
+   map (K2 + K4), the ~30 000-row map (K2 + K3) and the map of a
+   25 000-point scene (under 16 384 rows: K1), each pose held to the
+   ground truth; the launches of each run, counted from 0, equal the
+   lockstep iteration count on the route's kernels and 0 on the others;
+   the same batch with ``block=False`` gives the same poses;
+8. K2, K3 and K4 once more at the inputs the serving runs gave them (the
+   second lockstep iteration), timed beside the plain versions and, for
+   K3 and K4, a ``torch.cdist`` yardstick; K3 is also timed at K4's inputs
+   and K4 at K3's.
 
 The second-to-last line is the JSON of kernels, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
@@ -31,6 +50,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -43,6 +63,11 @@ SCAN_POINTS = 25_000
 SEQ_SCANS = 8
 ROT_TOL = 0.02
 TRANS_TOL = 0.05
+SERVE_BATCH = 8
+#: scene sizes of the three serving maps: SamplingSurfaceNormal keeps about
+#: half, so the K4 (> 32768 rows), K3 (16384..32768) and dense (< 16384)
+#: routes
+SERVE_SCENES = {"K4": SCENE_POINTS, "K3": 60_000, "K1": 25_000}
 
 
 def log(msg: str) -> None:
@@ -165,6 +190,12 @@ KERNELS = {
     "K1 knn1": ("libpointmatcher_tpu/ops/knn_pallas.py:32", 9),
     "K9 knn1_mxu": ("libpointmatcher_tpu/ops/knn_pallas.py:93", 8),
     "K5 knnk": ("libpointmatcher_tpu/ops/knn_pallas.py:123", 9),
+    # per (query row, chunk column): 13 operations for the bound, 20 for
+    # the flag (csrc/sweep.cu)
+    "K2 survivors_and_bounds": ("libpointmatcher_tpu/ops/knn_sweep2.py:132", 33),
+    # per (valid query, valid row of a surviving chunk), as K1
+    "K3 nn1_survivor_sweep": ("libpointmatcher_tpu/ops/knn_sweep2.py:242", 9),
+    "K4 nn1_survivor_sweep_stream": ("libpointmatcher_tpu/ops/knn_sweep2.py:482", 9),
 }
 
 
@@ -240,6 +271,169 @@ def check_kernel(torch, kc, name, q, qm, r, rm, k, reps=20, plain_reps=3):
     return out
 
 
+
+# ------------------------------------------------------- survivor kernels
+def bound_of(ops, nbytes):
+    t_ops, t_bytes = ops / FP32_FLOPS, nbytes / HBM_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def survivor_work(torch, qp, surv4, ct, nch):
+    """Pairs the sweep must visit: per 1024-query tile, its valid queries
+    times the valid rows of its surviving chunks."""
+    valid_q = (qp[:, 3] == 0).reshape(-1, 1024).sum(dim=1).double()
+    rows = surv4[:, :nch].double() @ ct[6, :nch].double()
+    return float((valid_q * rows).sum())
+
+
+def check_survivor_step(torch, sc, sweep, kc, qs, qm, ub_t, tab, label):
+    """K2, K3 and K4 against their plain versions and K1 on one query
+    batch → (qp, surv per 1024-tile, survivor share)."""
+    rt3, ct, ref_s, refm_s, rorder, ref, refm = tab
+    nch = rt3.shape[0]
+    qp = sweep.query_table(qs, qm, ub_t)
+    ub, surv = sc.survivors_and_bounds(qp, ct, nch=nch)
+    ubp, survp = sc.survivors_and_bounds_plain(qp, ct, nch=nch)
+    # the whole table, padding chunks included, gives the same
+    ubf, survf = sc.survivors_and_bounds(qp, ct)
+    torch.cuda.synchronize()
+    if not (torch.equal(ub, ubp) and torch.equal(surv, survp)):
+        raise AssertionError(f"{label}: K2 differs from its plain version")
+    if not (torch.equal(ub, ubf) and torch.equal(surv, survf)):
+        raise AssertionError(f"{label}: K2 over the padding chunks differs")
+    surv4 = surv.reshape(-1, 4, surv.shape[1]).amax(dim=1)
+    d3, i3 = sc.nn1_survivor_sweep(qp, rt3, surv4)
+    d4, i4 = sc.nn1_survivor_sweep_stream(qp, rt3, surv4)
+    dp, ip = sc.survivor_sweep_plain(qp, rt3, surv4)
+    torch.cuda.synchronize()
+    if not (torch.equal(d3, dp) and torch.equal(i3, ip)):
+        raise AssertionError(f"{label}: K3 differs from its plain version")
+    if not (torch.equal(d4, d3) and torch.equal(i4, i3)):
+        raise AssertionError(f"{label}: K4 differs from K3")
+    # the true neighbour's chunk survives for every valid query
+    qv = qp[:, 3] == 0
+    d1, i1 = kc.knn1(qp[:, :3].contiguous(), qv, ref_s, refm_s)
+    row = torch.arange(qp.shape[0], device=qp.device)
+    kept = surv[row // 256, i1.clamp(min=0).long() // 128] == 1
+    if not bool(kept[qv & (i1 >= 0)].all()):
+        raise AssertionError(f"{label}: a true neighbour's chunk was dropped")
+    # the whole route against K1 on the map in its own order
+    d2, ids, frac = sweep.nn1_sorted_v2(qs, qm, ub_t, rt3, ct,
+                                        stream=label.startswith("K4"))
+    flat_q, flat_m = qs.reshape(-1, 3), qm.reshape(-1)
+    e1, j1 = kc.knn1(flat_q, flat_m, ref, refm)
+    if not torch.equal(d2.reshape(-1), e1):
+        raise AssertionError(f"{label}: survivor-route d2 differs from K1's")
+    e2, _ = kc.knnk(flat_q, flat_m, ref, refm, 2)
+    unique = flat_m & torch.isfinite(e1) & (e2[:, 1] > e1)
+    mapped = rorder[ids.reshape(-1).clamp(min=0).long()].to(torch.int32)
+    if not torch.equal(mapped[unique], j1[unique]):
+        raise AssertionError(f"{label}: survivor-route ids differ from K1's")
+    log(f"[survivor] {label}: {qp.shape[0]} query rows x {rt3.shape[0]} "
+        f"chunks, survivor share {float(frac.mean()):.4f}, "
+        f"{int(unique.sum())} unique neighbours compared; K2/K3/K4 equal")
+    return d2
+
+
+def survivor_tables(torch, morton, sweep, internal):
+    """The sorted map and its tables, as KDTreeMatcher builds them."""
+    pts, mask = internal.host_rows()
+    rorder, _ = morton.morton_argsort(pts, mask)
+    t = lambda a: torch.as_tensor(a, device="cuda")
+    return (t(sweep.chunked_ref_table(pts[rorder], mask[rorder])),
+            t(sweep.chunk_summaries(pts[rorder], mask[rorder])),
+            t(pts[rorder]), t(mask[rorder]), t(rorder.astype(np.int64)),
+            internal.points, internal.mask)
+
+
+def record_survivor_kernels(torch, sc, sweep, qs, qm, ub_t, tab, names,
+                            launches, label):
+    """Time the named survivor kernels on one serving iteration's inputs →
+    kernel records for the JSON line. Both sweeps, K3 and K4, are timed on
+    these inputs; only the named ones are recorded."""
+    rt3, ct, ref_s, refm_s = tab[:4]
+    nch = rt3.shape[0]
+    qp = sweep.query_table(qs, qm, ub_t)
+    _, surv = sc.survivors_and_bounds(qp, ct, nch=nch)
+    surv4 = surv.reshape(-1, 4, surv.shape[1]).amax(dim=1)
+    sweeps = {"K3 nn1_survivor_sweep": sc.nn1_survivor_sweep,
+              "K4 nn1_survivor_sweep_stream": sc.nn1_survivor_sweep_stream}
+    out = []
+    for name in [n for n in names if n.startswith("K2")] + list(sweeps):
+        if name.startswith("K2"):
+            run = lambda: sc.survivors_and_bounds(qp, ct, nch=nch)
+            plain = lambda: sc.survivors_and_bounds_plain(qp, ct, nch=nch)
+            lib = None
+            # every query row's bound over the map's chunks (the padding
+            # chunks are not visited); the flags of every column written
+            n_pad, nch_pad = qp.shape[0], ct.shape[1]
+            ops = KERNELS[name][1] * n_pad * nch
+            nbytes = 36 * n_pad + 32 * nch + 4 * (n_pad // 256) * nch_pad
+        else:
+            fn = sweeps[name]
+            run = lambda: fn(qp, rt3, surv4)
+            plain = lambda: sc.survivor_sweep_plain(qp, rt3, surv4)
+            # no one PyTorch call takes the batch: cdist's CUDA grid refuses
+            # 8 x 20480 x 50147 outputs (batched or not). The yardstick is
+            # one cdist call per scan, reported beside the record.
+            rv = ref_s[refm_s]
+            lib = lambda: [torch.cdist(
+                q, rv, compute_mode="donot_use_mm_for_euclid_dist").min(dim=1)
+                for q in qs]
+            ops = KERNELS[name][1] * survivor_work(torch, qp, surv4, ct, nch)
+            nbytes = (40 * qp.shape[0] + 4096 * nch
+                      + 4 * surv4.shape[0] * surv4.shape[1])
+        d, i = run()
+        dp, ip = plain()
+        torch.cuda.synchronize()
+        if not (torch.equal(d, dp) and torch.equal(i, ip)):
+            raise AssertionError(f"{name}: kernel and plain version differ")
+        ms = cuda_ms(torch, run, 20)
+        if name not in names:
+            log(f"[kernel] {name} at the {label} route's inputs ({qp.shape[0]} "
+                f"query rows x {nch} chunks): {ms:.4f} ms")
+            continue
+        fin = torch.isfinite(dp)
+        err = float((d[fin] - dp[fin]).abs().max()) if bool(fin.any()) else 0.0
+        plain_ms = cuda_ms(torch, plain, 2)
+        yard = ""
+        if lib is not None:
+            torch.cuda.empty_cache()
+            yard = (f", cdist one call per scan x{qs.shape[0]}: "
+                    f"{cuda_ms(torch, lib, 1):.2f} ms")
+        bms, by = bound_of(ops, nbytes)
+        rec = {"name": name, "route": "cuda",
+               "source": "libpointmatcher_tpu_torch/csrc/sweep.cu",
+               "replaces": KERNELS[name][0], "launches": launches[name],
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bms, "bound_by": by, "library_ms": None}
+        log(f"[kernel] main path {name} {qp.shape[0]} query rows x {nch} "
+            f"chunks{yard}: " + json.dumps(rec))
+        out.append(rec)
+    return out
+
+
+class InputRecorder:
+    """Keeps the inputs of every survivor step of a serving run (the
+    matcher calls ``ops.sweep.nn1_sorted_v2`` once per iteration)."""
+
+    def __init__(self, sweep):
+        self.sweep = sweep
+        self.calls = []
+
+    def __enter__(self):
+        self.orig = self.sweep.nn1_sorted_v2
+        self.sweep.nn1_sorted_v2 = self
+        return self
+
+    def __call__(self, qs, qm, ub_t, *a, **k):
+        self.calls.append((qs.clone(), qm.clone(), ub_t.clone()))
+        return self.orig(qs, qm, ub_t, *a, **k)
+
+    def __exit__(self, *exc):
+        self.sweep.nn1_sorted_v2 = self.orig
+
+
 def kernel_inputs(torch, world, scan_world, n, m, rng, device="cuda"):
     """Queries from a scan placed in the world, references from the scene,
     every 11th query and every 7th reference masked."""
@@ -263,9 +457,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import libpointmatcher_tpu_torch as pt
-    from libpointmatcher_tpu_torch.ops import knn_cuda as kc
-    from libpointmatcher_tpu_torch.ops.dispatch import MXU_EPSILON_FLOOR
     from libpointmatcher_tpu_torch.matchers import KDTreeMatcher
+    from libpointmatcher_tpu_torch.ops import morton, sweep
+    from libpointmatcher_tpu_torch.ops import knn_cuda as kc
+    from libpointmatcher_tpu_torch.ops import sweep_cuda as sc
+    from libpointmatcher_tpu_torch.ops.dispatch import MXU_EPSILON_FLOOR
+    from libpointmatcher_tpu_torch.parallel import register_batch_to_map
 
     # ---- 1. device
     smi = subprocess.run(
@@ -280,11 +477,13 @@ def main() -> int:
 
     # ---- 2. build
     t0 = time.perf_counter()
-    kc.build()
-    log(f"[build] k-NN kernels built in {time.perf_counter() - t0:.2f} s")
-    for line in kc.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    with ThreadPoolExecutor(2) as pool:     # one nvcc per source, together
+        list(pool.map(lambda lib: lib.load(), (kc.LIBRARY, sc.LIBRARY)))
+    log(f"[build] knn.cu and sweep.cu built in {time.perf_counter() - t0:.2f} s")
+    for lib in (kc.LIBRARY, sc.LIBRARY):
+        for line in lib.build_log.splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                log(f"[build] {lib.source.name}: {line.strip()}")
 
     # ---- scene
     rng = np.random.default_rng(0)
@@ -406,6 +605,116 @@ def main() -> int:
     if max(k9_excess) >= MXU_EPSILON_FLOOR:
         raise AssertionError(f"K9 excess {max(k9_excess):.3g} not below "
                              f"MXU_EPSILON_FLOOR {MXU_EPSILON_FLOOR}")
+    del q, qm, seq, internal
+    torch.cuda.empty_cache()
+
+    # ---- serving scenes: one map per route, 8 scans each
+    serve = {}
+    for route, target in SERVE_SCENES.items():
+        w = world if target == SCENE_POINTS else make_scene(rng, target)
+        ps = make_poses(w, SERVE_BATCH, rng)
+        s_seq = pt.ICPSequence()
+        s_seq.set_default()
+        s_seq.set_map(pt.PointCloud.from_numpy(w), seed=0)
+        serve[route] = {"seq": s_seq, "poses": ps,
+                        "scans": [make_scan(w, P, rng) for P in ps],
+                        "T_inits": [perturb(rng) @ P for P in ps]}
+        log(f"[scene] {route} route: {len(w)} scene points -> "
+            f"{s_seq.prefiltered_reference_pts_count} map rows, "
+            f"{SERVE_BATCH} scans of {len(serve[route]['scans'][0])} points")
+
+    # ---- 6. survivor kernels on 8 scans of 25 000 points, flattened
+    for route in ("K4", "K3"):
+        cell = serve[route]
+        internal = cell["seq"].get_prefiltered_internal_map()
+        tab = survivor_tables(torch, morton, sweep, internal)
+        trm = cell["seq"].trm_host()
+        qs, qm = [], []
+        for scan, P in zip(cell["scans"], cell["poses"]):
+            T = np.linalg.inv(trm) @ P
+            q = torch.as_tensor((scan @ T[:3, :3].T + T[:3, 3]).astype(np.float32),
+                                device="cuda")
+            m = torch.ones(q.shape[0], dtype=torch.bool, device="cuda")
+            m[::11] = False
+            o = morton.morton_argsort_device(q, m)
+            qs.append(q[o])
+            qm.append(m[o])
+        n = min(x.shape[0] for x in qs)
+        qs = torch.stack([x[:n] for x in qs])
+        qm = torch.stack([x[:n] for x in qm])
+        ub_t = torch.full(qm.shape, float("inf"), device="cuda")
+        d2 = check_survivor_step(torch, sc, sweep, kc, qs, qm, ub_t, tab,
+                                 f"{route} cold")
+        # the next iteration: the scans moved by 2 cm, the bound carried
+        shift = torch.tensor([0.012, -0.01, 0.012], device="cuda")
+        ub_t = (torch.sqrt(d2) + torch.linalg.norm(shift)) * sweep.UP
+        check_survivor_step(torch, sc, sweep, kc, qs + shift, qm, ub_t, tab,
+                            f"{route} warm")
+        cell["tab"] = tab
+        del qs, qm, d2, ub_t
+        torch.cuda.empty_cache()
+
+    # ---- 7. batch serving through register_batch_to_map
+    launch_of = {"K1": lambda: kc.knn1.launches,
+                 "K2": lambda: sc.survivors_and_bounds.launches,
+                 "K3": lambda: sc.nn1_survivor_sweep.launches,
+                 "K4": lambda: sc.nn1_survivor_sweep_stream.launches}
+    for route, cell in serve.items():
+        s_seq = cell["seq"]
+        clouds = [pt.PointCloud.from_numpy(x) for x in cell["scans"]]
+        register_batch_to_map(s_seq, clouds, T_inits=cell["T_inits"], seed=1)
+        torch.cuda.synchronize()
+        kc.reset_launch_counts()
+        sc.reset_launch_counts()
+        t = time.perf_counter()
+        T, info = register_batch_to_map(s_seq, clouds, T_inits=cell["T_inits"],
+                                        seed=1)
+        ms = 1e3 * (time.perf_counter() - t)
+        counts = {k: f() for k, f in launch_of.items()}
+        it = int(info["iterations"].max())
+        fracs = [round(float(f.mean()), 4)
+                 for f in s_seq.matcher.survivor_fractions]
+        log(f"[serve] {route} route, batch {SERVE_BATCH}: {ms:.2f} ms per batch, "
+            f"{ms / SERVE_BATCH:.2f} ms per scan, iterations "
+            f"{info['iterations'].tolist()}, codes {info['codes'].tolist()}")
+        log(f"[serve] {route} route: launches {counts}, survivor share per "
+            f"iteration {fracs}")
+        for i, (Ti, P) in enumerate(zip(T, cell["poses"])):
+            ang, tr = pose_error(Ti, P)
+            log(f"[serve] {route} scan {i}: rot err {ang:.5f} rad, "
+                f"trans err {tr:.5f} m")
+            if not (np.isfinite(Ti).all() and ang < ROT_TOL and tr < TRANS_TOL):
+                raise AssertionError(f"{route} serving scan {i}: pose error "
+                                     f"{ang}, {tr}")
+        want = {"K1": {"K1": it, "K2": 0, "K3": 0, "K4": 0},
+                "K3": {"K1": 0, "K2": it, "K3": it, "K4": 0},
+                "K4": {"K1": 0, "K2": it, "K3": 0, "K4": it}}[route]
+        if counts != want:
+            raise AssertionError(f"{route} serving launches {counts}, "
+                                 f"expected {want}")
+        cell["launches"] = counts
+        with InputRecorder(sweep) as rec:
+            pending = register_batch_to_map(s_seq, clouds,
+                                            T_inits=cell["T_inits"], seed=1,
+                                            block=False)
+            T2, _ = pending.result()
+        if not np.allclose(T2, T, atol=1e-6):
+            raise AssertionError(f"{route}: block=False gave other poses")
+        cell["inputs"] = rec.calls[min(1, len(rec.calls) - 1)] if rec.calls else None
+
+    # ---- 8. survivor kernels at the serving runs' inputs, for the record
+    serve_launches = {
+        "K2 survivors_and_bounds": serve["K4"]["launches"]["K2"],
+        "K3 nn1_survivor_sweep": serve["K3"]["launches"]["K3"],
+        "K4 nn1_survivor_sweep_stream": serve["K4"]["launches"]["K4"]}
+    for route, names in (("K4", ("K2 survivors_and_bounds",
+                                 "K4 nn1_survivor_sweep_stream")),
+                         ("K3", ("K3 nn1_survivor_sweep",))):
+        cell = serve[route]
+        records += record_survivor_kernels(torch, sc, sweep, *cell["inputs"],
+                                           cell["tab"], names, serve_launches,
+                                           route)
+        torch.cuda.empty_cache()
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,9 @@ TransformationCheckersImpl.{h,cpp}).
 Each checker is ``(state, T, iteration) → (state, stop, code)`` on device
 tensors, so the loop reads one flag per iteration. ``code`` is 0,
 CODE_MAX_ITER (stop, flags maxNumIterationsReached), CODE_NAN_ERROR or
-CODE_BOUND_ERROR (stop; the engine raises ``ConvergenceError``)."""
+CODE_BOUND_ERROR (stop; the engine raises ``ConvergenceError``). ``T`` may
+carry leading batch dimensions (``[B, d+1, d+1]``); the state, flag and
+code then have them too, one per scan."""
 
 from __future__ import annotations
 
@@ -51,7 +53,7 @@ class CounterTransformationChecker(TransformationChecker):
     )
 
     def init_state(self, T0):
-        return torch.zeros((), dtype=torch.int32, device=T0.device)
+        return torch.zeros(T0.shape[:-2], dtype=torch.int32, device=T0.device)
 
     def check(self, state, T, iteration):
         count = state + 1
@@ -76,23 +78,27 @@ class DifferentialTransformationChecker(TransformationChecker):
     )
 
     def init_state(self, T0):
-        d = T0.shape[0] - 1
+        d = T0.shape[-1] - 1
+        b = T0.shape[:-2]
         w = max(int(self.smoothLength), 1)
-        R_hist = T0[:d, :d].expand(w + 1, d, d).clone()
-        t_hist = T0[:d, d].expand(w + 1, d).clone()
+        R_hist = T0[..., None, :d, :d].expand(*b, w + 1, d, d).clone()
+        t_hist = T0[..., None, :d, d].expand(*b, w + 1, d).clone()
+        # the history length is the same for every scan of a lockstep batch
+        # that is still running, so it stays a host int
         return R_hist, t_hist, 1            # init() pushes T0
 
     def check(self, state, T, iteration):
         R_hist, t_hist, length = state
-        d = T.shape[0] - 1
-        w = R_hist.shape[0] - 1
-        R_hist = torch.cat([R_hist[1:], T[None, :d, :d]])
-        t_hist = torch.cat([t_hist[1:], T[None, :d, d]])
+        d = T.shape[-1] - 1
+        w = R_hist.shape[-3] - 1
+        R_hist = torch.cat([R_hist[..., 1:, :, :], T[..., None, :d, :d]], dim=-3)
+        t_hist = torch.cat([t_hist[..., 1:, :], T[..., None, :d, d]], dim=-2)
         length = length + 1
-        ang = se3.rotation_angle_between(R_hist[1:], R_hist[:-1])
-        tr = torch.linalg.norm(t_hist[1:] - t_hist[:-1], dim=1)
-        mean_rot = torch.sum(ang) / w
-        mean_trans = torch.sum(tr) / w
+        ang = se3.rotation_angle_between(R_hist[..., 1:, :, :],
+                                         R_hist[..., :-1, :, :])
+        tr = torch.linalg.norm(t_hist[..., 1:, :] - t_hist[..., :-1, :], dim=-1)
+        mean_rot = torch.sum(ang, dim=-1) / w
+        mean_trans = torch.sum(tr, dim=-1) / w
         # the reference evaluates the rule only once the history is longer
         # than the window
         converged = (mean_rot < self.minDiffRotErr) & (mean_trans < self.minDiffTransErr)
@@ -114,13 +120,13 @@ class BoundTransformationChecker(TransformationChecker):
     )
 
     def init_state(self, T0):
-        d = T0.shape[0] - 1
-        return T0[:d, :d].clone(), T0[:d, d].clone()
+        d = T0.shape[-1] - 1
+        return T0[..., :d, :d].clone(), T0[..., :d, d].clone()
 
     def check(self, state, T, iteration):
         R0, t0 = state
-        d = T.shape[0] - 1
-        ang = se3.rotation_angle_between(T[:d, :d], R0)
-        dist = torch.linalg.norm(T[:d, d] - t0)
+        d = T.shape[-1] - 1
+        ang = se3.rotation_angle_between(T[..., :d, :d], R0)
+        dist = torch.linalg.norm(T[..., :d, d] - t0, dim=-1)
         out = (ang > self.maxRotationNorm) | (dist > self.maxTranslationNorm)
         return state, out, _code(out, CODE_BOUND_ERROR)

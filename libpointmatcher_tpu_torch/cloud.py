@@ -8,6 +8,10 @@ The counterpart of ``libpointmatcher_tpu.cloud.PointCloud``:
 - ``descriptors`` {name: [N, span] float32} in insertion order
   ("normals" has span d).
 
+A batch of scans is the same layout with a leading batch dimension
+(``points [B, N, d]``, ``mask [B, N]``), the counterpart of the JAX
+package's clouds stacked for ``vmap``: the loop modules take either.
+
 ``compact()`` packs the valid rows to the front in their original order, so
 a row id means the same point before and after, on both sides of a parity
 test. The JAX package pads the result to a bucket ladder because every new
@@ -35,11 +39,11 @@ class PointCloud:
 
     def __init__(self, points: torch.Tensor, mask: Optional[torch.Tensor] = None,
                  descriptors: Optional[Mapping[str, torch.Tensor]] = None):
-        if points.ndim != 2:
-            raise InvalidField(f"points must be [N, d], got {tuple(points.shape)}")
+        if points.ndim < 2:
+            raise InvalidField(f"points must be [..., N, d], got {tuple(points.shape)}")
         self.points = points.to(torch.float32)
         if mask is None:
-            mask = torch.ones(points.shape[0], dtype=torch.bool,
+            mask = torch.ones(points.shape[:-1], dtype=torch.bool,
                               device=points.device)
         self.mask = mask.to(torch.bool)
         self.descriptors: Dict[str, torch.Tensor] = dict(descriptors or {})
@@ -49,19 +53,20 @@ class PointCloud:
     @property
     def num_points(self) -> int:
         """Capacity N (rows allocated, valid or not)."""
-        return self.points.shape[0]
+        return self.points.shape[-2]
 
     @property
     def dim(self) -> int:
-        return self.points.shape[1]
+        return self.points.shape[-1]
 
     @property
     def device(self) -> torch.device:
         return self.points.device
 
     def count(self) -> torch.Tensor:
-        """Number of valid rows, as a tensor on the cloud's device."""
-        return self.mask.sum()
+        """Number of valid rows (per scan of a batch), as a tensor on the
+        cloud's device."""
+        return self.mask.sum(dim=-1)
 
     def count_host(self) -> int:
         """Number of valid rows on the host (one sync, then cached)."""
@@ -101,6 +106,14 @@ class PointCloud:
             return self
         out = PointCloud(self.points.to(device), self.mask.to(device),
                          {k: v.to(device) for k, v in self.descriptors.items()})
+        out._count_cache = self._count_cache
+        return out
+
+    def permute_rows(self, perm: torch.Tensor) -> "PointCloud":
+        """The rows in the order ``perm`` (every row-aligned field
+        follows)."""
+        out = PointCloud(self.points[perm], self.mask[perm],
+                         {k: v[perm] for k, v in self.descriptors.items()})
         out._count_cache = self._count_cache
         return out
 

@@ -9,9 +9,12 @@ compacts after each one, logs the surviving count and raises
 Random draws come from explicit ``torch.Generator``s, one per filter of a
 chain, seeded from ``(seed, stream, position in the chain)``: the engine
 gives the reference chain stream 1 and the reading chain stream 2, as the
-JAX package folds 1 and 2 into its key. A filter that draws also takes a
-precomputed ``uniform`` draw (one value in [0, 1) per row), which replaces
-its own; the parity tests hand it the JAX package's draws that way.
+JAX package folds 1 and 2 into its key. In batch serving each scan's chain
+draws from generators of its own, seeded with the scan's index as well. A
+filter that draws also takes a precomputed ``uniform`` draw, which replaces
+its own: one value in [0, 1) per row, or ``[B, rows]`` for a batch, of
+which scan i takes the first values of row i (the draw over a batch's
+stacked rows). The parity tests hand it the JAX package's draws that way.
 """
 
 from __future__ import annotations
@@ -32,10 +35,12 @@ __all__ = ["DataPointsFilter", "DataPointsFilterRegistrar",
 DataPointsFilterRegistrar = Registrar("DataPointsFilter")
 
 
-def chain_generator(seed: int, stream: int, index: int,
-                    device) -> torch.Generator:
-    """The generator of the ``index``-th filter of chain ``stream``."""
-    state = np.random.SeedSequence([seed, stream, index]).generate_state(1)
+def chain_generator(seed: int, stream: int, index: int, device,
+                    scan: Optional[int] = None) -> torch.Generator:
+    """The generator of the ``index``-th filter of chain ``stream`` (of
+    scan ``scan`` of a batch)."""
+    entropy = [seed, stream, index] + ([] if scan is None else [scan])
+    state = np.random.SeedSequence(entropy).generate_state(1)
     return torch.Generator(device=device).manual_seed(int(state[0]))
 
 
@@ -48,19 +53,24 @@ class DataPointsFilter(Parametrizable):
         self.uniform: Optional[torch.Tensor] = None
 
     def filter(self, cloud: PointCloud,
-               generator: Optional[torch.Generator] = None) -> PointCloud:
+               generator: Optional[torch.Generator] = None,
+               scan: Optional[int] = None) -> PointCloud:
         raise NotImplementedError
 
     def draw_uniform(self, cloud: PointCloud,
-                     generator: Optional[torch.Generator]) -> torch.Tensor:
-        """One value in [0, 1) per row: the precomputed ``uniform`` if set,
-        else a draw from ``generator`` (seed 0 when none is given)."""
+                     generator: Optional[torch.Generator],
+                     scan: Optional[int] = None) -> torch.Tensor:
+        """One value in [0, 1) per row: the precomputed ``uniform`` if set
+        (row ``scan`` of a ``[B, rows]`` one), else a draw from
+        ``generator`` (seed 0 when none is given)."""
         n = cloud.num_points
         if self.uniform is not None:
             u = self.uniform
             if not isinstance(u, torch.Tensor):
                 u = torch.from_numpy(np.array(u, np.float32))
             u = u.to(device=cloud.device, dtype=torch.float32)
+            if u.ndim == 2 and scan is not None and u.shape[1] >= n:
+                u = u[scan, :n]
             if u.shape != (n,):
                 raise ValueError(f"{type(self).__name__}.uniform has shape "
                                  f"{tuple(u.shape)}, the cloud has {n} rows")
@@ -71,17 +81,21 @@ class DataPointsFilter(Parametrizable):
 
 
 def apply_filter_chain(filters: Sequence[DataPointsFilter], cloud: PointCloud,
-                       seed: int = 0, stream: int = 0) -> PointCloud:
-    """Apply ``filters`` in order, compacting after each."""
+                       seed: int = 0, stream: int = 0,
+                       scan: Optional[int] = None) -> PointCloud:
+    """Apply ``filters`` in order, compacting after each. A filter that
+    leaves no point raises ``ConvergenceError``, except in a batch (``scan``
+    given), where the emptied scan goes on to the loop and stops there with
+    the no-inliers code, as in the JAX package's batch serving."""
     before = None
     for i, f in enumerate(filters):
-        gen = chain_generator(seed, stream, i, cloud.device)
-        cloud = f.filter(cloud, generator=gen).compact()
+        gen = chain_generator(seed, stream, i, cloud.device, scan)
+        cloud = f.filter(cloud, generator=gen, scan=scan).compact()
         after = cloud.count_host()
         log_info(f"Applied {type(f).__name__} - {after} points remaining"
                  + (f" (of {before})" if before is not None else ""))
         before = after
-        if after == 0:
+        if after == 0 and scan is None:
             raise ConvergenceError(
                 f"no points remaining after filter {type(f).__name__}")
     return cloud

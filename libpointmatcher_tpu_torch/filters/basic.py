@@ -20,5 +20,5 @@ class RandomSamplingDataPointsFilter(DataPointsFilter):
               "factor", float, 0.75, min=0.0, max=1.0),
     )
 
-    def filter(self, cloud, generator=None):
-        return cloud.with_mask(self.draw_uniform(cloud, generator) < self.prob)
+    def filter(self, cloud, generator=None, scan=None):
+        return cloud.with_mask(self.draw_uniform(cloud, generator, scan) < self.prob)

@@ -10,10 +10,14 @@ The call structure mirrors ICP::compute:
    checkers;
 4. frame composition T_refIn_refMean · T_iter · T_refMean_dataIn.
 
-The loop is driven from the host, one iteration at a time, and reads one
-small tensor (continue flag, stop code) per iteration; everything else stays
-on the engine's device. Iteration counts and stop codes are those of the JAX
-engine's fused loop.
+The loop is driven from the host, one iteration at a time, and runs a whole
+batch of scans in lockstep: every tensor of its state carries the reading's
+leading batch dimensions (none for one registration), each scan keeps its
+own iteration count and stop code, and a scan that has stopped is frozen by
+``torch.where`` on a per-scan ``active`` mask (the counterpart of the JAX
+engine's ``while_loop`` under ``vmap``). The host reads the ``active``
+flags once per iteration; everything else stays on the engine's device.
+Iteration counts and stop codes are those of the JAX engine's fused loop.
 """
 
 from __future__ import annotations
@@ -126,6 +130,18 @@ def _apply_transform(transformations, cloud, T):
     return cloud
 
 
+def _keep_active(active: torch.Tensor, new, old):
+    """``new`` where ``active`` (one flag per scan), else ``old``, over
+    nested tuples and lists of tensors; other leaves take ``new``."""
+    if isinstance(new, torch.Tensor):
+        flag = active.reshape(active.shape + (1,) * (new.ndim - active.ndim))
+        return torch.where(flag, new, old)
+    if isinstance(new, (tuple, list)):
+        out = [_keep_active(active, n, o) for n, o in zip(new, old)]
+        return type(new)(*out) if hasattr(new, "_fields") else type(new)(out)
+    return new
+
+
 def _center_cloud(cloud: PointCloud):
     """Shift a cloud to its valid-point mean → (centred, T_refIn_refMean)."""
     d = cloud.dim
@@ -187,6 +203,7 @@ class ICP(ICPChainBase):
         reading = _apply_transform(self.transformations, reading, T_refMean_dataIn)
 
         T_iter, iters, code, stats = self._run_loop(reading, reference)
+        iters, code = int(iters), int(code)
 
         self.max_num_iterations_reached = code == CODE_MAX_ITER
         self.last_iteration_count = iters
@@ -207,18 +224,28 @@ class ICP(ICPChainBase):
         # frame composition (reference: ICP.cpp:444-448)
         return T_refIn_refMean @ T_iter @ T_refMean_dataIn
 
-    def _step(self, reading, reference, T_iter, checker_states, iteration):
-        """One iteration (the JAX engine's ``_make_step``)."""
+    def _step(self, reading, reference, T_iter, checker_states, iteration,
+              matcher_aux=None, matcher_state=None):
+        """One iteration (the JAX engine's ``_make_step``), for one scan or
+        a batch. With ``matcher_aux`` the matcher serves through its
+        stateful route and returns its new loop state."""
         stepped = _apply_transform(self.transformations, reading, T_iter)
-        matches = self.matcher.find_closests_in(stepped, reference)
+        if matcher_aux is not None:
+            matches, matcher_state = self.matcher.find_closests_in_stateful(
+                stepped, reference, matcher_aux, matcher_state)
+        else:
+            matches = self.matcher.find_closests_in(stepped, reference)
         weights = compute_outlier_weights(self.outlier_filters, stepped,
                                           reference, matches)
-        no_inliers = ~(torch.isfinite(matches.dists) & (weights != 0.0)).any()
+        usable = torch.isfinite(matches.dists) & (weights != 0.0)
+        no_inliers = ~usable.flatten(-2).any(dim=-1)
         T_delta, stats = self.error_minimizer.compute(stepped, reference,
                                                       weights, matches)
         T_new = T_delta @ T_iter
-        iterate = torch.ones((), dtype=torch.bool, device=T_new.device)
-        code = torch.zeros((), dtype=torch.int32, device=T_new.device)
+        iterate = torch.ones(T_new.shape[:-2], dtype=torch.bool,
+                             device=T_new.device)
+        code = torch.zeros(T_new.shape[:-2], dtype=torch.int32,
+                           device=T_new.device)
         new_states = []
         for chk, st in zip(self.checkers, checker_states):
             st2, stop, c = chk.check(st, T_new, iteration)
@@ -227,23 +254,58 @@ class ICP(ICPChainBase):
             code = torch.maximum(code, c)
         code = torch.where(no_inliers, CODE_NO_INLIERS, code).to(torch.int32)
         iterate = iterate & ~no_inliers
-        return T_new, new_states, iterate, code, stats
+        return T_new, new_states, iterate, code, stats, matcher_state
 
-    def _run_loop(self, reading, reference):
-        """Host-driven fixed-point loop: one (flag, code) read per iteration."""
-        T_iter = se3.identity(reading.dim, reading.device)
+    def _run_loop(self, reading, reference, matcher_aux=None):
+        """Lockstep fixed-point loop over the reading's batch dimensions →
+        ``(T_iter, iterations, codes, stats)``, one of each per scan (host
+        ints for a single scan).
+
+        Each iteration steps every scan, then keeps the new state only where
+        the scan was still active; a stopped scan's rows are masked out of
+        the next steps, so a sweep spends nothing on them. The loop ends
+        when no scan is active, after one host read of the flags per
+        iteration. A single scan (no batch dimension) is active for as long
+        as the loop runs, so it skips the masking and the merges."""
+        bshape = reading.points.shape[:-2]
+        dev = reading.device
+        d = reading.dim
+        T_iter = se3.identity(d, dev).expand(*bshape, d + 1, d + 1).clone()
         states = [c.init_state(T_iter) for c in self.checkers]
+        mstate = (self.matcher.loop_state_init(reading, matcher_aux)
+                  if matcher_aux is not None else None)
         iteration = 0
-        code = 0
+        if not bshape:
+            code = 0
+            while True:
+                T_iter, states, iterate, c, stats, mstate = self._step(
+                    reading, reference, T_iter, states, iteration,
+                    matcher_aux, mstate)
+                go, c = torch.stack([iterate.to(torch.int32), c]).tolist()
+                iteration += 1
+                code = max(code, c)
+                if not go:
+                    return T_iter, iteration, code, stats
+        active = torch.ones(bshape, dtype=torch.bool, device=dev)
+        iters = torch.zeros(bshape, dtype=torch.int32, device=dev)
+        code = torch.zeros(bshape, dtype=torch.int32, device=dev)
         stats = None
         while True:
-            T_iter, states, iterate, c, stats = self._step(
-                reading, reference, T_iter, states, iteration)
-            go, c = torch.stack([iterate.to(torch.int32), c]).tolist()
+            live = reading.with_mask(active[..., None])
+            T_new, new_states, iterate, c, new_stats, new_mstate = self._step(
+                live, reference, T_iter, states, iteration, matcher_aux,
+                mstate)
+            T_iter = _keep_active(active, T_new, T_iter)
+            states = _keep_active(active, new_states, states)
+            mstate = _keep_active(active, new_mstate, mstate)
+            stats = (new_stats if stats is None
+                     else _keep_active(active, new_stats, stats))
+            iters = iters + active.to(torch.int32)
+            code = torch.where(active, torch.maximum(code, c), code)
+            active = active & iterate
             iteration += 1
-            code = max(code, c)
-            if not go:
-                return T_iter, iteration, code, stats
+            if not bool(active.any()):
+                return T_iter, iters, code, stats
 
 
 class ICPSequence(ICP):
@@ -270,6 +332,36 @@ class ICPSequence(ICP):
         self._T_refIn_refMean = T_refIn_refMean
         self.matcher.init(cloud)
         self.prefiltered_reference_pts_count = cloud.count_host()
+
+    def has_map(self) -> bool:
+        return self._map is not None
+
+    def clear_map(self) -> None:
+        self._map = None
+        self._T_refIn_refMean = None
+
+    def warmup(self, num_points: int, batch: int = 8, seed: int = 0,
+               example: Optional[PointCloud] = None) -> float:
+        """Run one serving batch of ``batch`` scans of ``num_points`` rows,
+        so that the first real batch finds the kernels built and the map's
+        sweep tables made. The scan is ``example`` if given, else points
+        drawn uniformly in the map's bounding box. Returns the wall seconds
+        spent."""
+        from .parallel.batch import register_batch_to_map
+
+        if not self.has_map():
+            raise RuntimeError("set_map first")
+        t0 = time.perf_counter()
+        scan = example
+        if scan is None:
+            pts, _ = self.get_prefiltered_internal_map().to_numpy()
+            rng = np.random.default_rng(seed)
+            fake = rng.uniform(pts.min(axis=0), pts.max(axis=0),
+                               size=(int(num_points), pts.shape[1]))
+            scan = PointCloud.from_numpy(fake.astype(np.float32),
+                                         device=self.device)
+        register_batch_to_map(self, [scan] * int(batch), seed=seed)
+        return time.perf_counter() - t0
 
     def trm_host(self) -> np.ndarray:
         """Host float64 copy of T_refIn_refMean."""

@@ -4,19 +4,30 @@ PointMatcher.h:470-494, MatchersImpl.{h,cpp}).
 
 ``KDTreeMatcher`` keeps the reference's name and parameters; it is served by
 the exact dense search of :func:`.ops.dispatch.knn_search`, which launches
-the K1, K9 or K5 kernel on the card. Matches are row-major ``[N, knn]``;
-invalid entries carry dist = +inf, id = −1.
+the K1, K9 or K5 kernel on the card. Matches are row-major ``[N, knn]``, or
+``[B, N, knn]`` for a batch of scans; invalid entries carry dist = +inf,
+id = −1.
+
+Batch serving (``parallel.batch.register_batch_to_map``) takes, on maps of
+16 384 rows or more, the survivor-sweep route of :mod:`.ops.sweep`: the
+serving loop runs against a Morton-sorted copy of the map, and each
+iteration bounds every query's neighbour distance by the one it had in the
+previous iteration, carried as matcher loop state.
 """
 
 from __future__ import annotations
 
+import math
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from .cloud import PointCloud
-from .ops.dispatch import knn_search
+from .ops import sweep
+from .ops.dispatch import MXU_EPSILON_FLOOR, knn_search
+from .ops.morton import morton_argsort
 from .registry import Param, Parametrizable, Registrar
 
 __all__ = ["Matches", "Matcher", "NullMatcher", "KDTreeMatcher",
@@ -48,6 +59,16 @@ class Matcher(Parametrizable):
     def find_closests_in(self, reading: PointCloud,
                          reference: PointCloud) -> Matches:
         raise NotImplementedError
+
+    #: True when serving must put each scan in its Morton order before the
+    #: loop (the matcher's stateful route runs in sorted space)
+    SERVING_PERMUTES_READING = False
+
+    def serving_loop_aux(self, reference: PointCloud) -> bool:
+        """Called once per serving batch with the map: True routes the
+        serving loop through :meth:`find_closests_in_stateful` with the
+        tables :meth:`serving_aux` returns. Default: no such route."""
+        return False
 
 
 MatcherRegistrar = Registrar("Matcher")
@@ -82,13 +103,118 @@ class KDTreeMatcher(Matcher):
               float, "inf", min=0.0),
     )
 
+    #: map rows (in the JAX package's 512-row granule) from which batch
+    #: serving takes the survivor sweep by default
+    SKIP_AUTO_MIN_MAP = 16384
+    #: largest padded map the survivor sweep serves (K4 above
+    #: ``ops.sweep.SKIP_MAX_MPAD``); larger maps go dense
+    STREAM_MAX_MPAD = 131072
+    SERVING_PERMUTES_READING = True
+
+    def __init__(self, params=None):
+        super().__init__(params)
+        self._skip_shared = None
+        self._skip_for = None
+        self._skip_sorted_ref = None
+        self._skip_stream = False
+        #: survivor share per serving iteration ([B] tensors), for diagnostics
+        self.survivor_fractions = []
+
     def find_closests_in(self, reading, reference):
-        dists, ids = knn_search(reading.points, reading.mask, reference.points,
-                                reference.mask, k=self.knn,
+        b = reading.points.shape[:-2]
+        dists, ids = knn_search(reading.points.reshape(-1, reading.dim),
+                                reading.mask.reshape(-1),
+                                reference.points, reference.mask, k=self.knn,
                                 epsilon=float(self.epsilon))
+        matches = Matches(dists.reshape(*b, -1, self.knn),
+                          ids.reshape(*b, -1, self.knn))
+        return self._apply_max_dist(matches)
+
+    def _apply_max_dist(self, m: Matches) -> Matches:
         if self.maxDist == float("inf"):
-            return Matches(dists, ids)
+            return m
         limit = float(np.float32(self.maxDist) * np.float32(self.maxDist))
-        keep = dists <= limit
-        return Matches(torch.where(keep, dists, torch.full_like(dists, float("inf"))),
-                       torch.where(keep, ids, torch.full_like(ids, -1)))
+        keep = m.dists <= limit
+        return Matches(torch.where(keep, m.dists, torch.full_like(m.dists, float("inf"))),
+                       torch.where(keep, m.ids, torch.full_like(m.ids, -1)))
+
+    # ---- survivor-sweep serving route (ops/sweep.py): the serving loop runs
+    # in Morton-sorted space, the scans permuted once before the loop and the
+    # map replaced by its sorted copy, so sorted ids index the loop's
+    # reference directly.
+    def serving_loop_aux(self, reference: PointCloud) -> bool:
+        """Pick the route for a serving batch against ``reference`` and
+        build the map's tables once per map. ``PMTPU_SERVE_SKIP`` = 0 / 1
+        forces the dense / survivor route, ``auto`` (the default) takes the
+        survivor route from ``SKIP_AUTO_MIN_MAP`` rows; ``PMTPU_SERVE_STREAM``
+        = 0 keeps maps above ``ops.sweep.SKIP_MAX_MPAD`` rows dense. The
+        row counts compared are the JAX package's (the valid count rounded
+        up to 512), so a map takes the same route in both. knn > 1 (K6 is
+        not ported), ε at or above the K9 floor and d > 3 go dense."""
+        mode = os.environ.get("PMTPU_SERVE_SKIP", "auto")
+        rows = 512 * math.ceil(max(reference.count_host(), 1) / 512)
+        dense = (mode not in ("1", "auto")
+                 or (mode == "auto" and rows < self.SKIP_AUTO_MIN_MAP)
+                 or self.knn > 1
+                 or float(self.epsilon) >= MXU_EPSILON_FLOOR
+                 or reference.dim > 3)
+        stream_ok = (os.environ.get("PMTPU_SERVE_STREAM", "auto") != "0"
+                     and rows <= self.STREAM_MAX_MPAD)
+        if dense or (rows > sweep.SKIP_MAX_MPAD and not stream_ok):
+            self._skip_shared = None
+            return False
+        self._skip_stream = rows > sweep.SKIP_MAX_MPAD
+        if self._skip_shared is not None and self._skip_for is reference:
+            return True
+        pts, mask = reference.host_rows()
+        rorder, _ = morton_argsort(pts, mask)
+        rs, rmask = pts[rorder], mask[rorder]
+        dev = reference.device
+        self._skip_shared = {
+            "skip_rt3": torch.as_tensor(sweep.chunked_ref_table(rs, rmask),
+                                        device=dev),
+            "skip_ct": torch.as_tensor(sweep.chunk_summaries(rs, rmask),
+                                       device=dev),
+        }
+        self._skip_sorted_ref = reference.permute_rows(
+            torch.as_tensor(rorder, dtype=torch.int64, device=dev))
+        self._skip_for = reference
+        return True
+
+    def serving_reference(self, reference: PointCloud) -> PointCloud:
+        """The loop's reference: the Morton-sorted map on the survivor
+        route, else ``reference`` itself."""
+        if self._skip_shared is None or self._skip_for is not reference:
+            return reference
+        return self._skip_sorted_ref
+
+    def serving_aux(self) -> dict:
+        """The map's tables for :meth:`find_closests_in_stateful`."""
+        return dict(self._skip_shared)
+
+    def loop_state_init(self, reading: PointCloud, aux):
+        """Per-scan loop state: each query's position at the previous sweep
+        and its squared distance to the winner found there (+inf: no sweep
+        yet, so iteration 0 bounds by the boxes alone)."""
+        return (reading.points,
+                torch.full(reading.mask.shape, float("inf"),
+                           device=reading.device))
+
+    def find_closests_in_stateful(self, reading: PointCloud, ref: PointCloud,
+                                  aux, state):
+        """Exact 1-NN through the survivor sweep → ``(Matches, state)``.
+        ``reading`` is Morton-sorted and ``ref`` is the sorted map. The
+        bound on each query's neighbour distance is carried from the
+        previous sweep by the triangle inequality, d(q, w_prev) ≤
+        d(q_prev, w_prev) + ‖q − q_prev‖, w_prev being a real map point,
+        and inflated by 4 ulp for its own roundings."""
+        qs, qm = reading.points, reading.mask
+        prev_pos, prev_d2 = state
+        step = torch.sqrt(torch.sum((qs - prev_pos) ** 2, dim=-1))
+        ub_t = (torch.sqrt(prev_d2) + step) * sweep.UP
+        d_s, i_s, frac = sweep.nn1_sorted_v2(qs, qm, ub_t, aux["skip_rt3"],
+                                             aux["skip_ct"],
+                                             stream=self._skip_stream)
+        self.survivor_fractions.append(frac)
+        matches = Matches(d_s[..., None], i_s[..., None])
+        return self._apply_max_dist(matches), (qs, d_s)

@@ -9,12 +9,7 @@ K5        knn_pallas.py::knnk_pallas      ``ops.knn.knn_brute_force`` (k ≤ 32)
 ========  ==============================  =======================================
 
 The kernels are CUDA C++ in ``csrc/knn.cu`` (see its header for the design
-and for what bounds them). They are compiled by ``nvcc`` for ``sm_90a`` into
-a shared library with a plain C interface, at first use, into
-``.torch_ext_build/`` beside the package, and loaded with ``ctypes``: no
-PyTorch header is compiled, so a build takes seconds. The library's name
-carries a hash of the source, so an edited source is never served a stale
-build.
+and for what bounds them), built at first use by :mod:`.cuda_build`.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises. There is no fallback between the two. Each
@@ -24,75 +19,35 @@ wrapper counts its kernel launches in ``<wrapper>.launches``.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
-from typing import Optional
 
 import torch
 
+from .cuda_build import KernelLibrary
 from .knn import knn_brute_force
 
-__all__ = ["knn1", "knn1_mxu", "knnk", "knn1_mxu_plain", "build", "KNNK_MAX",
-           "reset_launch_counts"]
+__all__ = ["knn1", "knn1_mxu", "knnk", "knn1_mxu_plain", "build", "LIBRARY",
+           "KNNK_MAX", "reset_launch_counts"]
 
 #: largest k served by the K5 kernel (as ``knn_pallas.KNNK_MAX``)
 KNNK_MAX = 32
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "knn.cu"
-_BUILD_DIR = Path(__file__).resolve().parent.parent.parent / ".torch_ext_build"
-_NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
-_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-#: ptxas's report (registers, shared memory, spills) of the last build
-build_log = ""
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.pm_knn1.argtypes = [p, p, i, p, p, i, i, i, i, i, p, p, p, p, p]
+    lib.pm_knn1.restype = i
+    lib.pm_knnk.argtypes = [p, p, i, p, p, i, i, i, i, i, i, p, p, p, p, p]
+    lib.pm_knnk.restype = i
+    lib.pm_tile_rows.argtypes = []
+    lib.pm_tile_rows.restype = i
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the k-NN kernels are built from "
-                       "csrc/knn.cu at first use and need the CUDA toolkit")
+LIBRARY = KernelLibrary("knn.cu", _declare)
 
 
 def build() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library."""
-    global _lib, build_log
-    with _lock:
-        if _lib is not None:
-            return _lib
-        src = _SRC.read_bytes()
-        tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:12]
-        out = _BUILD_DIR / f"libpm_knn_{tag}.so"
-        if not out.exists():
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {_SRC}:\n{proc.stderr}")
-            build_log = proc.stderr
-            os.replace(tmp, out)
-        lib = ctypes.CDLL(str(out))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.pm_knn1.argtypes = [p, p, i, p, p, i, i, i, i, i, p, p, p, p, p]
-        lib.pm_knn1.restype = i
-        lib.pm_knnk.argtypes = [p, p, i, p, p, i, i, i, i, i, i, p, p, p, p, p]
-        lib.pm_knnk.restype = i
-        lib.pm_tile_rows.argtypes = []
-        lib.pm_tile_rows.restype = i
-        lib.pm_error_string.argtypes = [i]
-        lib.pm_error_string.restype = ctypes.c_char_p
-        _lib = lib
-        return lib
+    return LIBRARY.load()
 
 
 def _check_inputs(query, query_mask, ref, ref_mask):
@@ -142,9 +97,7 @@ def _launch_knn1(query, query_mask, ref, ref_mask, mxu: bool):
                       rm.data_ptr(), m, dim, int(mxu), splits, chunk,
                       part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
                       out_i.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"k-NN kernel launch failed: "
-                           f"{lib.pm_error_string(err).decode()}")
+    LIBRARY.check(err, "k-NN kernel")
     return out_d, out_i
 
 
@@ -229,9 +182,7 @@ def knnk(query, query_mask, ref, ref_mask, k: int):
                       rm.data_ptr(), m, dim, k, kk, splits, chunk,
                       part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
                       out_i.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"k-NN kernel launch failed: "
-                           f"{lib.pm_error_string(err).decode()}")
+    LIBRARY.check(err, "k-NN kernel")
     knnk.launches += 1
     return out_d, out_i
 

@@ -1,0 +1,143 @@
+"""The survivor-sweep exact 1-NN step (counterpart of
+``libpointmatcher_tpu.ops.knn_sweep2``, its host tables and its step glue).
+
+The map is Morton-sorted and cut into 128-row chunks, and two tables are
+built once per map on the host: per-chunk boxes (:func:`chunk_summaries`)
+and the chunked map itself (:func:`chunked_ref_table`). Each serving
+iteration then runs two kernels (:mod:`.sweep_cuda`):
+
+- K2 bounds each query's nearest-neighbour distance from above by the
+  chunk boxes and the bound carried from the previous iteration, and flags
+  per 256-query tile the chunks that may hold any query's neighbour;
+- K3 (map up to ``SKIP_MAX_MPAD`` rows) or K4 (larger maps, the chunks
+  fetched asynchronously) sweeps only the flagged chunks of each 1024-query
+  tile, whose flags are the OR of its four bound tiles.
+
+The result is exact: the chunk of a valid query's true neighbour always
+survives, both bounds being inflated outward by 4 ulp, and every winner
+comes from the exact difference-form sweep.
+"""
+
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+import torch
+
+from . import sweep_cuda
+
+__all__ = ["chunk_summaries", "chunked_ref_table", "nn1_sorted_v2",
+           "query_table", "FAR", "UP", "SKIP_MAX_MPAD"]
+
+#: box and penalty sentinel of empty chunks and invalid queries
+FAR = 1.0e15
+#: float32(1 + 4e-7), the outward inflation of a bound
+UP = float(np.float32(1.0 + 4e-7))
+#: largest padded map served by K3; above it K4 streams the chunks
+SKIP_MAX_MPAD = 32768
+
+_CHUNK = 128
+_ROWS = 8
+
+
+def chunk_summaries(pts_sorted, mask_sorted) -> np.ndarray:
+    """Host, once per map: ``[8, nch_pad]`` float32 per-chunk table. Rows
+    0..2 the box's lo and 3..5 its hi over valid rows, pushed outward by
+    4e-7·(|lo| + |hi|) in float64; row 6 the chunk's valid count; empty and
+    padding chunks at ``FAR`` with count 0. ``nch_pad`` is a multiple of 128."""
+    pts = np.asarray(pts_sorted, np.float64)
+    mask = np.asarray(mask_sorted, bool)
+    n, d = pts.shape
+    npad = -(-n // _CHUNK) * _CHUNK
+    p = np.full((npad, d), np.nan)
+    p[:n] = np.where(mask[:, None], pts, np.nan)
+    p = p.reshape(-1, _CHUNK, d)
+    nch = p.shape[0]
+    nch_pad = -(-nch // 128) * 128
+    with np.errstate(invalid="ignore"), warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        lo = np.nanmin(p, axis=1)
+        hi = np.nanmax(p, axis=1)
+    empty = np.isnan(lo[:, 0])
+    span = np.where(empty[:, None], 0.0, np.abs(hi) + np.abs(lo))
+    lo = np.where(empty[:, None], FAR, lo - 4e-7 * span)
+    hi = np.where(empty[:, None], FAR, hi + 4e-7 * span)
+    out = np.full((_ROWS, nch_pad), np.float32(FAR))
+    out[:d, :nch] = lo.T.astype(np.float32)
+    out[3:3 + d, :nch] = hi.T.astype(np.float32)
+    out[6:, :] = 0.0
+    cnt = np.zeros((npad,), np.float32)
+    cnt[:n] = mask.astype(np.float32)
+    out[6, :nch] = cnt.reshape(-1, _CHUNK).sum(axis=1)
+    return out
+
+
+def chunked_ref_table(pts_sorted, mask_sorted) -> np.ndarray:
+    """Host, once per map: ``[nch, 8, 128]`` float32 chunked map. Rows
+    0..2 the coordinates, row 3 the penalty (0 valid, +inf invalid or
+    padding), the rest 0."""
+    pts = np.asarray(pts_sorted, np.float32)
+    mask = np.asarray(mask_sorted, bool)
+    n, d = pts.shape
+    npad = -(-n // _CHUNK) * _CHUNK
+    out = np.zeros((npad // _CHUNK, _ROWS, _CHUNK), np.float32)
+    p = np.zeros((npad, d), np.float32)
+    p[:n] = pts
+    pen = np.full((npad,), np.inf, np.float32)
+    pen[:n] = np.where(mask, 0.0, np.inf)
+    out[:, :d, :] = p.reshape(-1, _CHUNK, d).transpose(0, 2, 1)
+    out[:, 3, :] = pen.reshape(-1, _CHUNK)
+    return out
+
+
+def query_table(qs: torch.Tensor, qm: torch.Tensor,
+                ub_t: torch.Tensor) -> torch.Tensor:
+    """``qs [..., n, d]`` → the ``[B·n_pad, 8]`` query table of the
+    flattened batch: each scan padded to ``n_pad``, a multiple of 2048 rows
+    (eight bound tiles, two sweep tiles), so that no tile holds rows of two
+    scans. Cols 0..d−1 coordinates, col 3 0 (valid) or ``FAR``, col 4 the
+    transported bound (+inf where unknown and on padding)."""
+    *bshape, n, d = qs.shape
+    b = int(np.prod(bshape, dtype=np.int64))
+    step = max(8 * sweep_cuda.BOUND_TILE, sweep_cuda.SWEEP_TILE)
+    n_pad = -(-n // step) * step
+    qp = torch.zeros((b, n_pad, _ROWS), dtype=torch.float32, device=qs.device)
+    qp[:, :n, :d] = qs.reshape(b, n, d)
+    qp[:, :, 3] = FAR
+    qp[:, :n, 3] = torch.where(qm.reshape(b, n), 0.0, FAR)
+    qp[:, :, 4] = float("inf")
+    qp[:, :n, 4] = ub_t.reshape(b, n)
+    return qp.reshape(b * n_pad, _ROWS)
+
+
+def nn1_sorted_v2(qs: torch.Tensor, qm: torch.Tensor, ub_t: torch.Tensor,
+                  rt3: torch.Tensor, ct: torch.Tensor, stream: bool = False):
+    """One serving iteration's matching: bounds → survivors → exact sweep,
+    for every scan of the batch at once.
+
+    ``qs [..., n, d]`` Morton-sorted queries at the current pose, ``qm``
+    their validity, ``ub_t [..., n]`` the transported bound on each
+    query's neighbour distance (+inf unknown); ``rt3``, ``ct`` the map's
+    tables. One K2 launch and one K3 (``stream=False``) or K4 launch serve
+    all scans. Returns ``(d2 [..., n], ids [..., n], frac [...])``: ids
+    index the sorted map, (+inf, −1) at invalid queries; ``frac`` is the
+    share of (sweep tile, chunk) pairs swept, per scan."""
+    *bshape, n, _ = qs.shape
+    nch = rt3.shape[0]
+    qp = query_table(qs, qm, ub_t)
+    _, surv = sweep_cuda.survivors_and_bounds(qp, ct, nch=nch)
+    fold = sweep_cuda.SWEEP_TILE // sweep_cuda.BOUND_TILE
+    surv = surv.reshape(-1, fold, surv.shape[1]).amax(dim=1)
+    sweep = (sweep_cuda.nn1_survivor_sweep_stream if stream
+             else sweep_cuda.nn1_survivor_sweep)
+    d2, ids = sweep(qp, rt3, surv)
+    d2 = d2.reshape(*bshape, -1)[..., :n]
+    ids = ids.reshape(*bshape, -1)[..., :n]
+    finite = torch.isfinite(d2)
+    d2 = torch.where(qm, d2, torch.full_like(d2, float("inf")))
+    ids = torch.where(qm & finite, ids, torch.full_like(ids, -1))
+    per_scan = surv.reshape(*bshape, -1, surv.shape[1])
+    frac = (per_scan[..., :nch].sum(dim=(-2, -1)).to(torch.float32)
+            / (per_scan.shape[-2] * max(nch, 1)))
+    return d2, ids, frac

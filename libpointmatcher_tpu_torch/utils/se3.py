@@ -1,5 +1,6 @@
 """SE(2)/SE(3) helpers on (d+1)x(d+1) homogeneous float32 matrices
-(the counterpart of ``libpointmatcher_tpu.utils.se3``)."""
+(the counterpart of ``libpointmatcher_tpu.utils.se3``). Every helper takes
+leading batch dimensions as well: ``T [..., d+1, d+1]``."""
 
 from __future__ import annotations
 
@@ -13,34 +14,40 @@ def identity(dim: int, device=None) -> torch.Tensor:
     return torch.eye(dim + 1, dtype=torch.float32, device=device)
 
 
+def _eye_like(R: torch.Tensor, d: int) -> torch.Tensor:
+    """Identity of size d+1 with the batch dimensions of R [..., d, d]."""
+    eye = torch.eye(d + 1, dtype=R.dtype, device=R.device)
+    return eye.expand(*R.shape[:-2], d + 1, d + 1).clone()
+
+
 def inverse(T: torch.Tensor) -> torch.Tensor:
     """Closed-form SE(n) inverse: [R t]⁻¹ = [Rᵀ -Rᵀt]."""
     d = T.shape[-1] - 1
-    R = T[:d, :d]
-    out = torch.eye(d + 1, dtype=T.dtype, device=T.device)
-    out[:d, :d] = R.T
-    out[:d, d] = -(R.T @ T[:d, d])
+    Rt = T[..., :d, :d].mT
+    out = _eye_like(Rt, d)
+    out[..., :d, :d] = Rt
+    out[..., :d, d] = -(Rt @ T[..., :d, d, None])[..., 0]
     return out
 
 
 def from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     d = R.shape[-1]
-    T = torch.eye(d + 1, dtype=R.dtype, device=R.device)
-    T[:d, :d] = R
-    T[:d, d] = t
+    T = _eye_like(R, d)
+    T[..., :d, :d] = R
+    T[..., :d, d] = t
     return T
 
 
 def apply(T: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
-    """Apply homogeneous T to [N, d] points → [N, d]."""
+    """Apply homogeneous T [..., d+1, d+1] to [..., N, d] points."""
     d = points.shape[-1]
-    return points @ T[:d, :d].T + T[:d, d]
+    return points @ T[..., :d, :d].mT + T[..., None, :d, d]
 
 
 def rodrigues(omega: torch.Tensor) -> torch.Tensor:
-    """Axis-angle vector [3] → rotation matrix [3, 3], with the same
-    series form near zero as the JAX package (no branch on the host)."""
-    theta2 = torch.sum(omega * omega)
+    """Axis-angle vector [..., 3] → rotation matrix [..., 3, 3], with the
+    same series form near zero as the JAX package (no branch on the host)."""
+    theta2 = torch.sum(omega * omega, dim=-1)[..., None, None]
     theta = torch.sqrt(theta2 + 1e-30)
     small = theta < 1e-6
     one = torch.ones_like(theta)
@@ -49,18 +56,20 @@ def rodrigues(omega: torch.Tensor) -> torch.Tensor:
     a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(safe_t) / safe_t)
     b = torch.where(small, 0.5 - theta2 / 24.0,
                     (1.0 - torch.cos(safe_t)) / safe_t2)
-    wx, wy, wz = omega[0], omega[1], omega[2]
+    wx, wy, wz = omega[..., 0], omega[..., 1], omega[..., 2]
     z = torch.zeros_like(wx)
-    K = torch.stack([torch.stack([z, -wz, wy]),
-                     torch.stack([wz, z, -wx]),
-                     torch.stack([-wy, wx, z])])
+    K = torch.stack([torch.stack([z, -wz, wy], dim=-1),
+                     torch.stack([wz, z, -wx], dim=-1),
+                     torch.stack([-wy, wx, z], dim=-1)], dim=-2)
     eye = torch.eye(3, dtype=omega.dtype, device=omega.device)
     return eye + a * K + b * (K @ K)
 
 
 def rot2d(angle: torch.Tensor) -> torch.Tensor:
+    """Angle [...] → rotation matrix [..., 2, 2]."""
     c, s = torch.cos(angle), torch.sin(angle)
-    return torch.stack([torch.stack([c, -s]), torch.stack([s, c])])
+    return torch.stack([torch.stack([c, -s], dim=-1),
+                        torch.stack([s, c], dim=-1)], dim=-2)
 
 
 def _fma_dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

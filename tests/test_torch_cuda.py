@@ -1,15 +1,15 @@
-"""The port on the card: the K1, K9 and K5 kernels against their plain
-versions on CUDA tensors, and a registration on the card against the same
-registration on the CPU. Every test needs a CUDA device and skips without
-one. The file imports neither JAX nor the JAX package, so it runs on a
-machine with the card alone:
+"""The port on the card: the K1, K9, K5, K2, K3 and K4 kernels against
+their plain versions on CUDA tensors, and registrations on the card against
+the same registrations on the CPU. Every test needs a CUDA device and skips
+without one. The file imports neither JAX nor the JAX package, so it runs
+on a machine with the card alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: K1 and K5 equal their plain versions bit for bit (the same
-rounded operations in the same order); K9 agrees within 2^-20·(q² + r²),
-its expansion form's rounding bound, and its excess over the exact
-neighbour distance stays below MXU_EPSILON_FLOOR.
+Tolerances: K1, K5, K2, K3 and K4 equal their plain versions bit for bit
+(the same rounded operations in the same order); K9 agrees within
+2^-20·(q² + r²), its expansion form's rounding bound, and its excess over
+the exact neighbour distance stays below MXU_EPSILON_FLOOR.
 """
 
 import numpy as np
@@ -18,9 +18,12 @@ import torch
 
 import libpointmatcher_tpu_torch as pt
 from libpointmatcher_tpu_torch.checkers import CounterTransformationChecker
-from libpointmatcher_tpu_torch.ops import dispatch
+from libpointmatcher_tpu_torch.ops import dispatch, sweep
 from libpointmatcher_tpu_torch.ops import knn_cuda as kc
+from libpointmatcher_tpu_torch.ops import sweep_cuda as sc
 from libpointmatcher_tpu_torch.ops.knn import knn_brute_force
+from libpointmatcher_tpu_torch.ops.morton import morton_argsort
+from libpointmatcher_tpu_torch.parallel import register_batch_to_map
 
 pytestmark = pytest.mark.cuda
 
@@ -119,3 +122,104 @@ def test_registration_on_card_matches_cpu(cuda):
         poses.append(T.cpu().numpy())
     np.testing.assert_allclose(poses[1], poses[0], atol=1e-5)
     np.testing.assert_allclose(poses[1][:3, 3], [-0.05, 0.03, -0.02], atol=1e-2)
+
+
+def _survivor_inputs(seed, n, m, device):
+    """Two Morton-sorted scans of clustered queries, a sorted map and its
+    tables, every 9th query and 13th map row masked."""
+    rng = np.random.default_rng(seed)
+    pts = lambda k: np.concatenate([rng.normal(size=(k * 3 // 4, 3)) * 0.7,
+                                    rng.uniform(-8, 8, (k - k * 3 // 4, 3))])
+    r = pts(m).astype(np.float32)
+    rm = np.ones(m, bool)
+    rm[::13] = False
+    order, _ = morton_argsort(r, rm)
+    rs, rsm = r[order], rm[order]
+    qs, qms = [], []
+    for _ in range(2):
+        q = (pts(n) + 0.01).astype(np.float32)
+        qm = np.ones(n, bool)
+        qm[::9] = False
+        o, _ = morton_argsort(q, qm)
+        qs.append(q[o])
+        qms.append(qm[o])
+    t = lambda a: torch.as_tensor(a, device=device)
+    return (t(np.stack(qs)), t(np.stack(qms)), t(rs), t(rsm),
+            t(sweep.chunked_ref_table(rs, rsm)), t(sweep.chunk_summaries(rs, rsm)))
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_k2_k3_k4_equal_plain(cuda, k):
+    qs, qm, rs, rsm, rt3, ct = _survivor_inputs(5, 3000, 5000, cuda)
+    ub_t = torch.full(qm.shape, float("inf"), device=cuda)
+    d_prev = None
+    for _ in range(2):                      # cold, then a transported bound
+        if d_prev is not None:
+            ub_t = (torch.sqrt(d_prev) + 0.01) * sweep.UP
+        qp = sweep.query_table(qs, qm, ub_t)
+        ub, surv = sc.survivors_and_bounds(qp, ct, k)
+        ubp, survp = sc.survivors_and_bounds_plain(qp, ct, k)
+        ubc, survc = sc.survivors_and_bounds(qp, ct, k, nch=rt3.shape[0])
+        torch.cuda.synchronize()
+        assert torch.equal(ub, ubp) and torch.equal(surv, survp)
+        assert torch.equal(ubc, ub) and torch.equal(survc, surv)
+        surv = surv.reshape(-1, 4, surv.shape[1]).amax(dim=1)
+        d3, i3 = sc.nn1_survivor_sweep(qp, rt3, surv)
+        d4, i4 = sc.nn1_survivor_sweep_stream(qp, rt3, surv)
+        dp, ip = sc.survivor_sweep_plain(qp, rt3, surv)
+        torch.cuda.synchronize()
+        assert torch.equal(d3, dp) and torch.equal(i3, ip)
+        assert torch.equal(d4, d3) and torch.equal(i4, i3)
+        d2, ids, _ = sweep.nn1_sorted_v2(qs, qm, ub_t, rt3, ct)
+        d1, i1 = kc.knn1(qs.reshape(-1, 3), qm.reshape(-1), rs, rsm)
+        assert torch.equal(d2.reshape(-1), d1)
+        assert torch.equal(ids.reshape(-1), i1)
+        d_prev = torch.where(torch.isfinite(d2), d2, torch.zeros_like(d2))
+
+
+def _room(rng, n):
+    k = n // 4
+    return np.concatenate([
+        np.c_[rng.uniform(0, 6, k), rng.uniform(0, 4, k), np.zeros(k)],
+        np.c_[rng.uniform(0, 6, k), np.zeros(k), rng.uniform(0, 2.5, k)],
+        np.c_[np.zeros(k), rng.uniform(0, 4, k), rng.uniform(0, 2.5, k)],
+        np.c_[rng.uniform(2, 3, k), rng.uniform(1.5, 2.5, k), np.full(k, 0.8)],
+    ]).astype(np.float32)
+
+
+@pytest.mark.parametrize("route", ["dense", "K3", "K4"])
+def test_batch_serving_on_card_matches_cpu(cuda, monkeypatch, route):
+    """register_batch_to_map of three scans on both devices, fed the same
+    draws: iterations and codes equal, poses to float32 summation noise,
+    and the launches follow the route."""
+    monkeypatch.setenv("PMTPU_SERVE_SKIP", "0" if route == "dense" else "1")
+    if route == "K4":
+        monkeypatch.setattr(sweep, "SKIP_MAX_MPAD", 512)
+    rng = np.random.default_rng(6)
+    world = _room(rng, 8000)
+    scans = [world[rng.choice(len(world), 1500, replace=False)]
+             + np.float32([0.05, -0.03, 0.02]) for _ in range(3)]
+    u_map = rng.random(len(world)).astype(np.float32)
+    u_scans = rng.random((3, 1500)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        seq = pt.ICPSequence(device=dev)
+        seq.set_default()
+        seq.reference_filters[0].uniform = u_map
+        seq.reading_filters[0].uniform = u_scans
+        seq.set_map(pt.PointCloud.from_numpy(world, device=dev))
+        kc.reset_launch_counts()
+        sc.reset_launch_counts()
+        T, info = register_batch_to_map(
+            seq, [pt.PointCloud.from_numpy(s, device=dev) for s in scans])
+        out[dev] = T, info
+    (Tc, ic), (Tg, ig) = out["cpu"], out["cuda"]
+    np.testing.assert_array_equal(ig["iterations"], ic["iterations"])
+    np.testing.assert_array_equal(ig["codes"], ic["codes"])
+    np.testing.assert_allclose(Tg, Tc, atol=1e-5)
+    it = int(ig["iterations"].max())
+    launches = (kc.knn1.launches, sc.survivors_and_bounds.launches,
+                sc.nn1_survivor_sweep.launches,
+                sc.nn1_survivor_sweep_stream.launches)
+    assert launches == {"dense": (it, 0, 0, 0), "K3": (0, it, it, 0),
+                        "K4": (0, it, 0, it)}[route]

@@ -1,0 +1,119 @@
+"""Where batched scan-to-map serving of the port spends its time on the card.
+
+    python3 tools_torch/profile_serving.py [--batches 5] [--out FILE.json]
+
+For each route of chip_smoke.py's serving phase (the 100 000-point scene's
+50 147-row map: K2 + K4; a 60 000-point scene's map: K2 + K3; a
+25 000-point scene's map: dense K1), with 8 scans of 25 000 points per
+batch, it runs one warm-up ``register_batch_to_map``, then
+
+1. times ``--batches`` batches on the host clock, each ending in a
+   synchronize (ms per batch, lockstep iterations, ms per iteration);
+2. traces as many more with ``torch.profiler`` and reports the device time
+   by kernel name, the kernel launches per lockstep iteration, and the
+   device busy share: traced kernel time per iteration over the untraced
+   wall time per iteration (the profiler slows the host several-fold).
+
+Needs a CUDA device; prints one JSON object (and writes it to ``--out``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+from tools_torch.profile_registration import _device_us  # noqa: E402
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--batches", type=int, default=5)
+    ap.add_argument("--out", default=None, help="also write the JSON here")
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_serving: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    import libpointmatcher_tpu_torch as pt
+    from libpointmatcher_tpu_torch.ops import knn_cuda as kc
+    from libpointmatcher_tpu_torch.ops import sweep_cuda as sc
+    from libpointmatcher_tpu_torch.parallel import register_batch_to_map
+    from torch.profiler import ProfilerActivity, profile
+
+    kc.build()
+    sc.build()
+    rng = np.random.default_rng(0)
+    smi = os.popen("nvidia-smi --query-gpu=name,power.limit "
+                   "--format=csv,noheader").read().strip()
+    out = {"device": smi, "batch": cs.SERVE_BATCH, "routes": {}}
+    for route, target in cs.SERVE_SCENES.items():
+        world = cs.make_scene(rng, target)
+        poses = cs.make_poses(world, cs.SERVE_BATCH, rng)
+        clouds = [pt.PointCloud.from_numpy(cs.make_scan(world, P, rng))
+                  for P in poses]
+        inits = [cs.perturb(rng) @ P for P in poses]
+        seq = pt.ICPSequence()
+        seq.set_default()
+        seq.set_map(pt.PointCloud.from_numpy(world), seed=0)
+
+        def serve(seed):
+            _, info = register_batch_to_map(seq, clouds, T_inits=inits, seed=seed)
+            return int(info["iterations"].max())
+
+        serve(0)                                     # warm-up: map tables
+        wall, iters = [], []
+        for b in range(1, args.batches + 1):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            iters.append(serve(b))
+            torch.cuda.synchronize()
+            wall.append(1e3 * (time.perf_counter() - t))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            traced_iters = sum(serve(b) for b in range(args.batches + 1,
+                                                       2 * args.batches + 1))
+            torch.cuda.synchronize()
+        kernels = []
+        for evt in prof.key_averages():
+            us = _device_us(evt)
+            if us > 0 and str(getattr(evt, "device_type", "")).endswith("CUDA"):
+                kernels.append((evt.key, us / 1e3, evt.count))
+        kernels.sort(key=lambda x: -x[1])
+        device_ms = sum(k[1] for k in kernels)
+        per_iter = float(np.median(np.array(wall) / np.array(iters)))
+        out["routes"][route] = {
+            "map_rows": seq.prefiltered_reference_pts_count,
+            "ms_per_batch": wall,
+            "lockstep_iterations": iters,
+            "ms_per_iteration_median": per_iter,
+            "traced_iterations": traced_iters,
+            "device_ms_per_iteration": device_ms / traced_iters,
+            "device_busy_share": (device_ms / traced_iters) / per_iter,
+            "kernel_launches_per_iteration":
+                sum(k[2] for k in kernels) / traced_iters,
+            "top_kernels_ms_per_iteration": [
+                (k, ms / traced_iters, c / traced_iters)
+                for k, ms, c in kernels[:15]],
+        }
+        del seq, clouds
+        torch.cuda.empty_cache()
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

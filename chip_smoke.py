@@ -37,7 +37,34 @@ Phases, each fatal on failure:
 8. K2, K3 and K4 once more at the inputs the serving runs gave them (the
    second lockstep iteration), timed beside the plain versions and, for
    K3 and K4, a ``torch.cdist`` yardstick; K3 is also timed at K4's inputs
-   and K4 at K3's.
+   and K4 at K3's;
+9. K6, the top-k survivor sweep, against its plain version for k = 2, 3
+   and 4 on the 8 scans of phase 6 against the ~30 000-row map, cold and
+   with a transported bound: equal bit for bit, and the route's d² equal
+   to K5's dense top-k column for column, its ids equal to K5's through
+   the Morton order where the neighbour is unique;
+10. K1's pair axis: 4 scans against 4 other scans in one launch, equal bit
+   for bit to 4 single launches and to the plain version;
+11. queue serving: ``register_queue_to_map`` of 64 scans of 25 000 points
+   through 8 lanes, plain and coarse-to-fine ``(4, 16, 1.0)``, on the
+   K4, K3 and dense maps, then with ``knn`` = 3 under
+   ``PMTPU_SERVE_SKIP=1`` on the K3 map (K2 + K6). Every pose is held to
+   the ground truth; the launches of each run, counted from 0, equal the
+   lane iterations of both passes on the route's kernels and 0 on the
+   others; the plain queue's first 8 scans equal a
+   ``register_batch_to_map`` of the same 8 in iterations and codes;
+   registrations per second are logged. Each c2f run records the inputs of
+   its coarse pass's first two matcher calls (8 lanes at the coarse pool's
+   cap), and the route's kernels are held to their plain versions there:
+   K2, K3, K4 and K1 as in phase 6, K6 as in phase 9, K1 on the dense map.
+   K6 is then timed at the knn = 3 queue's inputs (its second lane
+   iteration) beside its plain version and a ``torch.cdist`` + ``topk``
+   yardstick;
+12. ``register_batch``: 4 one-shot pairs, each scan against the one before
+   it, under the pose gates, with K1 launches equal to the lockstep
+   iterations; every K1 call of that run (filtered readings against
+   references of other row counts, each pair padded to the largest) is
+   held to its plain version and to one launch per pair, bit for bit.
 
 The second-to-last line is the JSON of kernels, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
@@ -47,6 +74,7 @@ prints no result. Only the port is imported.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -196,7 +224,14 @@ KERNELS = {
     # per (valid query, valid row of a surviving chunk), as K1
     "K3 nn1_survivor_sweep": ("libpointmatcher_tpu/ops/knn_sweep2.py:242", 9),
     "K4 nn1_survivor_sweep_stream": ("libpointmatcher_tpu/ops/knn_sweep2.py:482", 9),
+    # per (valid query, valid row of a surviving chunk), as K3; the top-k
+    # insertions are rare and not counted
+    "K6 nnk_survivor_sweep": ("libpointmatcher_tpu/ops/knn_sweep2.py:349", 9),
 }
+QUEUE_SCANS = 64
+QUEUE_LANES = 8
+COARSE = (4, 16, 1.0)
+PAIRS = 4
 
 
 def bound_ms(name, n_valid, m_valid, n, m, k):
@@ -414,24 +449,236 @@ def record_survivor_kernels(torch, sc, sweep, qs, qm, ub_t, tab, names,
 
 
 class InputRecorder:
-    """Keeps the inputs of every survivor step of a serving run (the
-    matcher calls ``ops.sweep.nn1_sorted_v2`` once per iteration)."""
+    """Keeps copies of the positional arguments of the first ``keep`` calls
+    (all with None) that a serving run makes to ``module.name``: the
+    matcher's survivor step (``ops.sweep.nn1_sorted_v2``, or
+    ``nnk_sorted_v2`` for knn > 1, once per iteration) or its dense search
+    (``matchers.knn_search``, K1)."""
 
-    def __init__(self, sweep):
-        self.sweep = sweep
+    def __init__(self, module, name="nn1_sorted_v2", keep=None):
+        self.module = module
+        self.name = name
+        self.keep = keep
         self.calls = []
 
     def __enter__(self):
-        self.orig = self.sweep.nn1_sorted_v2
-        self.sweep.nn1_sorted_v2 = self
+        self.orig = getattr(self.module, self.name)
+        setattr(self.module, self.name, self)
         return self
 
-    def __call__(self, qs, qm, ub_t, *a, **k):
-        self.calls.append((qs.clone(), qm.clone(), ub_t.clone()))
-        return self.orig(qs, qm, ub_t, *a, **k)
+    def __call__(self, *a, **k):
+        if self.keep is None or len(self.calls) < self.keep:
+            self.calls.append(tuple(x.clone() if hasattr(x, "clone") else x
+                                    for x in a))
+        return self.orig(*a, **k)
 
     def __exit__(self, *exc):
-        self.sweep.nn1_sorted_v2 = self.orig
+        setattr(self.module, self.name, self.orig)
+
+
+# ------------------------------------------------------------ slice 3
+def serving_queries(torch, morton, cell, stride=11):
+    """The cell's scans placed at their true poses in the map frame, each
+    in its Morton order, every ``stride``-th row masked, cut to a common
+    length → (qs [B, n, 3], qm [B, n])."""
+    trm = cell["seq"].trm_host()
+    qs, qm = [], []
+    for scan, P in zip(cell["scans"], cell["poses"]):
+        T = np.linalg.inv(trm) @ P
+        q = torch.as_tensor((scan @ T[:3, :3].T + T[:3, 3]).astype(np.float32),
+                            device="cuda")
+        m = torch.ones(q.shape[0], dtype=torch.bool, device="cuda")
+        m[::stride] = False
+        o = morton.morton_argsort_device(q, m)
+        qs.append(q[o])
+        qm.append(m[o])
+    n = min(x.shape[0] for x in qs)
+    return torch.stack([x[:n] for x in qs]), torch.stack([x[:n] for x in qm])
+
+
+def check_topk_step(torch, sc, sweep, kc, qs, qm, ub_t, tab, k, label):
+    """K6 against its plain version, and the top-k survivor route against
+    K5 on the map in its own order, on one query batch → the route's d²."""
+    rt3, ct, _, _, rorder, ref, refm = tab
+    nch = rt3.shape[0]
+    qp = sweep.query_table(qs, qm, ub_t)
+    _, surv = sc.survivors_and_bounds(qp, ct, k, nch=nch)
+    surv4 = surv.reshape(-1, 4, surv.shape[1]).amax(dim=1)
+    d6, i6 = sc.nnk_survivor_sweep(qp, rt3, surv4, k)
+    dp, ip = sc.nnk_survivor_sweep_plain(qp, rt3, surv4, k)
+    torch.cuda.synchronize()
+    if not (torch.equal(d6, dp) and torch.equal(i6, ip)):
+        raise AssertionError(f"{label}: K6 differs from its plain version")
+    dk, ik, frac = sweep.nnk_sorted_v2(qs, qm, ub_t, rt3, ct, k)
+    flat_q, flat_m = qs.reshape(-1, 3), qm.reshape(-1)
+    e, j = kc.knnk(flat_q, flat_m, ref, refm, k + 1)
+    if not torch.equal(dk.reshape(-1, k), e[:, :k]):
+        raise AssertionError(f"{label}: top-k route d2 differs from K5's")
+    below = torch.cat([torch.full_like(e[:, :1], -1.0), e[:, :k - 1]], dim=1)
+    unique = (torch.isfinite(e[:, :k]) & (e[:, :k] > below)
+              & (e[:, 1:] > e[:, :k]))
+    mapped = rorder[ik.reshape(-1, k).clamp(min=0).long()].to(torch.int32)
+    if not torch.equal(mapped[unique], j[:, :k][unique]):
+        raise AssertionError(f"{label}: top-k route ids differ from K5's")
+    log(f"[survivor] {label}: {qp.shape[0]} query rows x {nch} chunks, "
+        f"survivor share {float(frac.mean()):.4f}, {int(unique.sum())} unique "
+        f"neighbours compared; K6 equals its plain version and K5")
+    return dk
+
+
+def record_topk_kernel(torch, sc, sweep, qs, qm, ub_t, tab, k, launches):
+    """Time K6 at one serving iteration's inputs → its kernel record."""
+    rt3, ct, ref_s, refm_s = tab[:4]
+    nch = rt3.shape[0]
+    name = "K6 nnk_survivor_sweep"
+    qp = sweep.query_table(qs, qm, ub_t)
+    _, surv = sc.survivors_and_bounds(qp, ct, k, nch=nch)
+    surv4 = surv.reshape(-1, 4, surv.shape[1]).amax(dim=1)
+    run = lambda: sc.nnk_survivor_sweep(qp, rt3, surv4, k)
+    plain = lambda: sc.nnk_survivor_sweep_plain(qp, rt3, surv4, k)
+    d, i = run()
+    dp, ip = plain()
+    torch.cuda.synchronize()
+    if not (torch.equal(d, dp) and torch.equal(i, ip)):
+        raise AssertionError(f"{name}: kernel and plain version differ")
+    ms = cuda_ms(torch, run, 20)
+    plain_ms = cuda_ms(torch, plain, 2)
+    # the yardstick: one cdist + topk call per lane over its valid queries
+    # (no one call takes the batch, as for K3)
+    rv = ref_s[refm_s]
+    lib = lambda: [torch.cdist(q[m], rv, compute_mode="donot_use_mm_for_euclid_dist")
+                   .topk(k, dim=1, largest=False) for q, m in zip(qs, qm)]
+    torch.cuda.empty_cache()
+    lib_ms = cuda_ms(torch, lib, 1)
+    ops = KERNELS[name][1] * survivor_work(torch, qp, surv4, ct, nch)
+    nbytes = (32 + 8 * k) * qp.shape[0] + 4096 * nch + 4 * surv4.numel()
+    bms, by = bound_of(ops, nbytes)
+    fin = torch.isfinite(dp)
+    rec = {"name": name, "route": "cuda",
+           "source": "libpointmatcher_tpu_torch/csrc/sweep.cu",
+           "replaces": KERNELS[name][0], "launches": launches,
+           "max_abs_err": float((d[fin] - dp[fin]).abs().max()) if bool(fin.any()) else 0.0,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+           "library_ms": None}
+    log(f"[kernel] main path {name} k={k} {qp.shape[0]} query rows x {nch} "
+        f"chunks, cdist+topk one call per lane x{qs.shape[0]}: {lib_ms:.2f} ms: "
+        + json.dumps(rec))
+    return rec
+
+
+def check_k1_call(torch, kc, q, qm, r, rm, label):
+    """One K1 call against its plain version and, with a pair axis
+    (``r`` [B, M, 3]), against one launch per pair, bit for bit."""
+    from libpointmatcher_tpu_torch.ops.knn import knn_brute_force
+
+    d, i = kc.knn1(q, qm, r, rm)
+    dp, ip = knn_brute_force(q, qm, r, rm, k=1)
+    torch.cuda.synchronize()
+    if not (torch.equal(d, dp[..., 0]) and torch.equal(i, ip[..., 0])):
+        raise AssertionError(f"{label}: K1 differs from its plain version")
+    if r.ndim == 3:
+        singles = [kc.knn1(q[b], qm[b], r[b], rm[b]) for b in range(r.shape[0])]
+        if not (torch.equal(d, torch.stack([x[0] for x in singles]))
+                and torch.equal(i, torch.stack([x[1] for x in singles]))):
+            raise AssertionError(f"{label}: K1 pair axis differs from single "
+                                 f"launches")
+    log(f"[kernel] {label}: K1 at {tuple(q.shape)} queries ({int(qm.sum())} "
+        f"valid) x {tuple(r.shape)} references ({rm.sum(dim=-1).tolist()} "
+        f"valid) equals its plain version"
+        + (" and single launches" if r.ndim == 3 else ""))
+
+
+def check_pair_axis(torch, kc, scans):
+    """K1 over PAIRS pairs in one launch against single launches and the
+    plain version (scan i+1 against scan i, sensor frames, masks of their
+    own)."""
+    n = min(len(x) for x in scans[:PAIRS + 1])
+    t = lambda a: torch.as_tensor(np.stack(a), device="cuda")
+    q = t([scans[i + 1][:n] for i in range(PAIRS)])
+    r = t([scans[i][:n] for i in range(PAIRS)])
+    qm = torch.ones(q.shape[:2], dtype=torch.bool, device="cuda")
+    rm = torch.ones(r.shape[:2], dtype=torch.bool, device="cuda")
+    qm[:, ::11] = False
+    rm[:, 3::7] = False
+    check_k1_call(torch, kc, q, qm, r, rm, "K1 pair axis, raw scans")
+    ms = cuda_ms(torch, lambda: kc.knn1(q, qm, r, rm), 20)
+    ms1 = cuda_ms(torch, lambda: [kc.knn1(q[b], qm[b], r[b], rm[b])
+                                  for b in range(PAIRS)], 20)
+    log(f"[kernel] K1 pair axis {PAIRS} x {n} x {n}: {ms:.4f} ms in one "
+        f"launch, {ms1:.4f} ms in {PAIRS}")
+
+
+def run_queue(torch, kc, sc, register_queue_to_map, seq, cell, coarse,
+              launches, label):
+    """One queue through the port's entry point, its launches counted from
+    0 and its lane iterations (calls of the engine's step) counted →
+    (T, info, launches, lane iterations, recorded). With ``coarse``,
+    ``recorded`` holds the inputs of the first two matcher calls, which
+    belong to the coarse pass (it runs first), by callee name."""
+    from contextlib import ExitStack
+
+    from libpointmatcher_tpu_torch import matchers
+    from libpointmatcher_tpu_torch.ops import sweep
+
+    steps = [0]
+    step = seq._step
+
+    def counted(*a, **k):
+        steps[0] += 1
+        return step(*a, **k)
+
+    seq._step = counted
+    try:
+        with ExitStack() as stack:
+            recs = [stack.enter_context(InputRecorder(mod, name, keep=2))
+                    for mod, name in ((sweep, "nn1_sorted_v2"),
+                                      (sweep, "nnk_sorted_v2"),
+                                      (matchers, "knn_search"))] if coarse else []
+            kc.reset_launch_counts()
+            sc.reset_launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            T, info = register_queue_to_map(seq, cell["qclouds"],
+                                            T_inits=cell["qinits"], seed=1,
+                                            lanes=QUEUE_LANES, coarse=coarse)
+            sec = time.perf_counter() - t
+            counts = launches()
+    finally:
+        del seq._step
+    recorded = {r.name: r.calls for r in recs if r.calls}
+    errs = [pose_error(Ti, P) for Ti, P in zip(T, cell["qposes"])]
+    log(f"[queue] {label}{' c2f' if coarse else ''}: {len(T)} scans, "
+        f"{QUEUE_LANES} lanes, {steps[0]} lane iterations, {sec * 1e3:.1f} ms, "
+        f"{len(T) / sec:.2f} registrations/s, fine iterations "
+        f"{info['iterations'].tolist()}, codes {sorted(set(info['codes'].tolist()))}, "
+        f"worst rot err {max(a for a, _ in errs):.5f} rad, worst trans err "
+        f"{max(b for _, b in errs):.5f} m, launches {counts}")
+    for i, ((a, b), Ti) in enumerate(zip(errs, T)):
+        if not (np.isfinite(Ti).all() and a < ROT_TOL and b < TRANS_TOL):
+            raise AssertionError(f"{label} queue scan {i}: pose error {a}, {b}")
+    return T, info, counts, steps[0], recorded
+
+
+def check_coarse_pass(torch, kc, sc, sweep, recorded, tab, route):
+    """The coarse pass's first two matcher calls (cold, then with the
+    transported bound), recorded in a c2f queue run, through the route's
+    kernels against their plain versions: K2 and K3/K4 (and K1 on the same
+    queries) on the K4 and K3 routes, K6 on the K6 route, K1 on the dense
+    one."""
+    name = {"K1": "knn_search", "K6": "nnk_sorted_v2"}.get(route, "nn1_sorted_v2")
+    calls = recorded.get(name, [])
+    if len(calls) != 2 or len(recorded) != 1:
+        seen = {k: len(v) for k, v in recorded.items()}
+        raise AssertionError(f"{route} c2f: recorded {seen}, expected 2 calls "
+                             f"of {name}")
+    for it, call in enumerate(calls):
+        label = f"{route} c2f coarse pass, iteration {it}"
+        if route == "K1":
+            check_k1_call(torch, kc, *call[:4], label)
+        elif route == "K6":
+            check_topk_step(torch, sc, sweep, kc, *call[:3], tab, 3, label)
+        else:
+            check_survivor_step(torch, sc, sweep, kc, *call[:3], tab, label)
 
 
 def kernel_inputs(torch, world, scan_world, n, m, rng, device="cuda"):
@@ -457,12 +704,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import libpointmatcher_tpu_torch as pt
+    from libpointmatcher_tpu_torch import matchers
     from libpointmatcher_tpu_torch.matchers import KDTreeMatcher
     from libpointmatcher_tpu_torch.ops import morton, sweep
     from libpointmatcher_tpu_torch.ops import knn_cuda as kc
     from libpointmatcher_tpu_torch.ops import sweep_cuda as sc
     from libpointmatcher_tpu_torch.ops.dispatch import MXU_EPSILON_FLOOR
-    from libpointmatcher_tpu_torch.parallel import register_batch_to_map
+    from libpointmatcher_tpu_torch.parallel import (register_batch,
+                                                    register_batch_to_map,
+                                                    register_queue_to_map)
 
     # ---- 1. device
     smi = subprocess.run(
@@ -616,7 +866,7 @@ def main() -> int:
         s_seq = pt.ICPSequence()
         s_seq.set_default()
         s_seq.set_map(pt.PointCloud.from_numpy(w), seed=0)
-        serve[route] = {"seq": s_seq, "poses": ps,
+        serve[route] = {"seq": s_seq, "poses": ps, "world": w,
                         "scans": [make_scan(w, P, rng) for P in ps],
                         "T_inits": [perturb(rng) @ P for P in ps]}
         log(f"[scene] {route} route: {len(w)} scene points -> "
@@ -628,20 +878,7 @@ def main() -> int:
         cell = serve[route]
         internal = cell["seq"].get_prefiltered_internal_map()
         tab = survivor_tables(torch, morton, sweep, internal)
-        trm = cell["seq"].trm_host()
-        qs, qm = [], []
-        for scan, P in zip(cell["scans"], cell["poses"]):
-            T = np.linalg.inv(trm) @ P
-            q = torch.as_tensor((scan @ T[:3, :3].T + T[:3, 3]).astype(np.float32),
-                                device="cuda")
-            m = torch.ones(q.shape[0], dtype=torch.bool, device="cuda")
-            m[::11] = False
-            o = morton.morton_argsort_device(q, m)
-            qs.append(q[o])
-            qm.append(m[o])
-        n = min(x.shape[0] for x in qs)
-        qs = torch.stack([x[:n] for x in qs])
-        qm = torch.stack([x[:n] for x in qm])
+        qs, qm = serving_queries(torch, morton, cell)
         ub_t = torch.full(qm.shape, float("inf"), device="cuda")
         d2 = check_survivor_step(torch, sc, sweep, kc, qs, qm, ub_t, tab,
                                  f"{route} cold")
@@ -655,10 +892,20 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # ---- 7. batch serving through register_batch_to_map
-    launch_of = {"K1": lambda: kc.knn1.launches,
-                 "K2": lambda: sc.survivors_and_bounds.launches,
-                 "K3": lambda: sc.nn1_survivor_sweep.launches,
-                 "K4": lambda: sc.nn1_survivor_sweep_stream.launches}
+    def launches():
+        return {"K1": kc.knn1.launches,
+                "K2": sc.survivors_and_bounds.launches,
+                "K3": sc.nn1_survivor_sweep.launches,
+                "K4": sc.nn1_survivor_sweep_stream.launches,
+                "K5": kc.knnk.launches,
+                "K6": sc.nnk_survivor_sweep.launches}
+
+    def route_launches(route, n):
+        """The launches a serving run of n iterations makes on a route."""
+        used = {"K1": ("K1",), "K3": ("K2", "K3"), "K4": ("K2", "K4"),
+                "K6": ("K2", "K6")}[route]
+        return {name: n if name in used else 0 for name in launches()}
+
     for route, cell in serve.items():
         s_seq = cell["seq"]
         clouds = [pt.PointCloud.from_numpy(x) for x in cell["scans"]]
@@ -670,7 +917,7 @@ def main() -> int:
         T, info = register_batch_to_map(s_seq, clouds, T_inits=cell["T_inits"],
                                         seed=1)
         ms = 1e3 * (time.perf_counter() - t)
-        counts = {k: f() for k, f in launch_of.items()}
+        counts = launches()
         it = int(info["iterations"].max())
         fracs = [round(float(f.mean()), 4)
                  for f in s_seq.matcher.survivor_fractions]
@@ -686,9 +933,7 @@ def main() -> int:
             if not (np.isfinite(Ti).all() and ang < ROT_TOL and tr < TRANS_TOL):
                 raise AssertionError(f"{route} serving scan {i}: pose error "
                                      f"{ang}, {tr}")
-        want = {"K1": {"K1": it, "K2": 0, "K3": 0, "K4": 0},
-                "K3": {"K1": 0, "K2": it, "K3": it, "K4": 0},
-                "K4": {"K1": 0, "K2": it, "K3": 0, "K4": it}}[route]
+        want = route_launches(route, it)
         if counts != want:
             raise AssertionError(f"{route} serving launches {counts}, "
                                  f"expected {want}")
@@ -700,7 +945,8 @@ def main() -> int:
             T2, _ = pending.result()
         if not np.allclose(T2, T, atol=1e-6):
             raise AssertionError(f"{route}: block=False gave other poses")
-        cell["inputs"] = rec.calls[min(1, len(rec.calls) - 1)] if rec.calls else None
+        cell["inputs"] = (rec.calls[min(1, len(rec.calls) - 1)][:3]
+                          if rec.calls else None)
 
     # ---- 8. survivor kernels at the serving runs' inputs, for the record
     serve_launches = {
@@ -715,6 +961,112 @@ def main() -> int:
                                            cell["tab"], names, serve_launches,
                                            route)
         torch.cuda.empty_cache()
+
+    # ---- 9. K6 on the 8 scans of phase 6, against the ~30 000-row map
+    cell = serve["K3"]
+    qs, qm = serving_queries(torch, morton, cell)
+    shift = torch.tensor([0.012, -0.01, 0.012], device="cuda")
+    for k in (2, 3, 4):
+        ub_t = torch.full(qm.shape, float("inf"), device="cuda")
+        dk = check_topk_step(torch, sc, sweep, kc, qs, qm, ub_t, cell["tab"],
+                             k, f"K6 k={k} cold")
+        ub_t = (torch.sqrt(dk[..., -1]) + torch.linalg.norm(shift)) * sweep.UP
+        check_topk_step(torch, sc, sweep, kc, qs + shift, qm, ub_t,
+                        cell["tab"], k, f"K6 k={k} warm")
+    del qs, qm, dk, ub_t
+    torch.cuda.empty_cache()
+
+    # ---- 10. K1's pair axis
+    check_pair_axis(torch, kc, scans)
+
+    # ---- 11. queue serving, 64 scans through 8 lanes, per route
+    knn3 = pt.ICPSequence()
+    knn3.set_default()
+    knn3.matcher = KDTreeMatcher({"knn": "3"})
+    knn3.set_map(pt.PointCloud.from_numpy(serve["K3"]["world"]), seed=0)
+    serve["K6"] = dict(serve["K3"], seq=knn3)
+    for route, cell in serve.items():
+        if route == "K6":
+            cell.update({k: serve["K3"][k] for k in ("qclouds", "qinits", "qposes")})
+            continue
+        ps = make_poses(cell["world"], QUEUE_SCANS, rng)
+        cell["qposes"] = ps
+        cell["qclouds"] = [pt.PointCloud.from_numpy(make_scan(cell["world"], P, rng))
+                           for P in ps]
+        cell["qinits"] = [perturb(rng) @ P for P in ps]
+    env_skip = os.environ.get("PMTPU_SERVE_SKIP")
+    k6_launches = 0
+    for route, cell in serve.items():
+        if route == "K6":
+            os.environ["PMTPU_SERVE_SKIP"] = "1"
+        q_seq = cell["seq"]
+        for coarse in (None, COARSE):
+            T, info, counts, steps, recorded = run_queue(
+                torch, kc, sc, register_queue_to_map, q_seq, cell, coarse,
+                launches, f"{route} route")
+            want = route_launches(route, steps)
+            if counts != want:
+                raise AssertionError(f"{route} queue launches {counts}, "
+                                     f"expected {want}")
+            if coarse is not None:
+                check_coarse_pass(torch, kc, sc, sweep, recorded,
+                                  cell.get("tab"), route)
+                del recorded
+                torch.cuda.empty_cache()
+            if route == "K6":
+                k6_launches += counts["K6"]
+            if coarse is None:
+                _, ib = register_batch_to_map(
+                    q_seq, cell["qclouds"][:SERVE_BATCH],
+                    T_inits=cell["qinits"][:SERVE_BATCH], seed=1)
+                for key in ("iterations", "codes"):
+                    if not np.array_equal(ib[key], info[key][:SERVE_BATCH]):
+                        raise AssertionError(
+                            f"{route} queue {key} {info[key][:SERVE_BATCH]} "
+                            f"differ from the batch's {ib[key]}")
+        if route == "K6":
+            with InputRecorder(sweep, "nnk_sorted_v2") as rec:
+                register_queue_to_map(q_seq, cell["qclouds"][:2 * QUEUE_LANES],
+                                      T_inits=cell["qinits"][:2 * QUEUE_LANES],
+                                      seed=1, lanes=QUEUE_LANES)
+            if env_skip is None:
+                del os.environ["PMTPU_SERVE_SKIP"]
+            else:
+                os.environ["PMTPU_SERVE_SKIP"] = env_skip
+            records.append(record_topk_kernel(
+                torch, sc, sweep, *rec.calls[1][:3], cell["tab"], 3, k6_launches))
+        torch.cuda.empty_cache()
+
+    # ---- 12. register_batch: 4 one-shot pairs, scan i+1 onto scan i
+    pair_icp = pt.ICP()
+    pair_icp.set_default()
+    gts = [np.linalg.inv(poses[i]) @ poses[i + 1] for i in range(PAIRS)]
+    kc.reset_launch_counts()
+    with InputRecorder(matchers, "knn_search") as rec:
+        T, info = register_batch(
+            pair_icp, [pt.PointCloud.from_numpy(scans[i + 1]) for i in range(PAIRS)],
+            [pt.PointCloud.from_numpy(scans[i]) for i in range(PAIRS)],
+            T_inits=[perturb(rng) @ g for g in gts], seed=1)
+    it = int(info["iterations"].max())
+    k1_launches = kc.knn1.launches
+    log(f"[pairs] register_batch of {PAIRS} pairs: iterations "
+        f"{info['iterations'].tolist()}, codes {info['codes'].tolist()}, K1 "
+        f"launches {kc.knn1.launches} (lockstep iterations {it})")
+    for i, (Ti, g) in enumerate(zip(T, gts)):
+        ang, tr = pose_error(Ti, g)
+        log(f"[pairs] pair {i}: rot err {ang:.5f} rad, trans err {tr:.5f} m")
+        if not (np.isfinite(Ti).all() and ang < ROT_TOL and tr < TRANS_TOL):
+            raise AssertionError(f"register_batch pair {i}: pose error {ang}, {tr}")
+    if (k1_launches, kc.knn1_mxu.launches, kc.knnk.launches) != (it, 0, 0):
+        raise AssertionError("register_batch launches do not follow the route")
+    # every K1 call of that run, at the filtered pairs' padded shapes
+    if len(rec.calls) != it or any(c[2].ndim != 3 for c in rec.calls):
+        raise AssertionError(f"register_batch made {len(rec.calls)} pair-axis "
+                             f"searches, expected {it}")
+    for j, call in enumerate(rec.calls):
+        check_k1_call(torch, kc, *call[:4], f"register_batch iteration {j}")
+    del rec
+
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,10 @@
 // sorted top-K, stays in registers. The reference rows are split into
 // contiguous chunks over gridDim.y so that a few thousand queries still give
 // every SM several blocks; a second small kernel merges the chunks in chunk
-// order.
+// order. Independent (query set, reference) pairs of one size, as
+// pair-parallel one-shot registration stacks them, run in one launch with
+// the pair on gridDim.z, each pair's rows at its own offset; one pair is
+// the single-reference search.
 //
 // Exactness: K1 and K5 form d2 = ((pen + dx*dx) + dy*dy) + dz*dz with
 // explicitly rounded intrinsics (no FMA contraction), the order of the plain
@@ -110,6 +113,12 @@ knn1_partial(const float* __restrict__ q, int n, const float* __restrict__ ref,
              const uint8_t* __restrict__ rmask, int m, int dim, int chunk,
              float* __restrict__ part_d, int* __restrict__ part_i) {
   __shared__ float4 tile[kTile];
+  const int64_t pair = blockIdx.z;
+  q += pair * n * dim;
+  ref += pair * m * dim;
+  rmask += pair * m;
+  part_d += pair * gridDim.y * n;
+  part_i += pair * gridDim.y * n;
   const int64_t qi = (int64_t)blockIdx.x * kBlock + threadIdx.x;
   const int64_t j0 = (int64_t)blockIdx.y * chunk;
   const int64_t j1 = min64(m, j0 + chunk);
@@ -141,12 +150,19 @@ knn1_partial(const float* __restrict__ q, int n, const float* __restrict__ ref,
   }
 }
 
+// Merges the chunks of pairs * n queries; query qi of pair p is row
+// p * n + qi of qmask and of the outputs.
 __global__ void knn1_combine(const float* __restrict__ part_d,
-                             const int* __restrict__ part_i, int n, int splits,
-                             const uint8_t* __restrict__ qmask, int clamp0,
-                             float* __restrict__ out_d, int* __restrict__ out_i) {
-  const int64_t qi = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (qi >= n) return;
+                             const int* __restrict__ part_i, int n, int pairs,
+                             int splits, const uint8_t* __restrict__ qmask,
+                             int clamp0, float* __restrict__ out_d,
+                             int* __restrict__ out_i) {
+  const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= (int64_t)pairs * n) return;
+  const int64_t pair = row / n;
+  const int64_t qi = row - pair * n;
+  part_d += pair * splits * n;
+  part_i += pair * splits * n;
   float best = CUDART_INF_F;
   int besti = -1;
   for (int s = 0; s < splits; ++s) {
@@ -157,9 +173,9 @@ __global__ void knn1_combine(const float* __restrict__ part_d,
     }
   }
   if (clamp0) best = fmaxf(best, 0.0f);
-  const bool qv = qmask[qi] != 0;
-  out_d[qi] = qv ? best : CUDART_INF_F;
-  out_i[qi] = (qv && isfinite(best)) ? besti : -1;
+  const bool qv = qmask[row] != 0;
+  out_d[row] = qv ? best : CUDART_INF_F;
+  out_i[row] = (qv && isfinite(best)) ? besti : -1;
 }
 
 // K5: sorted top-K of one reference chunk per blockIdx.y.
@@ -169,6 +185,12 @@ knnk_partial(const float* __restrict__ q, int n, const float* __restrict__ ref,
              const uint8_t* __restrict__ rmask, int m, int dim, int chunk,
              float* __restrict__ part_d, int* __restrict__ part_i) {
   __shared__ float4 tile[kTile];
+  const int64_t pair = blockIdx.z;
+  q += pair * n * dim;
+  ref += pair * m * dim;
+  rmask += pair * m;
+  part_d += pair * gridDim.y * n * K;
+  part_i += pair * gridDim.y * n * K;
   const int64_t qi = (int64_t)blockIdx.x * kBlock + threadIdx.x;
   const int64_t j0 = (int64_t)blockIdx.y * chunk;
   const int64_t j1 = min64(m, j0 + chunk);
@@ -204,11 +226,16 @@ knnk_partial(const float* __restrict__ q, int n, const float* __restrict__ ref,
 
 template <int K>
 __global__ void knnk_combine(const float* __restrict__ part_d,
-                             const int* __restrict__ part_i, int n, int splits,
-                             const uint8_t* __restrict__ qmask, int k,
-                             float* __restrict__ out_d, int* __restrict__ out_i) {
-  const int64_t qi = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (qi >= n) return;
+                             const int* __restrict__ part_i, int n, int pairs,
+                             int splits, const uint8_t* __restrict__ qmask,
+                             int k, float* __restrict__ out_d,
+                             int* __restrict__ out_i) {
+  const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= (int64_t)pairs * n) return;
+  const int64_t pair = row / n;
+  const int64_t qi = row - pair * n;
+  part_d += pair * splits * n * K;
+  part_i += pair * splits * n * K;
   float bd[K];
   int bi[K];
 #pragma unroll
@@ -224,29 +251,30 @@ __global__ void knnk_combine(const float* __restrict__ part_d,
       insert_sorted<K>(bd, bi, d, part_i[base + s]);
     }
   }
-  const bool qv = qmask[qi] != 0;
+  const bool qv = qmask[row] != 0;
 #pragma unroll
   for (int s = 0; s < K; ++s) {
     if (s < k) {
-      out_d[qi * k + s] = qv ? bd[s] : CUDART_INF_F;
-      out_i[qi * k + s] = (qv && isfinite(bd[s])) ? bi[s] : -1;
+      out_d[row * k + s] = qv ? bd[s] : CUDART_INF_F;
+      out_i[row * k + s] = (qv && isfinite(bd[s])) ? bi[s] : -1;
     }
   }
 }
 
 template <int K>
 cudaError_t launch_knnk(const float* q, const uint8_t* qmask, int n,
-                        const float* ref, const uint8_t* rmask, int m, int dim,
-                        int k, int splits, int chunk, float* part_d,
-                        int* part_i, float* out_d, int* out_i,
+                        const float* ref, const uint8_t* rmask, int m,
+                        int pairs, int dim, int k, int splits, int chunk,
+                        float* part_d, int* part_i, float* out_d, int* out_i,
                         cudaStream_t st) {
-  const dim3 grid((n + kBlock - 1) / kBlock, splits);
+  const dim3 grid((n + kBlock - 1) / kBlock, splits, pairs);
   knnk_partial<K><<<grid, kBlock, 0, st>>>(q, n, ref, rmask, m, dim, chunk,
                                            part_d, part_i);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  knnk_combine<K><<<(n + 127) / 128, 128, 0, st>>>(part_d, part_i, n, splits,
-                                                   qmask, k, out_d, out_i);
+  const int64_t rows = (int64_t)pairs * n;
+  knnk_combine<K><<<(unsigned)((rows + 127) / 128), 128, 0, st>>>(
+      part_d, part_i, n, pairs, splits, qmask, k, out_d, out_i);
   return cudaGetLastError();
 }
 
@@ -257,13 +285,18 @@ extern "C" {
 // Rows per chunk must be a multiple of the stage tile, splits * chunk >= m.
 int pm_tile_rows() { return kTile; }
 
+// `pairs` (query set, reference) pairs in one launch: pair p's queries are
+// rows p * n .. p * n + n - 1 of q and qmask, its reference rows p * m ..
+// of ref and rmask, its results rows p * n .. of the outputs; part_d and
+// part_i hold pairs * splits * n entries. One pair is the single-reference
+// search.
 int pm_knn1(const float* q, const uint8_t* qmask, int n, const float* ref,
-            const uint8_t* rmask, int m, int dim, int mxu, int splits,
-            int chunk, float* part_d, int* part_i, float* out_d, int* out_i,
-            void* stream) {
-  if (n == 0) return cudaSuccess;
+            const uint8_t* rmask, int m, int pairs, int dim, int mxu,
+            int splits, int chunk, float* part_d, int* part_i, float* out_d,
+            int* out_i, void* stream) {
+  if (n == 0 || pairs == 0) return cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid((n + kBlock - 1) / kBlock, splits);
+  const dim3 grid((n + kBlock - 1) / kBlock, splits, pairs);
   if (mxu)
     knn1_partial<true><<<grid, kBlock, 0, st>>>(q, n, ref, rmask, m, dim,
                                                 chunk, part_d, part_i);
@@ -272,34 +305,36 @@ int pm_knn1(const float* q, const uint8_t* qmask, int n, const float* ref,
                                                  chunk, part_d, part_i);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  knn1_combine<<<(n + 255) / 256, 256, 0, st>>>(part_d, part_i, n, splits,
-                                                qmask, mxu, out_d, out_i);
+  const int64_t rows = (int64_t)pairs * n;
+  knn1_combine<<<(unsigned)((rows + 255) / 256), 256, 0, st>>>(
+      part_d, part_i, n, pairs, splits, qmask, mxu, out_d, out_i);
   return cudaGetLastError();
 }
 
-// kk is the register list length: a power of two in [2, 32] with kk >= k.
+// kk is the register list length: a power of two in [2, 32] with kk >= k;
+// pairs as for pm_knn1, part_d and part_i hold pairs * splits * n * kk.
 int pm_knnk(const float* q, const uint8_t* qmask, int n, const float* ref,
-            const uint8_t* rmask, int m, int dim, int k, int kk, int splits,
-            int chunk, float* part_d, int* part_i, float* out_d, int* out_i,
-            void* stream) {
-  if (n == 0) return cudaSuccess;
+            const uint8_t* rmask, int m, int pairs, int dim, int k, int kk,
+            int splits, int chunk, float* part_d, int* part_i, float* out_d,
+            int* out_i, void* stream) {
+  if (n == 0 || pairs == 0) return cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
   switch (kk) {
     case 2:
-      return launch_knnk<2>(q, qmask, n, ref, rmask, m, dim, k, splits, chunk,
-                            part_d, part_i, out_d, out_i, st);
+      return launch_knnk<2>(q, qmask, n, ref, rmask, m, pairs, dim, k, splits,
+                            chunk, part_d, part_i, out_d, out_i, st);
     case 4:
-      return launch_knnk<4>(q, qmask, n, ref, rmask, m, dim, k, splits, chunk,
-                            part_d, part_i, out_d, out_i, st);
+      return launch_knnk<4>(q, qmask, n, ref, rmask, m, pairs, dim, k, splits,
+                            chunk, part_d, part_i, out_d, out_i, st);
     case 8:
-      return launch_knnk<8>(q, qmask, n, ref, rmask, m, dim, k, splits, chunk,
-                            part_d, part_i, out_d, out_i, st);
+      return launch_knnk<8>(q, qmask, n, ref, rmask, m, pairs, dim, k, splits,
+                            chunk, part_d, part_i, out_d, out_i, st);
     case 16:
-      return launch_knnk<16>(q, qmask, n, ref, rmask, m, dim, k, splits, chunk,
-                             part_d, part_i, out_d, out_i, st);
+      return launch_knnk<16>(q, qmask, n, ref, rmask, m, pairs, dim, k, splits,
+                             chunk, part_d, part_i, out_d, out_i, st);
     case 32:
-      return launch_knnk<32>(q, qmask, n, ref, rmask, m, dim, k, splits, chunk,
-                             part_d, part_i, out_d, out_i, st);
+      return launch_knnk<32>(q, qmask, n, ref, rmask, m, pairs, dim, k, splits,
+                             chunk, part_d, part_i, out_d, out_i, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -5,6 +5,7 @@
 //   K2  survivors_bounds      <- _bounds_kernel        (knn_sweep2.py:132, survivors_and_bounds)
 //   K3  survivor_sweep<false> <- _sweep_kernel         (knn_sweep2.py:242, nn1_survivor_sweep)
 //   K4  survivor_sweep<true>  <- _sweep_stream_kernel  (knn_sweep2.py:482, nn1_survivor_sweep_stream)
+//   K6  survivor_sweep_k<K>   <- _sweepk_kernel        (knn_sweep2.py:349, nnk_survivor_sweep)
 //
 // The map is Morton-sorted and cut into chunks of 128 rows. Inputs:
 //   qp   [n_pad, 8]       queries: cols 0..2 coordinates, col 3 the query
@@ -44,6 +45,14 @@
 // fp32 issue rate over the survivors; K4 hides the load latency that K3
 // waits on at each barrier.
 //
+// K6, the top-K sweep (K = 2..4) of the knn > 1 route, resident maps only,
+// has K3's shape: the same survivor list, each chunk staged between two
+// barriers, four queries per thread. Each query keeps its sorted top-K in
+// registers (K template-instantiated, so the list never spills to local
+// memory), and a row is inserted only when it beats the K-th distance. Its
+// work is K3's plus the rare insertions, so it is bound by the fp32 issue
+// rate over the survivors too.
+//
 // Exactness: K2 forms every quantity with explicitly rounded intrinsics in
 // the order of the plain torch version (ops/sweep_cuda.py), so nvcc cannot
 // contract an FMA into it and the flags are the same bit for bit. K3/K4 form
@@ -51,7 +60,10 @@
 // on the same pair. Survivors are swept in increasing chunk order and rows in
 // increasing order with a strict '<', so the lowest sorted-map index wins a
 // tie. A query whose tile has no survivor, or whose minimum stays +inf, gets
-// (+inf, 0); the caller masks it.
+// (+inf, 0); the caller masks it. K6 forms d2 the same way and inserts with
+// a strict '<' in the same sweep order, so equal distances keep the lower
+// index ahead: the order of the Pallas kernel's first-minimum merge, whose
+// ids K6 therefore matches, ties included. Slots left empty hold (+inf, -1).
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -158,6 +170,35 @@ survivors_bounds(const float* __restrict__ qp, const float* __restrict__ ct,
   }
 }
 
+// The ordered list of the chunks flagged in `flags` (one tile's row of
+// surv) into s_list, by warp ballots and a block prefix count; returns its
+// length. Every thread of the block calls it.
+__device__ __forceinline__ int survivor_list(const int* __restrict__ flags,
+                                             int nch, int* s_list,
+                                             int* s_warp) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  int count = 0;
+  for (int c0 = 0; c0 < nch; c0 += kSweepThreads) {
+    const int c = c0 + tid;
+    const bool f = c < nch && flags[c] != 0;
+    const unsigned ballot = __ballot_sync(0xffffffffu, f);
+    if (lane == 0) s_warp[warp] = __popc(ballot);
+    __syncthreads();
+    int off = count, total = 0;
+#pragma unroll
+    for (int w = 0; w < kSweepThreads / 32; ++w) {
+      if (w < warp) off += s_warp[w];
+      total += s_warp[w];
+    }
+    if (f) s_list[off + __popc(ballot & ((1u << lane) - 1u))] = c;
+    __syncthreads();
+    count += total;
+  }
+  return count;
+}
+
 // Copy rows 0..3 of chunk `ch` (2 KB) into one stage of the ring: 128
 // copies of 16 bytes, one per thread of the first 128.
 __device__ __forceinline__ void fetch_chunk_async(float (*stage)[kChunk],
@@ -184,28 +225,10 @@ survivor_sweep(const float* __restrict__ qp, const float* __restrict__ rt3,
   __shared__ __align__(16) float s_chunk[2][4][kChunk];
   __shared__ int s_warp[kSweepThreads / 32];
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const int tile = blockIdx.x;
 
-  // the ordered survivor list
-  int count = 0;
-  for (int c0 = 0; c0 < nch; c0 += kSweepThreads) {
-    const int c = c0 + tid;
-    const bool f = c < nch && surv[(int64_t)tile * nch_pad + c] != 0;
-    const unsigned ballot = __ballot_sync(0xffffffffu, f);
-    if (lane == 0) s_warp[warp] = __popc(ballot);
-    __syncthreads();
-    int off = count, total = 0;
-#pragma unroll
-    for (int w = 0; w < kSweepThreads / 32; ++w) {
-      if (w < warp) off += s_warp[w];
-      total += s_warp[w];
-    }
-    if (f) s_list[off + __popc(ballot & ((1u << lane) - 1u))] = c;
-    __syncthreads();
-    count += total;
-  }
+  const int count = survivor_list(surv + (int64_t)tile * nch_pad, nch,
+                                  s_list, s_warp);
 
   float qx[kPerThread], qy[kPerThread], qz[kPerThread], best[kPerThread];
   int besti[kPerThread];
@@ -268,6 +291,93 @@ survivor_sweep(const float* __restrict__ qp, const float* __restrict__ rt3,
   }
 }
 
+// Insert (d, id) into the ascending register list (bd, bi) of length K.
+// Equal distances keep their arrival order, so with rows arriving in
+// increasing sorted-map index the lower index stays first.
+template <int K>
+__device__ __forceinline__ void insert_sorted(float (&bd)[K], int (&bi)[K],
+                                              float d, int id) {
+  bool moved = false;
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    const bool sw = moved || d < bd[s];
+    const float td = bd[s];
+    const int ti = bi[s];
+    bd[s] = sw ? d : td;
+    bi[s] = sw ? id : ti;
+    d = sw ? td : d;
+    id = sw ? ti : id;
+    moved = sw;
+  }
+}
+
+// K6: exact top-K (K = 2..4) over the tile's surviving chunks, resident map.
+template <int K>
+__global__ void __launch_bounds__(kSweepThreads)
+survivor_sweep_k(const float* __restrict__ qp, const float* __restrict__ rt3,
+                 const int* __restrict__ surv, int nch, int nch_pad,
+                 float* __restrict__ out_d, int* __restrict__ out_i) {
+  extern __shared__ int s_list[];  // nch entries
+  __shared__ float s_chunk[4][kChunk];
+  __shared__ int s_warp[kSweepThreads / 32];
+  const int tid = threadIdx.x;
+  const int tile = blockIdx.x;
+  const int count = survivor_list(surv + (int64_t)tile * nch_pad, nch,
+                                  s_list, s_warp);
+
+  float qx[kPerThread], qy[kPerThread], qz[kPerThread];
+  float bd[kPerThread][K];
+  int bi[kPerThread][K];
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) {
+    const float* q = qp + ((int64_t)tile * kSweepTile + tid + j * kSweepThreads) * 8;
+    qx[j] = q[0];
+    qy[j] = q[1];
+    qz[j] = q[2];
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      bd[j][s] = CUDART_INF_F;
+      bi[j][s] = -1;
+    }
+  }
+
+  for (int s = 0; s < count; ++s) {
+    const int ch = s_list[s];
+    for (int e = tid; e < 4 * kChunk; e += kSweepThreads) {
+      const int r = e >> 7;
+      const int l = e & (kChunk - 1);
+      s_chunk[r][l] = rt3[((int64_t)ch * kRows + r) * kChunk + l];
+    }
+    __syncthreads();
+    const int base = ch * kChunk;
+    for (int l = 0; l < kChunk; ++l) {
+      const float rx = s_chunk[0][l];
+      const float ry = s_chunk[1][l];
+      const float rz = s_chunk[2][l];
+      const float rp = s_chunk[3][l];
+#pragma unroll
+      for (int j = 0; j < kPerThread; ++j) {
+        const float d = __fadd_rn(
+            __fadd_rn(__fadd_rn(rp, sq(__fsub_rn(qx[j], rx))),
+                      sq(__fsub_rn(qy[j], ry))),
+            sq(__fsub_rn(qz[j], rz)));
+        if (d < bd[j][K - 1]) insert_sorted<K>(bd[j], bi[j], d, base + l);
+      }
+    }
+    __syncthreads();  // the stage is refilled by the next iteration
+  }
+
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) {
+    const int64_t qi = (int64_t)tile * kSweepTile + tid + j * kSweepThreads;
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      out_d[qi * K + s] = bd[j][s];
+      out_i[qi * K + s] = bi[j][s];
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -301,6 +411,33 @@ int pm_survivor_sweep(const float* qp, int n_pad, const float* rt3, int nch,
   else
     survivor_sweep<false><<<grid, kSweepThreads, smem, st>>>(
         qp, rt3, surv, nch, nch_pad, out_d, out_i);
+  return cudaGetLastError();
+}
+
+// K6: out_d, out_i are [n_pad, k], k in 2..4; otherwise as pm_survivor_sweep.
+int pm_survivor_sweep_k(const float* qp, int n_pad, const float* rt3, int nch,
+                        const int* surv, int nch_pad, int k, float* out_d,
+                        int* out_i, void* stream) {
+  if (n_pad == 0) return cudaSuccess;
+  const size_t smem = (size_t)(nch > 0 ? nch : 1) * sizeof(int);
+  const dim3 grid(n_pad / kSweepTile);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (k) {
+    case 2:
+      survivor_sweep_k<2><<<grid, kSweepThreads, smem, st>>>(
+          qp, rt3, surv, nch, nch_pad, out_d, out_i);
+      break;
+    case 3:
+      survivor_sweep_k<3><<<grid, kSweepThreads, smem, st>>>(
+          qp, rt3, surv, nch, nch_pad, out_d, out_i);
+      break;
+    case 4:
+      survivor_sweep_k<4><<<grid, kSweepThreads, smem, st>>>(
+          qp, rt3, surv, nch, nch_pad, out_d, out_i);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
   return cudaGetLastError();
 }
 

@@ -47,6 +47,11 @@ def chain_generator(seed: int, stream: int, index: int, device,
 class DataPointsFilter(Parametrizable):
     """Interface (reference: PointMatcher.h:437-450)."""
 
+    #: True for a per-row rule on the cloud's device with no host step: the
+    #: JAX package's ``TRACEABLE`` filters, the ones its queue serves
+    #: (see ``parallel.stream.queue_eligible``)
+    TRACEABLE = False
+
     def __init__(self, params=None):
         super().__init__(params)
         #: optional precomputed draw, one value per row of the next input
@@ -82,11 +87,12 @@ class DataPointsFilter(Parametrizable):
 
 def apply_filter_chain(filters: Sequence[DataPointsFilter], cloud: PointCloud,
                        seed: int = 0, stream: int = 0,
-                       scan: Optional[int] = None) -> PointCloud:
+                       scan: Optional[int] = None,
+                       allow_empty: bool = False) -> PointCloud:
     """Apply ``filters`` in order, compacting after each. A filter that
-    leaves no point raises ``ConvergenceError``, except in a batch (``scan``
-    given), where the emptied scan goes on to the loop and stops there with
-    the no-inliers code, as in the JAX package's batch serving."""
+    leaves no point raises ``ConvergenceError``, unless ``allow_empty``:
+    in serving, the emptied scan goes on to the loop and stops there with
+    the no-inliers code, as in the JAX package's serving functions."""
     before = None
     for i, f in enumerate(filters):
         gen = chain_generator(seed, stream, i, cloud.device, scan)
@@ -95,7 +101,7 @@ def apply_filter_chain(filters: Sequence[DataPointsFilter], cloud: PointCloud,
         log_info(f"Applied {type(f).__name__} - {after} points remaining"
                  + (f" (of {before})" if before is not None else ""))
         before = after
-        if after == 0 and scan is None:
+        if after == 0 and not allow_empty:
             raise ConvergenceError(
                 f"no points remaining after filter {type(f).__name__}")
     return cloud

@@ -15,6 +15,7 @@ class RandomSamplingDataPointsFilter(DataPointsFilter):
     (reference: DataPointsFilters/RandomSampling.cpp; the default reading
     filter, ICP.cpp:105)."""
 
+    TRACEABLE = True
     PARAMS = (
         Param("prob", "probability to keep a point, one over decimation "
               "factor", float, 0.75, min=0.0, max=1.0),

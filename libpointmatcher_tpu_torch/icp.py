@@ -225,10 +225,12 @@ class ICP(ICPChainBase):
         return T_refIn_refMean @ T_iter @ T_refMean_dataIn
 
     def _step(self, reading, reference, T_iter, checker_states, iteration,
-              matcher_aux=None, matcher_state=None):
+              matcher_aux=None, matcher_state=None, checkers=None):
         """One iteration (the JAX engine's ``_make_step``), for one scan or
         a batch. With ``matcher_aux`` the matcher serves through its
-        stateful route and returns its new loop state."""
+        stateful route and returns its new loop state. ``checkers``
+        replaces the chain's own (the coarse pass of the queue)."""
+        checkers = self.checkers if checkers is None else checkers
         stepped = _apply_transform(self.transformations, reading, T_iter)
         if matcher_aux is not None:
             matches, matcher_state = self.matcher.find_closests_in_stateful(
@@ -247,7 +249,7 @@ class ICP(ICPChainBase):
         code = torch.zeros(T_new.shape[:-2], dtype=torch.int32,
                            device=T_new.device)
         new_states = []
-        for chk, st in zip(self.checkers, checker_states):
+        for chk, st in zip(checkers, checker_states):
             st2, stop, c = chk.check(st, T_new, iteration)
             new_states.append(st2)
             iterate = iterate & ~stop
@@ -308,6 +310,103 @@ class ICP(ICPChainBase):
                 return T_iter, iters, code, stats
 
 
+    def _run_queue(self, pool, reference, T0, lanes: int, checkers=None,
+                   matcher_aux=None):
+        """Continuous-batching loop over a pool of Q prepped scans
+        (``[Q, rows, d]``, the counterpart of the JAX queue program,
+        ``parallel/stream.py``) → ``(T_iter, iterations, codes, stats)``,
+        one of each per scan, on the engine's device.
+
+        ``lanes`` lanes step in lockstep through :meth:`_step`, lane l
+        starting on scan l from ``T0[l]``. After each iteration the host
+        reads the ``[L]`` flags once. A lane whose checkers stopped writes
+        its scan's pose, iteration count, code and statistics to the scan's
+        output slot and takes the next queued scan, simultaneous finishers
+        in lane order: the lanes' rows are gathered from the pool again,
+        and that lane's pose is set to the scan's ``T0``, its checker
+        states, iteration count, code and matcher loop state started
+        afresh. A lane left without a scan is masked out of the remaining
+        steps."""
+        checkers = list(self.checkers if checkers is None else checkers)
+        q = pool.points.shape[0]
+        dev = pool.device
+        n_lanes = min(int(lanes), q)
+        lane_scan = list(range(n_lanes))          # host: -1 = idle lane
+        next_scan = n_lanes
+        reading = _lanes(pool, torch.arange(n_lanes, device=dev))
+        T_iter = T0[:n_lanes].clone()
+        states = _lane_form([c.init_state(T_iter) for c in checkers], n_lanes, dev)
+        mstate = (self.matcher.loop_state_init(reading, matcher_aux)
+                  if matcher_aux is not None else None)
+        iters = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
+        code = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
+        out_T = T0.clone()
+        out_iters = torch.zeros(q, dtype=torch.int32, device=dev)
+        out_code = torch.zeros(q, dtype=torch.int32, device=dev)
+        out_stats = None
+        while True:
+            T_iter, states, iterate, c, stats, mstate = self._step(
+                reading, reference, T_iter, states, iters, matcher_aux, mstate,
+                checkers)
+            iters = iters + 1
+            code = torch.maximum(code, c)
+            go = iterate.tolist()                 # the one host read
+            done = [l for l, s in enumerate(lane_scan) if s >= 0 and not go[l]]
+            if not done:
+                continue
+            scans = [lane_scan[l] for l in done]
+            fresh = [False] * n_lanes
+            for l in done:
+                lane_scan[l] = next_scan if next_scan < q else -1
+                fresh[l] = next_scan < q
+                next_scan += fresh[l]
+            # one copy to the card: finished lanes, their scans, the lanes'
+            # new scans and which lanes took one
+            idx = torch.as_tensor(done + scans + lane_scan + fresh, device=dev)
+            k = len(done)
+            lanes_d, scans_d = idx[:k], idx[k:2 * k]
+            lane_now, fresh = idx[2 * k:2 * k + n_lanes], idx[2 * k + n_lanes:] > 0
+            out_T[scans_d] = T_iter[lanes_d]
+            out_iters[scans_d] = iters[lanes_d]
+            out_code[scans_d] = code[lanes_d]
+            if out_stats is None:
+                out_stats = type(stats)(*(
+                    torch.zeros((q,) + s.shape[1:], dtype=s.dtype, device=dev)
+                    for s in stats))
+            for o, s in zip(out_stats, stats):
+                o[scans_d] = s[lanes_d]
+            if all(s < 0 for s in lane_scan):
+                return out_T, out_iters, out_code, out_stats
+            reading = _lanes(pool, lane_now)
+            T_iter = torch.where(fresh[:, None, None], T0[lane_now.clamp(min=0)],
+                                 T_iter)
+            states = _keep_active(fresh, _lane_form(
+                [c.init_state(T_iter) for c in checkers], n_lanes, dev), states)
+            iters = torch.where(fresh, 0, iters)
+            code = torch.where(fresh, 0, code)
+            if mstate is not None:
+                mstate = _keep_active(fresh, self.matcher.loop_state_init(
+                    reading, matcher_aux), mstate)
+
+
+def _lane_form(state, n_lanes: int, device):
+    """Checker states with every host-int leaf made a ``[L]`` tensor, so
+    that lanes at different iterations keep their own values."""
+    if isinstance(state, bool) or not isinstance(state, (int, tuple, list)):
+        return state
+    if isinstance(state, int):
+        return torch.full((n_lanes,), state, dtype=torch.int32, device=device)
+    return type(state)(_lane_form(s, n_lanes, device) for s in state)
+
+
+def _lanes(pool: PointCloud, lane_scan: torch.Tensor) -> PointCloud:
+    """The lanes' cloud: scan ``lane_scan[l]`` of a ``[Q, rows, d]`` pool
+    in lane l, a lane without a scan (−1) masked."""
+    at = lane_scan.clamp(min=0)
+    return PointCloud(pool.points[at], pool.mask[at] & (lane_scan >= 0)[:, None],
+                      {k: v[at] for k, v in pool.descriptors.items()})
+
+
 class ICPSequence(ICP):
     """Persistent-map engine: filter the map once, then register many
     readings against it (reference: ICP.cpp:455-612)."""
@@ -340,14 +439,18 @@ class ICPSequence(ICP):
         self._map = None
         self._T_refIn_refMean = None
 
-    def warmup(self, num_points: int, batch: int = 8, seed: int = 0,
+    def warmup(self, num_points: int, batch: int = 8, lanes=None,
+               queue_len=None, coarse=None, seed: int = 0,
                example: Optional[PointCloud] = None) -> float:
-        """Run one serving batch of ``batch`` scans of ``num_points`` rows,
-        so that the first real batch finds the kernels built and the map's
-        sweep tables made. The scan is ``example`` if given, else points
-        drawn uniformly in the map's bounding box. Returns the wall seconds
-        spent."""
+        """Run one serving batch of ``batch`` scans of ``num_points`` rows
+        and, with ``queue_len``, one queue of that many scans over
+        ``lanes`` lanes (default ``batch``), with its coarse pass when
+        ``coarse`` is given, so that the first real request finds the
+        kernels built and the map's sweep tables made. The scan is
+        ``example`` if given, else points drawn uniformly in the map's
+        bounding box. Returns the wall seconds spent."""
         from .parallel.batch import register_batch_to_map
+        from .parallel.stream import register_queue_to_map
 
         if not self.has_map():
             raise RuntimeError("set_map first")
@@ -361,6 +464,9 @@ class ICPSequence(ICP):
             scan = PointCloud.from_numpy(fake.astype(np.float32),
                                          device=self.device)
         register_batch_to_map(self, [scan] * int(batch), seed=seed)
+        if queue_len:
+            register_queue_to_map(self, [scan] * int(queue_len), seed=seed,
+                                  lanes=int(lanes or batch), coarse=coarse)
         return time.perf_counter() - t0
 
     def trm_host(self) -> np.ndarray:

@@ -5,14 +5,15 @@ PointMatcher.h:470-494, MatchersImpl.{h,cpp}).
 ``KDTreeMatcher`` keeps the reference's name and parameters; it is served by
 the exact dense search of :func:`.ops.dispatch.knn_search`, which launches
 the K1, K9 or K5 kernel on the card. Matches are row-major ``[N, knn]``, or
-``[B, N, knn]`` for a batch of scans; invalid entries carry dist = +inf,
-id = −1.
+``[B, N, knn]`` for a batch of scans, against one shared reference or, with
+a reference ``[B, M, d]``, each scan against its own; invalid entries
+carry dist = +inf, id = −1.
 
-Batch serving (``parallel.batch.register_batch_to_map``) takes, on maps of
-16 384 rows or more, the survivor-sweep route of :mod:`.ops.sweep`: the
-serving loop runs against a Morton-sorted copy of the map, and each
-iteration bounds every query's neighbour distance by the one it had in the
-previous iteration, carried as matcher loop state.
+Serving (``parallel.register_batch_to_map``, ``register_queue_to_map``)
+takes, on maps of 16 384 rows or more, the survivor-sweep route of
+:mod:`.ops.sweep`: the serving loop runs against a Morton-sorted copy of
+the map, and each iteration bounds every query's neighbour distance by the
+one it had in the previous iteration, carried as matcher loop state.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 
 from .cloud import PointCloud
-from .ops import sweep
+from .ops import sweep, sweep_cuda
 from .ops.dispatch import MXU_EPSILON_FLOOR, knn_search
 from .ops.morton import morton_argsort
 from .registry import Param, Parametrizable, Registrar
@@ -121,6 +122,11 @@ class KDTreeMatcher(Matcher):
         self.survivor_fractions = []
 
     def find_closests_in(self, reading, reference):
+        if reference.points.ndim == 3:      # one reference per scan
+            dists, ids = knn_search(reading.points, reading.mask,
+                                    reference.points, reference.mask,
+                                    k=self.knn, epsilon=float(self.epsilon))
+            return self._apply_max_dist(Matches(dists, ids))
         b = reading.points.shape[:-2]
         dists, ids = knn_search(reading.points.reshape(-1, reading.dim),
                                 reading.mask.reshape(-1),
@@ -149,17 +155,21 @@ class KDTreeMatcher(Matcher):
         survivor route from ``SKIP_AUTO_MIN_MAP`` rows; ``PMTPU_SERVE_STREAM``
         = 0 keeps maps above ``ops.sweep.SKIP_MAX_MPAD`` rows dense. The
         row counts compared are the JAX package's (the valid count rounded
-        up to 512), so a map takes the same route in both. knn > 1 (K6 is
-        not ported), ε at or above the K9 floor and d > 3 go dense."""
+        up to 512), so a map takes the same route in both. knn 2..4 takes
+        the top-k sweep (K6) only under an explicit ``PMTPU_SERVE_SKIP=1``
+        and on a resident map (up to ``ops.sweep.SKIP_MAX_MPAD`` rows: K6
+        has no streaming form); knn > 4, ε at or above the K9 floor and
+        d > 3 go dense."""
         mode = os.environ.get("PMTPU_SERVE_SKIP", "auto")
         rows = 512 * math.ceil(max(reference.count_host(), 1) / 512)
         dense = (mode not in ("1", "auto")
-                 or (mode == "auto" and rows < self.SKIP_AUTO_MIN_MAP)
-                 or self.knn > 1
+                 or (mode == "auto"
+                     and (rows < self.SKIP_AUTO_MIN_MAP or self.knn > 1))
+                 or self.knn > sweep_cuda.SWEEPK_MAX
                  or float(self.epsilon) >= MXU_EPSILON_FLOOR
                  or reference.dim > 3)
         stream_ok = (os.environ.get("PMTPU_SERVE_STREAM", "auto") != "0"
-                     and rows <= self.STREAM_MAX_MPAD)
+                     and rows <= self.STREAM_MAX_MPAD and self.knn == 1)
         if dense or (rows > sweep.SKIP_MAX_MPAD and not stream_ok):
             self._skip_shared = None
             return False
@@ -194,24 +204,32 @@ class KDTreeMatcher(Matcher):
 
     def loop_state_init(self, reading: PointCloud, aux):
         """Per-scan loop state: each query's position at the previous sweep
-        and its squared distance to the winner found there (+inf: no sweep
-        yet, so iteration 0 bounds by the boxes alone)."""
+        and its squared distance to the winner (the k-th one for knn > 1)
+        found there (+inf: no sweep yet, so iteration 0 bounds by the boxes
+        alone)."""
         return (reading.points,
                 torch.full(reading.mask.shape, float("inf"),
                            device=reading.device))
 
     def find_closests_in_stateful(self, reading: PointCloud, ref: PointCloud,
                                   aux, state):
-        """Exact 1-NN through the survivor sweep → ``(Matches, state)``.
+        """Exact kNN through the survivor sweep → ``(Matches, state)``.
         ``reading`` is Morton-sorted and ``ref`` is the sorted map. The
         bound on each query's neighbour distance is carried from the
         previous sweep by the triangle inequality, d(q, w_prev) ≤
         d(q_prev, w_prev) + ‖q − q_prev‖, w_prev being a real map point,
-        and inflated by 4 ulp for its own roundings."""
+        and inflated by 4 ulp for its own roundings. For knn > 1 the k
+        previous winners are real points within the k-th distance of
+        q_prev, so the same transport bounds the k-th distance now."""
         qs, qm = reading.points, reading.mask
         prev_pos, prev_d2 = state
         step = torch.sqrt(torch.sum((qs - prev_pos) ** 2, dim=-1))
         ub_t = (torch.sqrt(prev_d2) + step) * sweep.UP
+        if self.knn > 1:
+            dk, ik, frac = sweep.nnk_sorted_v2(qs, qm, ub_t, aux["skip_rt3"],
+                                               aux["skip_ct"], int(self.knn))
+            self.survivor_fractions.append(frac)
+            return self._apply_max_dist(Matches(dk, ik)), (qs, dk[..., -1])
         d_s, i_s, frac = sweep.nn1_sorted_v2(qs, qm, ub_t, aux["skip_rt3"],
                                              aux["skip_ct"],
                                              stream=self._skip_stream)

@@ -34,11 +34,13 @@ MXU_EPSILON_FLOOR = 10.0
 def knn_search(query, query_mask, ref, ref_mask, k: int = 1,
                epsilon: float = 0.0):
     """kNN of ``query`` [N, d] into ``ref`` [M, d] → ``(dists2, ids)``,
-    both [N, k], squared distances ascending, (+inf, −1) invalid."""
+    both [N, k], squared distances ascending, (+inf, −1) invalid. With a
+    pair axis (``query`` [B, N, d], ``ref`` [B, M, d]) each pair searches
+    its own reference, in one launch → [B, N, k]."""
     if k == 1:
         fn = knn1_mxu if epsilon >= MXU_EPSILON_FLOOR else knn1
         d, i = fn(query, query_mask, ref, ref_mask)
-        return d[:, None], i[:, None]
+        return d[..., None], i[..., None]
     if k <= KNNK_MAX:
         return knnk(query, query_mask, ref, ref_mask, k)
     return knn_brute_force(query, query_mask, ref, ref_mask, k=k)

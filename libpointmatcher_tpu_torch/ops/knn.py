@@ -40,7 +40,13 @@ def knn_brute_force(query: torch.Tensor, query_mask: torch.Tensor,
                     ref: torch.Tensor, ref_mask: torch.Tensor, k: int = 1,
                     tile_m: int = TILE_M):
     """Exact kNN of ``query`` [N, d] into ``ref`` [M, d] →
-    ``(dists2 [N, k], ids [N, k])``, ascending per row."""
+    ``(dists2 [N, k], ids [N, k])``, ascending per row. With a pair axis,
+    ``query`` [B, N, d] into ``ref`` [B, M, d], each pair searched on its
+    own → ``[B, N, k]``."""
+    if query.ndim == 3:
+        d, i = zip(*(knn_brute_force(*a, k=k, tile_m=tile_m)
+                     for a in zip(query, query_mask, ref, ref_mask)))
+        return torch.stack(d), torch.stack(i)
     n = query.shape[0]
     m = ref.shape[0]
     dev = query.device

@@ -9,7 +9,10 @@ K5        knn_pallas.py::knnk_pallas      ``ops.knn.knn_brute_force`` (k ≤ 32)
 ========  ==============================  =======================================
 
 The kernels are CUDA C++ in ``csrc/knn.cu`` (see its header for the design
-and for what bounds them), built at first use by :mod:`.cuda_build`.
+and for what bounds them), built at first use by :mod:`.cuda_build`. Each
+takes one query set and one reference, or a pair axis: ``[B, N, d]``
+queries against ``[B, M, d]`` references, pair b against its own, in one
+launch.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises. There is no fallback between the two. Each
@@ -34,9 +37,9 @@ KNNK_MAX = 32
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pm_knn1.argtypes = [p, p, i, p, p, i, i, i, i, i, p, p, p, p, p]
+    lib.pm_knn1.argtypes = [p, p, i, p, p, i, i, i, i, i, i, p, p, p, p, p]
     lib.pm_knn1.restype = i
-    lib.pm_knnk.argtypes = [p, p, i, p, p, i, i, i, i, i, i, p, p, p, p, p]
+    lib.pm_knnk.argtypes = [p, p, i, p, p, i, i, i, i, i, i, i, p, p, p, p, p]
     lib.pm_knnk.restype = i
     lib.pm_tile_rows.argtypes = []
     lib.pm_tile_rows.restype = i
@@ -51,50 +54,60 @@ def build() -> ctypes.CDLL:
 
 
 def _check_inputs(query, query_mask, ref, ref_mask):
+    """Single search: query [N, d], ref [M, d]. Pairs: query [B, N, d] and
+    ref [B, M, d], pair b searching its own reference. → B (0: single)."""
+    pairs = query.ndim == 3
     for name, t in (("query", query), ("ref", ref)):
-        if t.dtype != torch.float32 or t.ndim != 2 or t.shape[1] not in (2, 3):
-            raise ValueError(f"{name} must be float32 [rows, 2|3], got "
-                             f"{t.dtype} {tuple(t.shape)}")
-    if query.shape[1] != ref.shape[1]:
+        if (t.dtype != torch.float32 or t.ndim != (3 if pairs else 2)
+                or t.shape[-1] not in (2, 3)):
+            raise ValueError(f"{name} must be float32 [rows, 2|3] or "
+                             f"[pairs, rows, 2|3] for both, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if query.shape[-1] != ref.shape[-1]:
         raise ValueError("query and ref must have the same dimension")
-    for name, t, rows in (("query_mask", query_mask, query.shape[0]),
-                          ("ref_mask", ref_mask, ref.shape[0])):
-        if t.dtype != torch.bool or t.shape != (rows,):
-            raise ValueError(f"{name} must be bool [{rows}]")
+    if pairs and query.shape[0] != ref.shape[0]:
+        raise ValueError(f"{query.shape[0]} query sets for {ref.shape[0]} "
+                         "references")
+    for name, t, shape in (("query_mask", query_mask, query.shape[:-1]),
+                           ("ref_mask", ref_mask, ref.shape[:-1])):
+        if t.dtype != torch.bool or t.shape != shape:
+            raise ValueError(f"{name} must be bool {tuple(shape)}")
     devs = {t.device for t in (query, query_mask, ref, ref_mask)}
     if len(devs) != 1:
         raise ValueError(f"inputs on several devices: {devs}")
-    if max(query.shape[0], ref.shape[0]) >= 2**31:
+    if max(query.numel(), ref.numel()) >= 2**31:
         raise ValueError("row counts must fit in int32")
+    return query.shape[0] if pairs else 0
 
 
-def _split(lib, n: int, m: int, device) -> tuple:
+def _split(lib, n: int, m: int, device, pairs: int = 1) -> tuple:
     """Reference chunks over gridDim.y: enough blocks for ~4 per SM."""
     tile = lib.pm_tile_rows()
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    qblocks = max(1, -(-n // 256))
+    qblocks = max(1, -(-n // 256)) * max(pairs, 1)
     splits = max(1, min(-(-4 * sms // qblocks), -(-m // tile)))
     chunk = tile * -(-max(m, 1) // (tile * splits))
     splits = max(1, -(-m // chunk))
     return splits, chunk
 
 
-def _launch_knn1(query, query_mask, ref, ref_mask, mxu: bool):
+def _launch_knn1(query, query_mask, ref, ref_mask, mxu: bool, pairs: int):
     lib = build()
     q = query.contiguous()
     r = ref.contiguous()
     qm = query_mask.contiguous().view(torch.uint8)
     rm = ref_mask.contiguous().view(torch.uint8)
-    n, dim = q.shape
-    m = r.shape[0]
-    splits, chunk = _split(lib, n, m, q.device)
-    part_d = torch.empty((splits, n), dtype=torch.float32, device=q.device)
-    part_i = torch.empty((splits, n), dtype=torch.int32, device=q.device)
-    out_d = torch.empty(n, dtype=torch.float32, device=q.device)
-    out_i = torch.empty(n, dtype=torch.int32, device=q.device)
+    b = max(pairs, 1)
+    n, dim = q.shape[-2:]
+    m = r.shape[-2]
+    splits, chunk = _split(lib, n, m, q.device, b)
+    part_d = torch.empty((b, splits, n), dtype=torch.float32, device=q.device)
+    part_i = torch.empty((b, splits, n), dtype=torch.int32, device=q.device)
+    out_d = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+    out_i = torch.empty(q.shape[:-1], dtype=torch.int32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.pm_knn1(q.data_ptr(), qm.data_ptr(), n, r.data_ptr(),
-                      rm.data_ptr(), m, dim, int(mxu), splits, chunk,
+                      rm.data_ptr(), m, b, dim, int(mxu), splits, chunk,
                       part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
                       out_i.data_ptr(), stream)
     LIBRARY.check(err, "k-NN kernel")
@@ -102,12 +115,14 @@ def _launch_knn1(query, query_mask, ref, ref_mask, mxu: bool):
 
 
 def knn1(query, query_mask, ref, ref_mask):
-    """K1: exact 1-NN → ``(d2 [N], id [N])``, (+inf, −1) invalid."""
-    _check_inputs(query, query_mask, ref, ref_mask)
+    """K1: exact 1-NN → ``(d2 [N], id [N])``, (+inf, −1) invalid; with a
+    pair axis (query [B, N, d], ref [B, M, d]) one launch gives
+    ``[B, N]``, each pair against its own reference."""
+    pairs = _check_inputs(query, query_mask, ref, ref_mask)
     if query.device.type == "cpu":
         d, i = knn_brute_force(query, query_mask, ref, ref_mask, k=1)
-        return d[:, 0], i[:, 0]
-    out = _launch_knn1(query, query_mask, ref, ref_mask, mxu=False)
+        return d[..., 0], i[..., 0]
+    out = _launch_knn1(query, query_mask, ref, ref_mask, False, pairs)
     knn1.launches += 1
     return out
 
@@ -148,20 +163,25 @@ def knn1_mxu_plain(query, query_mask, ref, ref_mask, tile_m: int = 4096):
 def knn1_mxu(query, query_mask, ref, ref_mask):
     """K9: 1-NN in the expansion form, (1+ε)-exact for ε at or above
     ``dispatch.MXU_EPSILON_FLOOR`` → ``(d2 [N], id [N])``."""
-    _check_inputs(query, query_mask, ref, ref_mask)
+    pairs = _check_inputs(query, query_mask, ref, ref_mask)
     if query.device.type == "cpu":
+        if pairs:
+            return tuple(torch.stack(x) for x in zip(*(
+                knn1_mxu_plain(*a) for a in zip(query, query_mask, ref,
+                                                ref_mask))))
         return knn1_mxu_plain(query, query_mask, ref, ref_mask)
-    out = _launch_knn1(query, query_mask, ref, ref_mask, mxu=True)
+    out = _launch_knn1(query, query_mask, ref, ref_mask, True, pairs)
     knn1_mxu.launches += 1
     return out
 
 
 def knnk(query, query_mask, ref, ref_mask, k: int):
     """K5: exact top-k, 2 ≤ k ≤ 32 → ``(d2 [N, k], id [N, k])`` ascending,
-    lowest index first on ties, (+inf, −1) for missing neighbours."""
+    lowest index first on ties, (+inf, −1) for missing neighbours; with a
+    pair axis as :func:`knn1`, ``[B, N, k]``."""
     if not 1 <= k <= KNNK_MAX:
         raise ValueError(f"k must be in 1..{KNNK_MAX}, got {k}")
-    _check_inputs(query, query_mask, ref, ref_mask)
+    pairs = _check_inputs(query, query_mask, ref, ref_mask)
     if query.device.type == "cpu":
         return knn_brute_force(query, query_mask, ref, ref_mask, k=k)
     lib = build()
@@ -169,17 +189,18 @@ def knnk(query, query_mask, ref, ref_mask, k: int):
     r = ref.contiguous()
     qm = query_mask.contiguous().view(torch.uint8)
     rm = ref_mask.contiguous().view(torch.uint8)
-    n, dim = q.shape
-    m = r.shape[0]
+    b = max(pairs, 1)
+    n, dim = q.shape[-2:]
+    m = r.shape[-2]
     kk = max(2, 1 << (k - 1).bit_length())
-    splits, chunk = _split(lib, n, m, q.device)
-    part_d = torch.empty((splits, n, kk), dtype=torch.float32, device=q.device)
-    part_i = torch.empty((splits, n, kk), dtype=torch.int32, device=q.device)
-    out_d = torch.empty((n, k), dtype=torch.float32, device=q.device)
-    out_i = torch.empty((n, k), dtype=torch.int32, device=q.device)
+    splits, chunk = _split(lib, n, m, q.device, b)
+    part_d = torch.empty((b, splits, n, kk), dtype=torch.float32, device=q.device)
+    part_i = torch.empty((b, splits, n, kk), dtype=torch.int32, device=q.device)
+    out_d = torch.empty((*q.shape[:-1], k), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((*q.shape[:-1], k), dtype=torch.int32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.pm_knnk(q.data_ptr(), qm.data_ptr(), n, r.data_ptr(),
-                      rm.data_ptr(), m, dim, k, kk, splits, chunk,
+                      rm.data_ptr(), m, b, dim, k, kk, splits, chunk,
                       part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
                       out_i.data_ptr(), stream)
     LIBRARY.check(err, "k-NN kernel")

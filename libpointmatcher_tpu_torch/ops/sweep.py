@@ -11,7 +11,8 @@ iteration then runs two kernels (:mod:`.sweep_cuda`):
   per 256-query tile the chunks that may hold any query's neighbour;
 - K3 (map up to ``SKIP_MAX_MPAD`` rows) or K4 (larger maps, the chunks
   fetched asynchronously) sweeps only the flagged chunks of each 1024-query
-  tile, whose flags are the OR of its four bound tiles.
+  tile, whose flags are the OR of its four bound tiles; for k = 2..4
+  neighbours K6 sweeps them into a top-k (resident maps only).
 
 The result is exact: the chunk of a valid query's true neighbour always
 survives, both bounds being inflated outward by 4 ulp, and every winner
@@ -28,7 +29,7 @@ import torch
 from . import sweep_cuda
 
 __all__ = ["chunk_summaries", "chunked_ref_table", "nn1_sorted_v2",
-           "query_table", "FAR", "UP", "SKIP_MAX_MPAD"]
+           "nnk_sorted_v2", "query_table", "FAR", "UP", "SKIP_MAX_MPAD"]
 
 #: box and penalty sentinel of empty chunks and invalid queries
 FAR = 1.0e15
@@ -111,6 +112,30 @@ def query_table(qs: torch.Tensor, qm: torch.Tensor,
     return qp.reshape(b * n_pad, _ROWS)
 
 
+def _survivor_step(qs, qm, ub_t, rt3, ct, k, sweep):
+    """Query table → K2 (bounding the k-th neighbour) → flags folded to the
+    sweep tile → ``sweep(qp, rt3, surv)``; masked ``(d2 [..., n, k'],
+    ids [..., n, k'], frac [...])``."""
+    *bshape, n, _ = qs.shape
+    nch = rt3.shape[0]
+    qp = query_table(qs, qm, ub_t)
+    _, surv = sweep_cuda.survivors_and_bounds(qp, ct, k, nch=nch)
+    fold = sweep_cuda.SWEEP_TILE // sweep_cuda.BOUND_TILE
+    surv = surv.reshape(-1, fold, surv.shape[1]).amax(dim=1)
+    d2, ids = sweep(qp, rt3, surv)
+    n_pad = qp.shape[0] // max(int(np.prod(bshape, dtype=np.int64)), 1)
+    d2 = d2.reshape(*bshape, n_pad, -1)[..., :n, :]
+    ids = ids.reshape(*bshape, n_pad, -1)[..., :n, :]
+    finite = torch.isfinite(d2)
+    valid = qm[..., None]
+    d2 = torch.where(valid, d2, torch.full_like(d2, float("inf")))
+    ids = torch.where(valid & finite, ids, torch.full_like(ids, -1))
+    per_scan = surv.reshape(*bshape, -1, surv.shape[1])
+    frac = (per_scan[..., :nch].sum(dim=(-2, -1)).to(torch.float32)
+            / (per_scan.shape[-2] * max(nch, 1)))
+    return d2, ids, frac
+
+
 def nn1_sorted_v2(qs: torch.Tensor, qm: torch.Tensor, ub_t: torch.Tensor,
                   rt3: torch.Tensor, ct: torch.Tensor, stream: bool = False):
     """One serving iteration's matching: bounds → survivors → exact sweep,
@@ -123,21 +148,21 @@ def nn1_sorted_v2(qs: torch.Tensor, qm: torch.Tensor, ub_t: torch.Tensor,
     all scans. Returns ``(d2 [..., n], ids [..., n], frac [...])``: ids
     index the sorted map, (+inf, −1) at invalid queries; ``frac`` is the
     share of (sweep tile, chunk) pairs swept, per scan."""
-    *bshape, n, _ = qs.shape
-    nch = rt3.shape[0]
-    qp = query_table(qs, qm, ub_t)
-    _, surv = sweep_cuda.survivors_and_bounds(qp, ct, nch=nch)
-    fold = sweep_cuda.SWEEP_TILE // sweep_cuda.BOUND_TILE
-    surv = surv.reshape(-1, fold, surv.shape[1]).amax(dim=1)
     sweep = (sweep_cuda.nn1_survivor_sweep_stream if stream
              else sweep_cuda.nn1_survivor_sweep)
-    d2, ids = sweep(qp, rt3, surv)
-    d2 = d2.reshape(*bshape, -1)[..., :n]
-    ids = ids.reshape(*bshape, -1)[..., :n]
-    finite = torch.isfinite(d2)
-    d2 = torch.where(qm, d2, torch.full_like(d2, float("inf")))
-    ids = torch.where(qm & finite, ids, torch.full_like(ids, -1))
-    per_scan = surv.reshape(*bshape, -1, surv.shape[1])
-    frac = (per_scan[..., :nch].sum(dim=(-2, -1)).to(torch.float32)
-            / (per_scan.shape[-2] * max(nch, 1)))
-    return d2, ids, frac
+    d2, ids, frac = _survivor_step(qs, qm, ub_t, rt3, ct, 1, sweep)
+    return d2[..., 0], ids[..., 0], frac
+
+
+def nnk_sorted_v2(qs: torch.Tensor, qm: torch.Tensor, ub_t: torch.Tensor,
+                  rt3: torch.Tensor, ct: torch.Tensor, k: int):
+    """The top-k (k = 2..4) counterpart of :func:`nn1_sorted_v2` on a
+    resident map: K2 bounds the k-th neighbour (only chunks holding k valid
+    rows may bind it), and K6 sweeps the survivors. ``ub_t`` transports the
+    previous iteration's k-th distance. Returns ``(d2 [..., n, k],
+    ids [..., n, k], frac [...])``, ascending, (+inf, −1) at invalid
+    queries and empty slots."""
+    def sweep(qp, rt3_, surv):
+        return sweep_cuda.nnk_survivor_sweep(qp, rt3_, surv, k)
+
+    return _survivor_step(qs, qm, ub_t, rt3, ct, k, sweep)

@@ -6,12 +6,14 @@ kernel    replaces (TPU, Pallas)                       plain version
 K2        knn_sweep2.py::survivors_and_bounds          :func:`survivors_and_bounds_plain`
 K3        knn_sweep2.py::nn1_survivor_sweep            :func:`survivor_sweep_plain`
 K4        knn_sweep2.py::nn1_survivor_sweep_stream     :func:`survivor_sweep_plain`
+K6        knn_sweep2.py::nnk_survivor_sweep            :func:`nnk_survivor_sweep_plain`
 ========  ===========================================  ==========================
 
 The kernels are CUDA C++ in ``csrc/sweep.cu`` (see its header for the
 design and for what bounds them), built at first use by :mod:`.cuda_build`.
 The tables are those of :mod:`.sweep`: ``qp [n_pad, 8]``, ``ct [8,
 nch_pad]``, ``rt3 [nch, 8, 128]``, ``surv [tiles, nch_pad]`` int32.
+K6 returns ``[n_pad, k]`` for k = 2..4.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises. There is no fallback between the two. Each
@@ -29,9 +31,10 @@ from .cuda_build import KernelLibrary
 from .knn import _tile_d2
 
 __all__ = ["survivors_and_bounds", "nn1_survivor_sweep",
-           "nn1_survivor_sweep_stream", "survivors_and_bounds_plain",
-           "survivor_sweep_plain", "build", "LIBRARY", "BOUND_TILE",
-           "SWEEP_TILE", "reset_launch_counts"]
+           "nn1_survivor_sweep_stream", "nnk_survivor_sweep",
+           "survivors_and_bounds_plain", "survivor_sweep_plain",
+           "nnk_survivor_sweep_plain", "build", "LIBRARY", "BOUND_TILE",
+           "SWEEP_TILE", "SWEEPK_MAX", "reset_launch_counts"]
 
 #: queries per K2 tile (one flag row each)
 BOUND_TILE = 256
@@ -39,6 +42,8 @@ BOUND_TILE = 256
 SWEEP_TILE = 1024
 #: most chunks a sweep's survivor list may hold (its shared memory)
 MAX_CHUNKS = 8192
+#: largest k of the top-k sweep K6
+SWEEPK_MAX = 4
 
 _UP = float(np.float32(1.0 + 4e-7))
 _DOWN = float(np.float32(1.0 - 4e-7))
@@ -51,6 +56,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pm_survivors_bounds.restype = i
     lib.pm_survivor_sweep.argtypes = [p, i, p, i, p, i, i, p, p, p]
     lib.pm_survivor_sweep.restype = i
+    lib.pm_survivor_sweep_k.argtypes = [p, i, p, i, p, i, i, p, p, p]
+    lib.pm_survivor_sweep_k.restype = i
     lib.pm_bound_tile.restype = i
     lib.pm_sweep_tile.restype = i
     if (lib.pm_bound_tile(), lib.pm_sweep_tile()) != (BOUND_TILE, SWEEP_TILE):
@@ -251,9 +258,72 @@ def nn1_survivor_sweep_stream(qp, rt3, surv):
     return out
 
 
+# ------------------------------------------------------------------ K6
+def _check_k(k):
+    if not 2 <= int(k) <= SWEEPK_MAX:
+        raise ValueError(f"the top-k sweep takes k in 2..{SWEEPK_MAX}, got {k}")
+    return int(k)
+
+
+def nnk_survivor_sweep_plain(qp, rt3, surv, k: int):
+    """Plain version of K6: per 1024-query tile, the exact top-k over the
+    rows of its surviving chunks (those of index < nch), ascending, with
+    d² formed as in :func:`survivor_sweep_plain`; a stable sort keeps the
+    lower sorted-map index first among equal distances. Slots that hold no
+    finite distance, and every slot of a tile with no survivor, give
+    (+inf, −1)."""
+    k = _check_k(k)
+    n_pad = qp.shape[0]
+    nch = rt3.shape[0]
+    out_d = torch.full((n_pad, k), float("inf"), dtype=torch.float32,
+                       device=qp.device)
+    out_i = torch.full((n_pad, k), -1, dtype=torch.int32, device=qp.device)
+    rows = rt3[:, :4, :].transpose(1, 2)                    # [nch, 128, 4]
+    lane = torch.arange(128, device=qp.device)
+    for t in range(n_pad // SWEEP_TILE):
+        lst = torch.nonzero(surv[t, :nch]).flatten()
+        if lst.numel() == 0:
+            continue
+        r = rows[lst].reshape(-1, 4)
+        q = qp[t * SWEEP_TILE:(t + 1) * SWEEP_TILE, :3]
+        d2 = _tile_d2(q, r[:, :3], r[:, 3])
+        sd, pos = torch.sort(d2, dim=1, stable=True)
+        sd, pos = sd[:, :k], pos[:, :k]
+        ids = (lst[:, None] * 128 + lane[None, :]).reshape(-1)[pos]
+        sl = slice(t * SWEEP_TILE, (t + 1) * SWEEP_TILE)
+        out_d[sl] = sd
+        out_i[sl] = torch.where(torch.isfinite(sd), ids,
+                                torch.full_like(ids, -1)).to(torch.int32)
+    return out_d, out_i
+
+
+def nnk_survivor_sweep(qp, rt3, surv, k: int):
+    """K6: exact top-k (k = 2..4) over each 1024-query tile's surviving
+    chunks of a resident map → ``(d2 [n_pad, k], id [n_pad, k])``
+    ascending, ids into the sorted map, (+inf, −1) in empty slots."""
+    k = _check_k(k)
+    _check_tables(qp, rt3=rt3, surv=surv, tile=SWEEP_TILE)
+    if qp.device.type == "cpu":
+        return nnk_survivor_sweep_plain(qp, rt3, surv, k)
+    lib = build()
+    qp = qp.contiguous()
+    rt3 = rt3.contiguous()
+    surv = surv.contiguous()
+    n_pad = qp.shape[0]
+    out_d = torch.empty((n_pad, k), dtype=torch.float32, device=qp.device)
+    out_i = torch.empty((n_pad, k), dtype=torch.int32, device=qp.device)
+    stream = torch.cuda.current_stream(qp.device).cuda_stream
+    err = lib.pm_survivor_sweep_k(qp.data_ptr(), n_pad, rt3.data_ptr(),
+                                  rt3.shape[0], surv.data_ptr(), surv.shape[1],
+                                  k, out_d.data_ptr(), out_i.data_ptr(), stream)
+    LIBRARY.check(err, "K6 top-k survivor sweep")
+    nnk_survivor_sweep.launches += 1
+    return out_d, out_i
+
+
 def reset_launch_counts() -> None:
     for fn in (survivors_and_bounds, nn1_survivor_sweep,
-               nn1_survivor_sweep_stream):
+               nn1_survivor_sweep_stream, nnk_survivor_sweep):
         fn.launches = 0
 
 

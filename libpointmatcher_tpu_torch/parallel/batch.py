@@ -1,5 +1,6 @@
-"""Batched scan-to-map serving (counterpart of
-``libpointmatcher_tpu.parallel.batch.register_batch_to_map``).
+"""Batched registration (counterpart of ``libpointmatcher_tpu.parallel.batch``):
+scan-to-map serving, ``register_batch_to_map``, and pair-parallel one-shot
+ICP, ``register_batch``.
 
 The map of an ``ICPSequence`` is filtered, centred and given its matcher
 tables once (``set_map``, then the first serving batch). Each batch of
@@ -12,7 +13,11 @@ map by the matcher (``KDTreeMatcher.serving_loop_aux``):
 - dense: one K1 launch per iteration over all scans' rows;
 - survivor sweep (maps of 16 384 rows or more): each scan is put in its
   Morton order first, the loop runs against the Morton-sorted map, and
-  each iteration makes one K2 launch and one K3 or K4 launch.
+  each iteration makes one K2 launch and one K3, K4 or (knn 2..4) K6
+  launch.
+
+``register_batch`` stacks the pairs' references as well as their readings
+and runs the same loop, each reading against its own reference.
 """
 
 from __future__ import annotations
@@ -24,11 +29,12 @@ import torch
 
 from ..cloud import PointCloud
 from ..filters.base import apply_filter_chain
-from ..icp import READING_STREAM, _apply_transform
+from ..icp import (READING_STREAM, REFERENCE_STREAM, _apply_transform,
+                   _center_cloud)
 from ..ops.morton import morton_argsort_device
 from ..utils import se3
 
-__all__ = ["register_batch_to_map", "PendingRegistration"]
+__all__ = ["register_batch", "register_batch_to_map", "PendingRegistration"]
 
 
 class PendingRegistration:
@@ -64,9 +70,10 @@ def _serve_compact_cap(keep_rate: float, rows: int, compact_rows="auto"):
     return cap
 
 
-def _stack(clouds: Sequence[PointCloud]) -> PointCloud:
-    """Pad to a common row count (padding rows masked) and stack."""
-    rows = max(1, max(c.num_points for c in clouds))
+def _stack(clouds: Sequence[PointCloud], rows: int = 1) -> PointCloud:
+    """Pad to a common row count, at least ``rows`` (padding rows masked),
+    and stack."""
+    rows = max(rows, max(c.num_points for c in clouds))
     names = list(clouds[0].descriptors)
 
     def pad(x):
@@ -77,6 +84,71 @@ def _stack(clouds: Sequence[PointCloud]) -> PointCloud:
         torch.stack([torch.nn.functional.pad(c.mask, (0, rows - c.num_points))
                      for c in clouds]),
         {k: torch.stack([pad(c.descriptors[k]) for c in clouds]) for k in names})
+
+
+def _initial_poses(T_inits, b: int, dim: int, dev) -> torch.Tensor:
+    if T_inits is None:
+        T_inits = [np.eye(dim + 1, dtype=np.float32)] * b
+    return torch.stack([torch.as_tensor(np.asarray(t, np.float32), device=dev)
+                        for t in T_inits])
+
+
+def _prep_scans(seq, readings: Sequence[PointCloud], T_rmd: torch.Tensor,
+                seed: int, compact_rows, permute: bool):
+    """The serving prep of every scan: its reading chain (scan i draws from
+    its own generators), the Morton order on the survivor route, the
+    compaction cap, stacking and the pre-transform by ``T_rmd [B, d+1,
+    d+1]`` → ``(batch [B, rows, d], overflow [B] bool numpy, cap)``, cap
+    None when no scan is cut."""
+    dev = seq.device
+    filtered = [apply_filter_chain(seq.reading_filters, rd.to(dev), seed,
+                                   READING_STREAM, scan=i, allow_empty=True)
+                for i, rd in enumerate(readings)]
+    rows = max(rd.num_points for rd in readings)
+    keep_rate = filtered[0].count_host() / max(readings[0].count_host(), 1)
+    cap = _serve_compact_cap(keep_rate, rows, compact_rows)
+    prepped = []
+    overflow = []
+    for c in filtered:
+        if permute:
+            c = c.permute_rows(morton_argsort_device(c.points, c.mask))
+        n = c.count_host()
+        overflow.append(cap is not None and n > cap)
+        if cap is not None and n > cap:
+            c = PointCloud(c.points[:cap], c.mask[:cap],
+                           {k: v[:cap] for k, v in c.descriptors.items()})
+        prepped.append(c)
+    # stacked at the cap when there is one, as the JAX package compacts to
+    # it: a scan's rows, and with them every per-scan sum of the loop, are
+    # then the same in any batch or queue that shares the cap
+    batch = _apply_transform(seq.transformations, _stack(prepped, cap or 1),
+                             T_rmd)
+    return batch, np.asarray(overflow, bool), cap
+
+
+def _serving_route(seq, reference):
+    """The matcher's route for this map → ``(permute, loop reference,
+    aux)``: aux is None on the dense route."""
+    if not seq.matcher.serving_loop_aux(reference):
+        return False, reference, None
+    seq.matcher.survivor_fractions = []
+    return (seq.matcher.SERVING_PERMUTES_READING,
+            seq.matcher.serving_reference(reference), seq.matcher.serving_aux())
+
+
+def _info(iters, codes, stats, overflow=None) -> dict:
+    """The serving functions' per-scan ``info`` on the host."""
+    info = {
+        "iterations": iters.cpu().numpy(),
+        "codes": codes.cpu().numpy(),
+        "point_used_ratio": stats.point_used_ratio.cpu().numpy(),
+        "weighted_point_used_ratio":
+            stats.weighted_point_used_ratio.cpu().numpy(),
+        "residual": stats.residual.cpu().numpy(),
+    }
+    if overflow is not None:
+        info["compact_overflow"] = overflow
+    return info
 
 
 def register_batch_to_map(seq, readings: Sequence[PointCloud],
@@ -97,56 +169,61 @@ def register_batch_to_map(seq, readings: Sequence[PointCloud],
         raise RuntimeError("set_map first")
     seq._require_modules()
     reference = seq.get_prefiltered_internal_map()
-    dev = seq.device
-    b = len(readings)
-    dim = readings[0].dim
-    if T_inits is None:
-        T_inits = [np.eye(dim + 1, dtype=np.float32)] * b
-    T_inits = torch.stack([torch.as_tensor(t, dtype=torch.float32, device=dev)
-                           for t in T_inits])
     Trm = seq._T_refIn_refMean
-    T_rmd = se3.inverse(Trm) @ T_inits
-
-    survivor = seq.matcher.serving_loop_aux(reference)
-    permute = survivor and seq.matcher.SERVING_PERMUTES_READING
-    filtered = [apply_filter_chain(seq.reading_filters, rd.to(dev), seed,
-                                   READING_STREAM, scan=i)
-                for i, rd in enumerate(readings)]
-    rows = max(rd.num_points for rd in readings)
-    keep_rate = filtered[0].count_host() / max(readings[0].count_host(), 1)
-    cap = _serve_compact_cap(keep_rate, rows, compact_rows)
-    prepped = []
-    overflow = []
-    for c in filtered:
-        if permute:
-            c = c.permute_rows(morton_argsort_device(c.points, c.mask))
-        n = c.count_host()
-        overflow.append(cap is not None and n > cap)
-        if cap is not None and n > cap:
-            c = PointCloud(c.points[:cap], c.mask[:cap],
-                           {k: v[:cap] for k, v in c.descriptors.items()})
-        prepped.append(c)
-    batch = _apply_transform(seq.transformations, _stack(prepped), T_rmd)
-    if survivor:
-        seq.matcher.survivor_fractions = []
-        ref_loop = seq.matcher.serving_reference(reference)
-        aux = seq.matcher.serving_aux()
-    else:
-        ref_loop, aux = reference, None
+    T_rmd = se3.inverse(Trm) @ _initial_poses(T_inits, len(readings),
+                                              readings[0].dim, seq.device)
+    permute, ref_loop, aux = _serving_route(seq, reference)
+    batch, overflow, _ = _prep_scans(seq, readings, T_rmd, seed,
+                                     compact_rows, permute)
     T_iter, iters, codes, stats = seq._run_loop(batch, ref_loop, aux)
     T_out = Trm @ T_iter @ T_rmd
     seq.last_stats = stats
 
     def finish():
-        info = {
-            "iterations": iters.cpu().numpy(),
-            "codes": codes.cpu().numpy(),
-            "point_used_ratio": stats.point_used_ratio.cpu().numpy(),
-            "weighted_point_used_ratio":
-                stats.weighted_point_used_ratio.cpu().numpy(),
-            "residual": stats.residual.cpu().numpy(),
-            "compact_overflow": np.asarray(overflow, bool),
-        }
-        return T_out.cpu().numpy(), info
+        return T_out.cpu().numpy(), _info(iters, codes, stats, overflow)
 
     return finish() if block else PendingRegistration(finish)
+
+
+def register_batch(icp, readings: Sequence[PointCloud],
+                   references: Sequence[PointCloud],
+                   T_inits: Optional[Sequence] = None, seed: int = 0):
+    """Register ``readings[i]`` onto ``references[i]`` for every i at once
+    (pair-parallel one-shot ICP, the counterpart of the JAX package's
+    per-pair path of ``register_batch``).
+
+    Per pair, as ``ICP.compute``: the reference chain and centring, the
+    reading chain and the pre-transform; pair i's filters draw from
+    generators of their own, seeded with i. Then one lockstep loop runs
+    every pair, each reading against its own reference (one K1 launch per
+    iteration for all pairs, with a pair axis), and each pose is composed
+    back into its pair's frame. A filter that empties a cloud raises
+    ``ConvergenceError``, as in ``ICP.compute``.
+
+    Returns ``(T [B, d+1, d+1] numpy, info)`` with ``iterations``,
+    ``codes``, ``point_used_ratio``, ``weighted_point_used_ratio`` and
+    ``residual`` per pair."""
+    if len(readings) != len(references) or not readings:
+        raise ValueError("register_batch takes as many readings as "
+                         "references, at least one")
+    icp._require_modules()
+    dev = icp.device
+    dim = readings[0].dim
+    T_inits = _initial_poses(T_inits, len(readings), dim, dev)
+    prepped_r, prepped_f, T_rm, T_rmd = [], [], [], []
+    for i, (reading, reference) in enumerate(zip(readings, references)):
+        reference = apply_filter_chain(icp.reference_filters, reference.to(dev),
+                                       seed, REFERENCE_STREAM, scan=i)
+        reference, Trm = _center_cloud(reference)
+        Trd = se3.inverse(Trm) @ T_inits[i]
+        reading = apply_filter_chain(icp.reading_filters, reading.to(dev),
+                                     seed, READING_STREAM, scan=i)
+        prepped_r.append(_apply_transform(icp.transformations, reading, Trd))
+        prepped_f.append(reference)
+        T_rm.append(Trm)
+        T_rmd.append(Trd)
+    T_iter, iters, codes, stats = icp._run_loop(_stack(prepped_r),
+                                                _stack(prepped_f))
+    icp.last_stats = stats
+    T_out = torch.stack(T_rm) @ T_iter @ torch.stack(T_rmd)
+    return T_out.cpu().numpy(), _info(iters, codes, stats)

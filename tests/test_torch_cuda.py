@@ -1,12 +1,13 @@
-"""The port on the card: the K1, K9, K5, K2, K3 and K4 kernels against
-their plain versions on CUDA tensors, and registrations on the card against
-the same registrations on the CPU. Every test needs a CUDA device and skips
+"""The port on the card: the K1, K9, K5, K2, K3, K4 and K6 kernels against
+their plain versions on CUDA tensors (K1 and K5 with a pair axis too), and
+registrations, batch and queue serving and pair-parallel one-shot ICP on
+the card against the same calls on the CPU. Every test needs a CUDA device and skips
 without one. The file imports neither JAX nor the JAX package, so it runs
 on a machine with the card alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: K1, K5, K2, K3 and K4 equal their plain versions bit for bit
+Tolerances: K1, K5, K2, K3, K4 and K6 equal their plain versions bit for bit
 (the same rounded operations in the same order); K9 agrees within
 2^-20·(q² + r²), its expansion form's rounding bound, and its excess over
 the exact neighbour distance stays below MXU_EPSILON_FLOOR.
@@ -23,7 +24,10 @@ from libpointmatcher_tpu_torch.ops import knn_cuda as kc
 from libpointmatcher_tpu_torch.ops import sweep_cuda as sc
 from libpointmatcher_tpu_torch.ops.knn import knn_brute_force
 from libpointmatcher_tpu_torch.ops.morton import morton_argsort
-from libpointmatcher_tpu_torch.parallel import register_batch_to_map
+from libpointmatcher_tpu_torch.matchers import KDTreeMatcher
+from libpointmatcher_tpu_torch.parallel import (register_batch,
+                                                register_batch_to_map,
+                                                register_queue_to_map)
 
 pytestmark = pytest.mark.cuda
 
@@ -223,3 +227,109 @@ def test_batch_serving_on_card_matches_cpu(cuda, monkeypatch, route):
                 sc.nn1_survivor_sweep_stream.launches)
     assert launches == {"dense": (it, 0, 0, 0), "K3": (0, it, it, 0),
                         "K4": (0, it, 0, it)}[route]
+
+
+@pytest.mark.parametrize("k", [2, 3, 4])
+def test_k6_equals_plain(cuda, k):
+    qs, qm, rs, rsm, rt3, ct = _survivor_inputs(7, 3000, 5000, cuda)
+    ub_t = torch.full(qm.shape, float("inf"), device=cuda)
+    for _ in range(2):                      # cold, then a transported bound
+        qp = sweep.query_table(qs, qm, ub_t)
+        _, surv = sc.survivors_and_bounds(qp, ct, k, nch=rt3.shape[0])
+        surv = surv.reshape(-1, 4, surv.shape[1]).amax(dim=1)
+        d6, i6 = sc.nnk_survivor_sweep(qp, rt3, surv, k)
+        dp, ip = sc.nnk_survivor_sweep_plain(qp, rt3, surv, k)
+        torch.cuda.synchronize()
+        assert torch.equal(d6, dp) and torch.equal(i6, ip)
+        dk, ik, _ = sweep.nnk_sorted_v2(qs, qm, ub_t, rt3, ct, k)
+        de, ie = kc.knnk(qs.reshape(-1, 3), qm.reshape(-1), rs, rsm, k)
+        assert torch.equal(dk.reshape(-1, k), de)
+        assert torch.equal(ik.reshape(-1, k), ie)
+        fin = torch.isfinite(dk[..., -1])
+        ub_t = torch.where(fin, (torch.sqrt(dk[..., -1]) + 0.01) * sweep.UP,
+                           torch.full_like(dk[..., -1], float("inf")))
+
+
+@pytest.mark.parametrize("k", [1, 2, 10])
+def test_pair_axis_equals_single_launches(cuda, k):
+    pairs = [_inputs(2000, 3001, 20 + b, cuda) for b in range(3)]
+    q, qm, r, rm = (torch.stack(x) for x in zip(*pairs))
+    if k == 1:
+        d, i = kc.knn1(q, qm, r, rm)
+        single = [kc.knn1(*p) for p in pairs]
+        d, i = d[..., None], i[..., None]
+        single = [(a[:, None], b[:, None]) for a, b in single]
+    else:
+        d, i = kc.knnk(q, qm, r, rm, k)
+        single = [kc.knnk(*p, k) for p in pairs]
+    dp, ip = knn_brute_force(q, qm, r, rm, k=k)
+    torch.cuda.synchronize()
+    assert torch.equal(d, torch.stack([a for a, _ in single]))
+    assert torch.equal(i, torch.stack([b for _, b in single]))
+    assert torch.equal(d, dp) and torch.equal(i, ip)
+
+
+def _serving_scene(seed, scans=5):
+    rng = np.random.default_rng(seed)
+    world = _room(rng, 8000)
+    clouds = [world[rng.choice(len(world), 1500, replace=False)]
+              + np.float32([0.05, -0.03, 0.02]) for _ in range(scans)]
+    return (world, clouds, rng.random(len(world)).astype(np.float32),
+            rng.random((scans, 1500)).astype(np.float32))
+
+
+@pytest.mark.parametrize("route,coarse", [("dense", None), ("K3", (4, 16, 1.0)),
+                                          ("K6", None), ("K6", (4, 12))])
+def test_queue_on_card_matches_cpu(cuda, monkeypatch, route, coarse):
+    """register_queue_to_map of five scans through two lanes on both
+    devices, fed the same draws: iterations and codes equal, poses to
+    float32 summation noise, and the launches follow the route."""
+    monkeypatch.setenv("PMTPU_SERVE_SKIP", "0" if route == "dense" else "1")
+    world, scans, u_map, u_scans = _serving_scene(8)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        seq = pt.ICPSequence(device=dev)
+        seq.set_default()
+        if route == "K6":
+            seq.matcher = KDTreeMatcher({"knn": "3"})
+        seq.reference_filters[0].uniform = u_map
+        seq.reading_filters[0].uniform = u_scans
+        seq.set_map(pt.PointCloud.from_numpy(world, device=dev))
+        kc.reset_launch_counts()
+        sc.reset_launch_counts()
+        out[dev] = register_queue_to_map(
+            seq, [pt.PointCloud.from_numpy(s, device=dev) for s in scans],
+            lanes=2, coarse=coarse)
+    (Tc, ic), (Tg, ig) = out["cpu"], out["cuda"]
+    np.testing.assert_array_equal(ig["iterations"], ic["iterations"])
+    np.testing.assert_array_equal(ig["codes"], ic["codes"])
+    np.testing.assert_allclose(Tg, Tc, atol=1e-5)
+    sweeps = {"dense": 0, "K3": sc.nn1_survivor_sweep.launches,
+              "K6": sc.nnk_survivor_sweep.launches}[route]
+    if route == "dense":
+        assert kc.knn1.launches > 0 and sc.survivors_and_bounds.launches == 0
+    else:
+        assert kc.knn1.launches == kc.knnk.launches == 0
+        assert sweeps == sc.survivors_and_bounds.launches > 0
+
+
+def test_register_batch_on_card_matches_cpu(cuda):
+    """Three pairs, each scan against its own reference, on both devices
+    fed the same draws; one K1 launch per lockstep iteration on the card."""
+    world, scans, _, u_scans = _serving_scene(9, scans=6)
+    u_refs = np.random.default_rng(10).random((3, 1500)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        icp = pt.ICP(device=dev)
+        icp.set_default()
+        icp.reference_filters[0].uniform = u_refs
+        icp.reading_filters[0].uniform = u_scans[:3]
+        kc.reset_launch_counts()
+        out[dev] = register_batch(
+            icp, [pt.PointCloud.from_numpy(s, device=dev) for s in scans[:3]],
+            [pt.PointCloud.from_numpy(s - np.float32([0.05, -0.03, 0.02]),
+                                      device=dev) for s in scans[3:]])
+    (Tc, ic), (Tg, ig) = out["cpu"], out["cuda"]
+    np.testing.assert_array_equal(ig["iterations"], ic["iterations"])
+    np.testing.assert_allclose(Tg, Tc, atol=1e-5)
+    assert kc.knn1.launches == int(ig["iterations"].max())

@@ -1,18 +1,24 @@
-"""Where batched scan-to-map serving of the port spends its time on the card.
+"""Where scan-to-map serving of the port spends its time on the card.
 
-    python3 tools_torch/profile_serving.py [--batches 5] [--out FILE.json]
+    python3 tools_torch/profile_serving.py [--driver batch|queue]
+        [--coarse 4,16,1.0] [--batches 5] [--out FILE.json]
 
 For each route of chip_smoke.py's serving phase (the 100 000-point scene's
 50 147-row map: K2 + K4; a 60 000-point scene's map: K2 + K3; a
-25 000-point scene's map: dense K1), with 8 scans of 25 000 points per
-batch, it runs one warm-up ``register_batch_to_map``, then
+25 000-point scene's map: dense K1) it serves, with ``--driver batch``, 8
+scans of 25 000 points per ``register_batch_to_map`` call, or with
+``--driver queue`` a queue of 64 such scans through 8 lanes per
+``register_queue_to_map`` call (``--coarse`` adds the coarse pass). After
+one warm-up call it
 
-1. times ``--batches`` batches on the host clock, each ending in a
-   synchronize (ms per batch, lockstep iterations, ms per iteration);
+1. times ``--batches`` calls on the host clock, each ending in a
+   synchronize (ms per call, iterations of the loop, ms per iteration: a
+   lockstep iteration of the batch, a lane iteration of the queue, both
+   passes counted);
 2. traces as many more with ``torch.profiler`` and reports the device time
-   by kernel name, the kernel launches per lockstep iteration, and the
-   device busy share: traced kernel time per iteration over the untraced
-   wall time per iteration (the profiler slows the host several-fold).
+   by kernel name, the kernel launches per iteration, and the device busy
+   share: traced kernel time per iteration over the untraced wall time per
+   iteration (the profiler slows the host several-fold).
 
 Needs a CUDA device; prints one JSON object (and writes it to ``--out``).
 """
@@ -35,6 +41,9 @@ from tools_torch.profile_registration import _device_us  # noqa: E402
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--driver", choices=("batch", "queue"), default="batch")
+    ap.add_argument("--coarse", default=None,
+                    help="the queue's coarse pass, e.g. 4,16,1.0")
     ap.add_argument("--batches", type=int, default=5)
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
@@ -47,7 +56,8 @@ def main(argv=None) -> int:
     import libpointmatcher_tpu_torch as pt
     from libpointmatcher_tpu_torch.ops import knn_cuda as kc
     from libpointmatcher_tpu_torch.ops import sweep_cuda as sc
-    from libpointmatcher_tpu_torch.parallel import register_batch_to_map
+    from libpointmatcher_tpu_torch.parallel import (register_batch_to_map,
+                                                    register_queue_to_map)
     from torch.profiler import ProfilerActivity, profile
 
     kc.build()
@@ -55,20 +65,40 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(0)
     smi = os.popen("nvidia-smi --query-gpu=name,power.limit "
                    "--format=csv,noheader").read().strip()
-    out = {"device": smi, "batch": cs.SERVE_BATCH, "routes": {}}
+    queue = args.driver == "queue"
+    coarse = (tuple(float(x) if "." in x else int(x)
+                    for x in args.coarse.split(",")) if args.coarse else None)
+    scans = cs.QUEUE_SCANS if queue else cs.SERVE_BATCH
+    out = {"device": smi, "driver": args.driver, "scans_per_call": scans,
+           "lanes": cs.QUEUE_LANES if queue else None, "coarse": coarse,
+           "routes": {}}
     for route, target in cs.SERVE_SCENES.items():
         world = cs.make_scene(rng, target)
-        poses = cs.make_poses(world, cs.SERVE_BATCH, rng)
+        poses = cs.make_poses(world, scans, rng)
         clouds = [pt.PointCloud.from_numpy(cs.make_scan(world, P, rng))
                   for P in poses]
         inits = [cs.perturb(rng) @ P for P in poses]
         seq = pt.ICPSequence()
         seq.set_default()
         seq.set_map(pt.PointCloud.from_numpy(world), seed=0)
+        steps = [0]
+        step = seq._step
+
+        def counted(*a, **k):
+            steps[0] += 1
+            return step(*a, **k)
+
+        seq._step = counted
 
         def serve(seed):
-            _, info = register_batch_to_map(seq, clouds, T_inits=inits, seed=seed)
-            return int(info["iterations"].max())
+            """One call → the loop iterations it ran."""
+            steps[0] = 0
+            if queue:
+                register_queue_to_map(seq, clouds, T_inits=inits, seed=seed,
+                                      lanes=cs.QUEUE_LANES, coarse=coarse)
+            else:
+                register_batch_to_map(seq, clouds, T_inits=inits, seed=seed)
+            return steps[0]
 
         serve(0)                                     # warm-up: map tables
         wall, iters = [], []
@@ -93,8 +123,9 @@ def main(argv=None) -> int:
         per_iter = float(np.median(np.array(wall) / np.array(iters)))
         out["routes"][route] = {
             "map_rows": seq.prefiltered_reference_pts_count,
-            "ms_per_batch": wall,
-            "lockstep_iterations": iters,
+            "ms_per_call": wall,
+            "registrations_per_s": [1e3 * scans / w for w in wall],
+            "loop_iterations": iters,
             "ms_per_iteration_median": per_iter,
             "traced_iterations": traced_iters,
             "device_ms_per_iteration": device_ms / traced_iters,

@@ -64,7 +64,30 @@ Phases, each fatal on failure:
    it, under the pose gates, with K1 launches equal to the lockstep
    iterations; every K1 call of that run (filtered readings against
    references of other row counts, each pair padded to the largest) is
-   held to its plain version and to one launch per pair, bit for bit.
+   held to its plain version and to one launch per pair, bit for bit;
+13. large-map tile-sweep serving, the configuration of
+   tools/large_reg_bench.py: a terrain map of 10^5 points at 120 points/m²
+   and 8 scans of ~18 500 points (7 m balls, 0.02 m of noise, priors up to
+   2° and 0.3 m off), chain ``RandomSampling(0.75)`` / ``SurfaceNormal(knn=10)``
+   / ``BlockGridMatcher(maxDist=0.5, motionBound=1.0, tileQueries=64,
+   blockCap=1024)`` / ``TrimmedDist(0.85)`` / ``PointToPlane`` /
+   ``Counter(40)`` + ``Differential``. ``set_map`` runs SurfaceNormal
+   through the culled self-search: one K8 launch (k = 10), its inputs
+   recorded and K8 held to its plain version there bit for bit, and the
+   whole search held to dense K5 (d² equal, ids where unique);
+14. ``register_batch_to_map`` of the 8 scans on that map: every pose under
+   the gates, no motion-bound flag, K7 launches equal to the lockstep
+   iterations and no other k-NN launch; the second lockstep iteration's K7
+   call is recorded and held to its plain version bit for bit, and the
+   step's result, ``maxDist`` applied, to dense K1 wherever K1's neighbour
+   lies within ``maxDist`` (equal d², equal ids where unique, +inf beyond);
+15. ``register_queue_to_map`` of 24 scans (the 8, three times) through 8
+   lanes on that map: every pose under the gates, no motion-bound flag, K7
+   launches equal to the lane iterations, the first 8 scans' iterations and
+   codes equal to the batch's;
+16. one batch of the 8 scans against a 4·10^5-point terrain map, under the
+   same gates and launch rule. K7 and K8 are timed at their recorded inputs
+   beside their plain versions and a batched ``torch.cdist`` yardstick.
 
 The second-to-last line is the JSON of kernels, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
@@ -227,6 +250,10 @@ KERNELS = {
     # per (valid query, valid row of a surviving chunk), as K3; the top-k
     # insertions are rare and not counted
     "K6 nnk_survivor_sweep": ("libpointmatcher_tpu/ops/knn_sweep2.py:349", 9),
+    # per (valid query, valid candidate) of a tile, as K1; K8's insertions
+    # are not counted
+    "K7 tile_sweep": ("libpointmatcher_tpu/ops/tilesweep.py:460", 9),
+    "K8 tile_sweep_k": ("libpointmatcher_tpu/ops/tilesweep.py:737", 9),
 }
 QUEUE_SCANS = 64
 QUEUE_LANES = 8
@@ -681,6 +708,317 @@ def check_coarse_pass(torch, kc, sc, sweep, recorded, tab, route):
             check_survivor_step(torch, sc, sweep, kc, *call[:3], tab, label)
 
 
+# ------------------------------------------------------------ slice 4
+TERRAIN_MAPS = (100_000, 400_000)
+TERRAIN_DENSITY = 120.0   # points per m² of terrain footprint
+TERRAIN_RADIUS = 7.0      # m, the ball around each scan centre
+TERRAIN_NOISE = 0.02      # m of sensor noise on scans
+TILE_QUEUE_REPEAT = 3     # the queue holds the 8 scans this many times
+TILE_MATCHER = {"maxDist": "0.5", "motionBound": "1.0", "tileQueries": "64",
+                "blockCap": "1024"}
+
+
+def make_terrain(n, rng):
+    """tools/large_reg_bench.py::make_map: terrain at constant density."""
+    side = float(np.sqrt(n / TERRAIN_DENSITY))
+    xy = rng.uniform(0, side, (n, 2))
+    z = 0.4 * np.sin(xy[:, 0]) * np.cos(xy[:, 1] * 0.7) \
+        + 0.05 * rng.standard_normal(n)
+    return np.concatenate([xy, z[:, None]], 1).astype(np.float32), side
+
+
+def small_pose(rng, center, max_deg=2.0, max_trans=0.3):
+    """tools/large_reg_bench.py::small_pose: a rotation about the scan's
+    own centre and a small translation."""
+    ang = np.deg2rad(rng.uniform(-max_deg, max_deg, 3))
+    ca, sa = np.cos(ang), np.sin(ang)
+    Rx = np.array([[1, 0, 0], [0, ca[0], -sa[0]], [0, sa[0], ca[0]]])
+    Ry = np.array([[ca[1], 0, sa[1]], [0, 1, 0], [-sa[1], 0, ca[1]]])
+    Rz = np.array([[ca[2], -sa[2], 0], [sa[2], ca[2], 0], [0, 0, 1]])
+    T = np.eye(4)
+    T[:3, :3] = Rz @ Ry @ Rx
+    c = np.array([center[0], center[1], 0.0])
+    T[:3, 3] = c - T[:3, :3] @ c + rng.uniform(-max_trans, max_trans, 3)
+    return T
+
+
+def make_terrain_scans(map_pts, side, rng, count=SERVE_BATCH):
+    """tools/large_reg_bench.py::make_scans: balls of the map plus noise,
+    moved off the map frame by the inverse of their pose → (scans, poses)."""
+    scans, poses = [], []
+    for _ in range(count):
+        c = rng.uniform(TERRAIN_RADIUS, side - TERRAIN_RADIUS, 2)
+        sel = np.linalg.norm(map_pts[:, :2] - c[None, :], axis=1) < TERRAIN_RADIUS
+        pts = map_pts[sel] + TERRAIN_NOISE * rng.standard_normal(
+            (int(sel.sum()), 3)).astype(np.float32)
+        T = small_pose(rng, c)
+        Ti = np.linalg.inv(T)
+        scans.append(pts @ Ti[:3, :3].T.astype(np.float32)
+                     + Ti[:3, 3].astype(np.float32))
+        poses.append(T)
+    return scans, poses
+
+
+def terrain_sequence(pt):
+    """tools/large_reg_bench.py::build_seq with the tile matcher."""
+    from libpointmatcher_tpu_torch.checkers import (
+        CounterTransformationChecker, DifferentialTransformationChecker)
+    from libpointmatcher_tpu_torch.filters import (
+        RandomSamplingDataPointsFilter, SurfaceNormalDataPointsFilter)
+    from libpointmatcher_tpu_torch.matchers import BlockGridMatcher
+    from libpointmatcher_tpu_torch.minimizers import PointToPlaneErrorMinimizer
+    from libpointmatcher_tpu_torch.outlierfilters import TrimmedDistOutlierFilter
+
+    seq = pt.ICPSequence()
+    seq.set_default()
+    seq.reading_filters = [RandomSamplingDataPointsFilter({"prob": "0.75"})]
+    seq.reference_filters = [SurfaceNormalDataPointsFilter({"knn": "10"})]
+    seq.matcher = BlockGridMatcher(TILE_MATCHER)
+    seq.outlier_filters = [TrimmedDistOutlierFilter({"ratio": "0.85"})]
+    seq.error_minimizer = PointToPlaneErrorMinimizer()
+    seq.checkers = [CounterTransformationChecker({"maxIterationCount": "40"}),
+                    DifferentialTransformationChecker()]
+    return seq
+
+
+def record_tile_kernel(torch, tc, name, q, cand_t, dim, k, qvalid, launches):
+    """K7 (``k`` None) or K8 at recorded main-path inputs against its plain
+    version, timed beside it and a batched ``torch.cdist`` yardstick over
+    the same tiles → its kernel record. ``qvalid`` holds each tile's valid
+    queries. The bound counts what the function needs: its operations on
+    the valid (query, candidate) pairs, and its bytes, each valid query's
+    ``dim`` coordinates, the ``dim`` + 2 rows (coordinates, pen, id) of
+    each valid candidate column of a tile that has a valid query, and the
+    valid queries' outputs (a distance and an id each)."""
+    if k is None:
+        run = lambda: tc.tile_sweep(q, cand_t, dim)
+        plain = lambda: tc.tile_sweep_plain(q, cand_t, dim)
+    else:
+        run = lambda: tc.tile_sweep_k(q, cand_t, dim, k)
+        plain = lambda: tc.tile_sweep_k_plain(q, cand_t, dim, k)
+    d, i = run()
+    dp, ip = plain()
+    torch.cuda.synchronize()
+    if not (torch.equal(d, dp) and torch.equal(i, ip)):
+        raise AssertionError(f"{name}: kernel and plain version differ")
+    ms = cuda_ms(torch, run, 20)
+    plain_ms = cuda_ms(torch, plain, 2)
+    pen = cand_t[:, 6]
+    qq = q[..., :dim].contiguous()
+    cc = cand_t[:, :dim].transpose(1, 2).contiguous()
+
+    def lib():
+        dist = torch.cdist(qq, cc, compute_mode="donot_use_mm_for_euclid_dist")
+        d2 = dist * dist + pen[:, None, :]
+        return d2.min(dim=2) if k is None else d2.topk(k, dim=2, largest=False)
+
+    torch.cuda.empty_cache()
+    try:
+        library_ms = cuda_ms(torch, lib, 2)
+    except RuntimeError as e:          # a batch cdist's grid may refuse it
+        log(f"[kernel] {name}: batched cdist refused: {e}")
+        library_ms = None
+    torch.cuda.empty_cache()
+    ncand = (pen == 0).sum(dim=1).double()
+    pairs = float((qvalid.double() * ncand).sum())
+    nq = float(qvalid.sum())
+    ncols = float((ncand * (qvalid > 0)).sum())
+    nbytes = 4 * dim * nq + 4 * (dim + 2) * ncols + 8 * (k or 1) * nq
+    bms, by = bound_of(KERNELS[name][1] * pairs, nbytes)
+    fin = torch.isfinite(dp)
+    rec = {"name": name, "route": "cuda",
+           "source": "libpointmatcher_tpu_torch/csrc/tile.cu",
+           "replaces": KERNELS[name][0], "launches": launches,
+           "max_abs_err": float((d[fin] - dp[fin]).abs().max()) if bool(fin.any()) else 0.0,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+           "library_ms": library_ms}
+    log(f"[kernel] main path {name}{'' if k is None else f' k={k}'} "
+        f"{q.shape[0]} tiles x {q.shape[1]} queries x {cand_t.shape[2]} "
+        f"candidates, {pairs:.0f} valid pairs, {nq:.0f} valid queries, "
+        f"{ncols:.0f} valid candidate columns, {nbytes:.0f} bytes: "
+        + json.dumps(rec))
+    return rec
+
+
+def check_tile_step(torch, kc, call, ref, label):
+    """The recorded tile step (reading in tile order) against dense K1 on
+    the same queries: equal d² wherever K1's neighbour lies within maxDist,
+    equal ids where it is unique, +inf beyond."""
+    from libpointmatcher_tpu_torch.ops import tilesweep
+
+    pts, qmask, _, _, max_dist = call[:5]
+    d, i = tilesweep.tile_nn1_from_candidates(*call)
+    flat, fm = pts.reshape(-1, 3), qmask.reshape(-1)
+    d1, i1 = kc.knn1(flat, fm, ref.points, ref.mask)
+    d2, _ = kc.knnk(flat, fm, ref.points, ref.mask, 2)
+    torch.cuda.synchronize()
+    d, i = d.reshape(-1), i.reshape(-1)
+    inside = fm & (d1 <= float(np.float32(max_dist) * np.float32(max_dist)))
+    unique = inside & (d2[:, 1] > d1)
+    if not (torch.equal(torch.isfinite(d), inside)
+            and torch.equal(d[inside], d1[inside])
+            and torch.equal(i[unique], i1[unique])):
+        raise AssertionError(f"{label}: the tile step differs from dense K1 "
+                             f"within maxDist")
+    log(f"[tile] {label}: {int(fm.sum())} valid queries, {int(inside.sum())} "
+        f"neighbours within maxDist, {int(unique.sum())} unique: equal to dense K1")
+
+
+def tile_serving(torch, pt, kc, sc, tc, launches):
+    """Phases 13-16 → the K7 and K8 kernel records."""
+    from contextlib import ExitStack
+
+    from libpointmatcher_tpu_torch import matchers
+    from libpointmatcher_tpu_torch.ops import knn_self, tilesweep
+    from libpointmatcher_tpu_torch.parallel import (register_batch_to_map,
+                                                    register_queue_to_map)
+
+    def all_launches():
+        return dict(launches(), K7=tc.tile_sweep.launches,
+                    K8=tc.tile_sweep_k.launches)
+
+    def reset():
+        kc.reset_launch_counts()
+        sc.reset_launch_counts()
+        tc.reset_launch_counts()
+        torch.cuda.synchronize()
+
+    def gates(T, poses, info, label):
+        errs = [pose_error(Ti, P) for Ti, P in zip(T, poses)]
+        worst = (max(a for a, _ in errs), max(b for _, b in errs))
+        for j, ((a, b), Ti) in enumerate(zip(errs, T)):
+            if not (np.isfinite(Ti).all() and a < ROT_TOL and b < TRANS_TOL):
+                raise AssertionError(f"{label} scan {j}: pose error {a}, {b}")
+        if info["motion_bound_exceeded"].any():
+            raise AssertionError(f"{label}: motion bound exceeded on scans "
+                                 f"{np.flatnonzero(info['motion_bound_exceeded'])}")
+        return worst
+
+    records = []
+    for n_map in TERRAIN_MAPS:
+        rng = np.random.default_rng(7)
+        map_pts, side = make_terrain(n_map, rng)
+        scans, poses = make_terrain_scans(map_pts, side, rng)
+        clouds = [pt.PointCloud.from_numpy(s) for s in scans]
+        seq = terrain_sequence(pt)
+        main = n_map == TERRAIN_MAPS[0]
+        # ---- 13. set_map: SurfaceNormal through the culled self-search (K8)
+        with ExitStack() as stack:
+            rk = stack.enter_context(InputRecorder(tilesweep, "tile_sweep_k", keep=1))
+            rs = stack.enter_context(InputRecorder(knn_self,
+                                                   "tile_knnk_from_candidates",
+                                                   keep=1))
+            reset()
+            t = time.perf_counter()
+            seq.set_map(pt.PointCloud.from_numpy(map_pts), seed=0)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t
+            counts = all_launches()
+        log(f"[tile] set_map of the {n_map}-point terrain map: {sec:.3f} s, "
+            f"launches {counts}")
+        if counts["K8"] != 1 or counts["K7"] != 0:
+            raise AssertionError(f"set_map made {counts['K8']} K8 and "
+                                 f"{counts['K7']} K7 launches, expected 1 and 0")
+        internal = seq.get_prefiltered_internal_map()
+        if main:
+            pts_c, mask_c, q_rows, _, _, parent = rs.calls[0][:6]
+            k = rs.calls[0][7]
+            dk, ik = knn_self.knn_self_culled(pts_c, mask_c, k)
+            de, ie = kc.knnk(pts_c, mask_c, pts_c, mask_c, k)
+            dnext, _ = kc.knnk(pts_c, mask_c, pts_c, mask_c, k + 1)
+            torch.cuda.synchronize()
+            below = torch.cat([torch.full_like(de[:, :1], -1.0), de[:, :k - 1]], 1)
+            unique = torch.isfinite(de) & (de > below) & (dnext[:, 1:] > de)
+            if not (torch.equal(dk, de) and torch.equal(ik[unique], ie[unique])):
+                raise AssertionError("the culled self-search differs from dense K5")
+            log(f"[tile] culled self-search of {int(mask_c.sum())} points, "
+                f"k={k}: equal to dense K5 ({int(unique.sum())} unique neighbours)")
+            live = (q_rows >= 0) & mask_c[q_rows.clamp(min=0).long()]
+            qvalid = live.sum(dim=1)[parent.long()]
+            k8_launches = counts["K8"]
+            k8_inputs = rk.calls[0], qvalid
+        del rk, rs
+        # ---- 14. / 16. the batch of 8 scans
+        register_batch_to_map(seq, clouds, seed=1)      # warm-up
+        with ExitStack() as stack:
+            r7 = stack.enter_context(InputRecorder(tilesweep, "tile_sweep", keep=2))
+            rstep = stack.enter_context(InputRecorder(
+                matchers, "tile_nn1_from_candidates", keep=2))
+            reset()
+            t = time.perf_counter()
+            T, info = register_batch_to_map(seq, clouds, seed=1)
+            sec = time.perf_counter() - t
+            counts = all_launches()
+        it = int(info["iterations"].max())
+        worst = gates(T, poses, info, f"tile batch, {n_map}-point map")
+        log(f"[tile] batch of {len(clouds)} scans ({[c.num_points for c in clouds]} "
+            f"points) on the {n_map}-point map: {1e3 * sec:.2f} ms, "
+            f"{len(clouds) / sec:.2f} registrations/s, iterations "
+            f"{info['iterations'].tolist()}, codes {info['codes'].tolist()}, worst "
+            f"rot err {worst[0]:.5f} rad, trans err {worst[1]:.5f} m, launches {counts}")
+        want = {name: 0 for name in counts}
+        want["K7"] = it
+        if counts != want:
+            raise AssertionError(f"tile batch launches {counts}, expected {want}")
+        if main:
+            check_tile_step(torch, kc, rstep.calls[1], internal,
+                            "tile batch, second lockstep iteration")
+            q7, cand7, dim7 = r7.calls[1][:3]
+            qmask7, parent7 = rstep.calls[1][1], rstep.calls[1][5]
+            qvalid7 = qmask7.reshape(*parent7.shape[:-1], -1, q7.shape[1]).sum(dim=-1)
+            qvalid7 = torch.gather(qvalid7, -1, parent7.long()).reshape(-1)
+            k7_launches = counts["K7"]
+            batch_info = info
+        del r7, rstep
+        torch.cuda.empty_cache()
+        if not main:
+            continue
+        # ---- 15. the queue of 24 scans through 8 lanes
+        steps = [0]
+        step = seq._step
+
+        def counted(*a, **kw):
+            steps[0] += 1
+            return step(*a, **kw)
+
+        seq._step = counted
+        try:
+            qclouds = clouds * TILE_QUEUE_REPEAT
+            register_queue_to_map(seq, qclouds, seed=1, lanes=QUEUE_LANES)  # warm-up
+            steps[0] = 0
+            reset()
+            t = time.perf_counter()
+            Tq, iq = register_queue_to_map(seq, qclouds, seed=1, lanes=QUEUE_LANES)
+            sec = time.perf_counter() - t
+            counts = all_launches()
+        finally:
+            del seq._step
+        worst = gates(Tq, poses * TILE_QUEUE_REPEAT, iq,
+                      f"tile queue, {n_map}-point map")
+        log(f"[tile] queue of {len(qclouds)} scans through {QUEUE_LANES} lanes "
+            f"on the {n_map}-point map: {1e3 * sec:.2f} ms, "
+            f"{len(qclouds) / sec:.2f} registrations/s, {steps[0]} lane "
+            f"iterations, iterations {iq['iterations'].tolist()}, worst rot err "
+            f"{worst[0]:.5f} rad, trans err {worst[1]:.5f} m, launches {counts}")
+        want = {name: 0 for name in counts}
+        want["K7"] = steps[0]
+        if counts != want:
+            raise AssertionError(f"tile queue launches {counts}, expected {want}")
+        for key in ("iterations", "codes"):
+            if not np.array_equal(iq[key][:SERVE_BATCH], batch_info[key]):
+                raise AssertionError(f"tile queue {key} {iq[key][:SERVE_BATCH]} "
+                                     f"differ from the batch's {batch_info[key]}")
+        del seq, internal, clouds
+        torch.cuda.empty_cache()
+    # ---- the kernels at their recorded inputs, for the record
+    records.append(record_tile_kernel(torch, tc, "K7 tile_sweep", q7, cand7, dim7,
+                                      None, qvalid7, k7_launches))
+    (q8, cand8, dim8, k8), qvalid8 = k8_inputs[0][:4], k8_inputs[1]
+    records.append(record_tile_kernel(torch, tc, "K8 tile_sweep_k", q8, cand8,
+                                      dim8, k8, qvalid8, k8_launches))
+    return records
+
+
 def kernel_inputs(torch, world, scan_world, n, m, rng, device="cuda"):
     """Queries from a scan placed in the world, references from the scene,
     every 11th query and every 7th reference masked."""
@@ -709,6 +1047,7 @@ def main() -> int:
     from libpointmatcher_tpu_torch.ops import morton, sweep
     from libpointmatcher_tpu_torch.ops import knn_cuda as kc
     from libpointmatcher_tpu_torch.ops import sweep_cuda as sc
+    from libpointmatcher_tpu_torch.ops import tile_cuda as tc
     from libpointmatcher_tpu_torch.ops.dispatch import MXU_EPSILON_FLOOR
     from libpointmatcher_tpu_torch.parallel import (register_batch,
                                                     register_batch_to_map,
@@ -727,10 +1066,12 @@ def main() -> int:
 
     # ---- 2. build
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:     # one nvcc per source, together
-        list(pool.map(lambda lib: lib.load(), (kc.LIBRARY, sc.LIBRARY)))
-    log(f"[build] knn.cu and sweep.cu built in {time.perf_counter() - t0:.2f} s")
-    for lib in (kc.LIBRARY, sc.LIBRARY):
+    libs = (kc.LIBRARY, sc.LIBRARY, tc.LIBRARY)
+    with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source, together
+        list(pool.map(lambda lib: lib.load(), libs))
+    log(f"[build] knn.cu, sweep.cu and tile.cu built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for lib in libs:
         for line in lib.build_log.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"[build] {lib.source.name}: {line.strip()}")
@@ -1066,6 +1407,10 @@ def main() -> int:
     for j, call in enumerate(rec.calls):
         check_k1_call(torch, kc, *call[:4], f"register_batch iteration {j}")
     del rec
+    torch.cuda.empty_cache()
+
+    # ---- 13.-16. large-map tile-sweep serving
+    records += tile_serving(torch, pt, kc, sc, tc, launches)
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -88,15 +88,20 @@ class DataPointsFilter(Parametrizable):
 def apply_filter_chain(filters: Sequence[DataPointsFilter], cloud: PointCloud,
                        seed: int = 0, stream: int = 0,
                        scan: Optional[int] = None,
-                       allow_empty: bool = False) -> PointCloud:
-    """Apply ``filters`` in order, compacting after each. A filter that
-    leaves no point raises ``ConvergenceError``, unless ``allow_empty``:
-    in serving, the emptied scan goes on to the loop and stops there with
-    the no-inliers code, as in the JAX package's serving functions."""
+                       allow_empty: bool = False,
+                       compact: bool = True) -> PointCloud:
+    """Apply ``filters`` in order, compacting after each unless
+    ``compact`` is False (the tile route keeps the raw rows, which its
+    assignment addresses). A filter that leaves no point raises
+    ``ConvergenceError``, unless ``allow_empty``: in serving, the emptied
+    scan goes on to the loop and stops there with the no-inliers code, as
+    in the JAX package's serving functions."""
     before = None
     for i, f in enumerate(filters):
         gen = chain_generator(seed, stream, i, cloud.device, scan)
-        cloud = f.filter(cloud, generator=gen, scan=scan).compact()
+        cloud = f.filter(cloud, generator=gen, scan=scan)
+        if compact:
+            cloud = cloud.compact()
         after = cloud.count_host()
         log_info(f"Applied {type(f).__name__} - {after} points remaining"
                  + (f" (of {before})" if before is not None else ""))

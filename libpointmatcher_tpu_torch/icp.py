@@ -66,6 +66,10 @@ class ICPChainBase:
         self.prefiltered_reading_pts_count = 0
         self.prefiltered_reference_pts_count = 0
         self.max_num_iterations_reached = False
+        #: True when the last registration's displacement bound passed the
+        #: matcher's motionBound (BlockGridMatcher): matches beyond the
+        #: cells assigned at loop start may have been missed
+        self.motion_bound_exceeded = False
         self.last_stats: Optional[MinimizerStats] = None
         self.last_iteration_count = 0
         self.last_code = 0
@@ -202,13 +206,28 @@ class ICP(ICPChainBase):
         self.prefiltered_reading_pts_count = reading.count_host()
         reading = _apply_transform(self.transformations, reading, T_refMean_dataIn)
 
-        T_iter, iters, code, stats = self._run_loop(reading, reference)
+        # per-registration matcher tables (BlockGridMatcher's tiling)
+        aux = self.matcher.prepare_loop(reading)
+        T_iter, iters, code, stats = self._run_loop(reading, reference, aux)
         iters, code = int(iters), int(code)
 
         self.max_num_iterations_reached = code == CODE_MAX_ITER
         self.last_iteration_count = iters
         self.last_code = code
         self.last_stats = stats
+        self.motion_bound_exceeded = False
+        if stats.motion_max is not None:
+            motion = float(stats.motion_max)
+            bound = float(self.matcher.motionBound)
+            if motion > bound:
+                self.motion_bound_exceeded = True
+                log_warning(
+                    f"{type(self.matcher).__name__}: max reading-point "
+                    f"displacement bound {motion:.3f} exceeded motionBound "
+                    f"{bound:.3f} during the loop: matches beyond the cells "
+                    f"assigned at loop start may have been missed; raise "
+                    f"motionBound (cell edge = maxDist + motionBound) or "
+                    f"tighten the prior")
         if code == CODE_NAN_ERROR:
             raise ConvergenceError("abs rotation/translation norm not a number")
         if code == CODE_BOUND_ERROR:
@@ -228,13 +247,17 @@ class ICP(ICPChainBase):
               matcher_aux=None, matcher_state=None, checkers=None):
         """One iteration (the JAX engine's ``_make_step``), for one scan or
         a batch. With ``matcher_aux`` the matcher serves through its
-        stateful route and returns its new loop state. ``checkers``
-        replaces the chain's own (the coarse pass of the queue)."""
+        stateful route, returning its new loop state, if it has one, or
+        takes the tables as ``aux``. ``checkers`` replaces the chain's own
+        (the coarse pass of the queue)."""
         checkers = self.checkers if checkers is None else checkers
         stepped = _apply_transform(self.transformations, reading, T_iter)
-        if matcher_aux is not None:
+        if matcher_aux is not None and self._stateful_matcher():
             matches, matcher_state = self.matcher.find_closests_in_stateful(
                 stepped, reference, matcher_aux, matcher_state)
+        elif matcher_aux is not None:
+            matches = self.matcher.find_closests_in(stepped, reference,
+                                                    aux=matcher_aux)
         else:
             matches = self.matcher.find_closests_in(stepped, reference)
         weights = compute_outlier_weights(self.outlier_filters, stepped,
@@ -258,6 +281,37 @@ class ICP(ICPChainBase):
         iterate = iterate & ~no_inliers
         return T_new, new_states, iterate, code, stats, matcher_state
 
+    def _stateful_matcher(self) -> bool:
+        """True when the matcher carries loop state (the survivor route)."""
+        return hasattr(self.matcher, "find_closests_in_stateful")
+
+    def _motion_tracker(self, reading, matcher_aux):
+        """For a bounded-search matcher (one with ``motionBound``) served
+        with loop tables → ``track(T) → bound [...]``, per scan, on the
+        displacement of any reading point under the loop pose ``T`` from
+        its loop-entry pose, where the tables were built; else None.
+        Referenced to each scan's centroid c: for x within r of c,
+        ‖Rx + t − x‖ ≤ sqrt(d − tr R)·r + ‖Rc + t − c‖ (the JAX engine's
+        ``_motion_tracker``)."""
+        if matcher_aux is None or getattr(self.matcher, "motionBound", None) is None:
+            return None
+        d = reading.dim
+        cnt = torch.clamp(reading.count(), min=1)[..., None]
+        c = torch.where(reading.mask[..., None], reading.points, 0.0
+                        ).sum(dim=-2) / cnt
+        r_local = torch.where(
+            reading.mask, torch.linalg.norm(reading.points - c[..., None, :],
+                                            dim=-1), 0.0).amax(dim=-1)
+
+        def track(T):
+            R, t = T[..., :d, :d], T[..., :d, d]
+            sigma = torch.sqrt(torch.clamp(
+                d - R.diagonal(dim1=-2, dim2=-1).sum(dim=-1), min=0.0))
+            drift = torch.linalg.norm((R @ c[..., None])[..., 0] + t - c, dim=-1)
+            return sigma * r_local + drift
+
+        return track
+
     def _run_loop(self, reading, reference, matcher_aux=None):
         """Lockstep fixed-point loop over the reading's batch dimensions →
         ``(T_iter, iterations, codes, stats)``, one of each per scan (host
@@ -268,14 +322,19 @@ class ICP(ICPChainBase):
         the next steps, so a sweep spends nothing on them. The loop ends
         when no scan is active, after one host read of the flags per
         iteration. A single scan (no batch dimension) is active for as long
-        as the loop runs, so it skips the masking and the merges."""
+        as the loop runs, so it skips the masking and the merges. For a
+        bounded-search matcher ``stats.motion_max`` holds each scan's
+        running displacement bound (:meth:`_motion_tracker`)."""
         bshape = reading.points.shape[:-2]
         dev = reading.device
         d = reading.dim
         T_iter = se3.identity(d, dev).expand(*bshape, d + 1, d + 1).clone()
         states = [c.init_state(T_iter) for c in self.checkers]
         mstate = (self.matcher.loop_state_init(reading, matcher_aux)
-                  if matcher_aux is not None else None)
+                  if matcher_aux is not None and self._stateful_matcher()
+                  else None)
+        track = self._motion_tracker(reading, matcher_aux)
+        motion = torch.zeros(bshape, device=dev)
         iteration = 0
         if not bshape:
             code = 0
@@ -283,11 +342,14 @@ class ICP(ICPChainBase):
                 T_iter, states, iterate, c, stats, mstate = self._step(
                     reading, reference, T_iter, states, iteration,
                     matcher_aux, mstate)
+                if track is not None:
+                    motion = torch.maximum(motion, track(T_iter))
                 go, c = torch.stack([iterate.to(torch.int32), c]).tolist()
                 iteration += 1
                 code = max(code, c)
                 if not go:
-                    return T_iter, iteration, code, stats
+                    return (T_iter, iteration, code,
+                            _with_motion(stats, motion, track))
         active = torch.ones(bshape, dtype=torch.bool, device=dev)
         iters = torch.zeros(bshape, dtype=torch.int32, device=dev)
         code = torch.zeros(bshape, dtype=torch.int32, device=dev)
@@ -297,6 +359,9 @@ class ICP(ICPChainBase):
             T_new, new_states, iterate, c, new_stats, new_mstate = self._step(
                 live, reference, T_iter, states, iteration, matcher_aux,
                 mstate)
+            if track is not None:
+                motion = torch.where(active, torch.maximum(motion, track(T_new)),
+                                     motion)
             T_iter = _keep_active(active, T_new, T_iter)
             states = _keep_active(active, new_states, states)
             mstate = _keep_active(active, new_mstate, mstate)
@@ -307,11 +372,11 @@ class ICP(ICPChainBase):
             active = active & iterate
             iteration += 1
             if not bool(active.any()):
-                return T_iter, iters, code, stats
+                return T_iter, iters, code, _with_motion(stats, motion, track)
 
 
     def _run_queue(self, pool, reference, T0, lanes: int, checkers=None,
-                   matcher_aux=None):
+                   matcher_aux=None, pool_aux=None):
         """Continuous-batching loop over a pool of Q prepped scans
         (``[Q, rows, d]``, the counterpart of the JAX queue program,
         ``parallel/stream.py``) → ``(T_iter, iterations, codes, stats)``,
@@ -322,32 +387,41 @@ class ICP(ICPChainBase):
         reads the ``[L]`` flags once. A lane whose checkers stopped writes
         its scan's pose, iteration count, code and statistics to the scan's
         output slot and takes the next queued scan, simultaneous finishers
-        in lane order: the lanes' rows are gathered from the pool again,
-        and that lane's pose is set to the scan's ``T0``, its checker
-        states, iteration count, code and matcher loop state started
-        afresh. A lane left without a scan is masked out of the remaining
-        steps."""
+        in lane order: the lanes' rows, and their rows of the per-scan
+        matcher tables ``pool_aux`` (``[Q, ...]`` each, beside the shared
+        ``matcher_aux``), are gathered from the pools again, and that
+        lane's pose is set to the scan's ``T0``, its checker states,
+        iteration count, code, matcher loop state and displacement bound
+        started afresh. A lane left without a scan is masked out of the
+        remaining steps."""
         checkers = list(self.checkers if checkers is None else checkers)
         q = pool.points.shape[0]
         dev = pool.device
         n_lanes = min(int(lanes), q)
         lane_scan = list(range(n_lanes))          # host: -1 = idle lane
         next_scan = n_lanes
-        reading = _lanes(pool, torch.arange(n_lanes, device=dev))
+        lane_now = torch.arange(n_lanes, device=dev)
+        reading = _lanes(pool, lane_now)
+        aux = _lane_aux(matcher_aux, pool_aux, lane_now)
         T_iter = T0[:n_lanes].clone()
         states = _lane_form([c.init_state(T_iter) for c in checkers], n_lanes, dev)
-        mstate = (self.matcher.loop_state_init(reading, matcher_aux)
-                  if matcher_aux is not None else None)
+        stateful = aux is not None and self._stateful_matcher()
+        mstate = self.matcher.loop_state_init(reading, aux) if stateful else None
+        track = self._motion_tracker(reading, aux)
+        motion = torch.zeros(n_lanes, device=dev)
         iters = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
         code = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
         out_T = T0.clone()
         out_iters = torch.zeros(q, dtype=torch.int32, device=dev)
         out_code = torch.zeros(q, dtype=torch.int32, device=dev)
+        out_motion = torch.zeros(q, device=dev)
         out_stats = None
         while True:
             T_iter, states, iterate, c, stats, mstate = self._step(
-                reading, reference, T_iter, states, iters, matcher_aux, mstate,
+                reading, reference, T_iter, states, iters, aux, mstate,
                 checkers)
+            if track is not None:
+                motion = torch.maximum(motion, track(T_iter))
             iters = iters + 1
             code = torch.maximum(code, c)
             go = iterate.tolist()                 # the one host read
@@ -369,15 +443,21 @@ class ICP(ICPChainBase):
             out_T[scans_d] = T_iter[lanes_d]
             out_iters[scans_d] = iters[lanes_d]
             out_code[scans_d] = code[lanes_d]
+            out_motion[scans_d] = motion[lanes_d]
             if out_stats is None:
                 out_stats = type(stats)(*(
+                    None if s is None else
                     torch.zeros((q,) + s.shape[1:], dtype=s.dtype, device=dev)
                     for s in stats))
             for o, s in zip(out_stats, stats):
-                o[scans_d] = s[lanes_d]
+                if s is not None:
+                    o[scans_d] = s[lanes_d]
             if all(s < 0 for s in lane_scan):
-                return out_T, out_iters, out_code, out_stats
+                return (out_T, out_iters, out_code,
+                        _with_motion(out_stats, out_motion, track))
             reading = _lanes(pool, lane_now)
+            if pool_aux is not None:
+                aux = _lane_aux(matcher_aux, pool_aux, lane_now)
             T_iter = torch.where(fresh[:, None, None], T0[lane_now.clamp(min=0)],
                                  T_iter)
             states = _keep_active(fresh, _lane_form(
@@ -386,7 +466,10 @@ class ICP(ICPChainBase):
             code = torch.where(fresh, 0, code)
             if mstate is not None:
                 mstate = _keep_active(fresh, self.matcher.loop_state_init(
-                    reading, matcher_aux), mstate)
+                    reading, aux), mstate)
+            if track is not None:
+                track = self._motion_tracker(reading, aux)
+                motion = torch.where(fresh, 0.0, motion)
 
 
 def _lane_form(state, n_lanes: int, device):
@@ -397,6 +480,20 @@ def _lane_form(state, n_lanes: int, device):
     if isinstance(state, int):
         return torch.full((n_lanes,), state, dtype=torch.int32, device=device)
     return type(state)(_lane_form(s, n_lanes, device) for s in state)
+
+
+def _with_motion(stats, motion, track):
+    """``stats`` with the displacement bound, when one was tracked."""
+    return stats if track is None else stats._replace(motion_max=motion)
+
+
+def _lane_aux(shared, per_scan, lane_scan: torch.Tensor):
+    """The lanes' matcher tables: the ``shared`` ones and the lanes' rows
+    of each ``[Q, ...]`` per-scan table (None when there are neither)."""
+    if per_scan is None:
+        return shared
+    at = lane_scan.clamp(min=0)
+    return {**(shared or {}), **{k: v[at] for k, v in per_scan.items()}}
 
 
 def _lanes(pool: PointCloud, lane_scan: torch.Tensor) -> PointCloud:
@@ -448,13 +545,18 @@ class ICPSequence(ICP):
         ``coarse`` is given, so that the first real request finds the
         kernels built and the map's sweep tables made. The scan is
         ``example`` if given, else points drawn uniformly in the map's
-        bounding box. Returns the wall seconds spent."""
+        bounding box. A ``BlockGridMatcher`` has its map's sub-blocks from
+        ``set_map``; on the card its kernels (``csrc/tile.cu``) are built
+        here first. Returns the wall seconds spent."""
+        from .ops import tile_cuda
         from .parallel.batch import register_batch_to_map
         from .parallel.stream import register_queue_to_map
 
         if not self.has_map():
             raise RuntimeError("set_map first")
         t0 = time.perf_counter()
+        if self.device.type == "cuda" and hasattr(self.matcher, "prepare_loop_host"):
+            tile_cuda.build()
         scan = example
         if scan is None:
             pts, _ = self.get_prefiltered_internal_map().to_numpy()

@@ -14,6 +14,11 @@ takes, on maps of 16 384 rows or more, the survivor-sweep route of
 :mod:`.ops.sweep`: the serving loop runs against a Morton-sorted copy of
 the map, and each iteration bounds every query's neighbour distance by the
 one it had in the previous iteration, carried as matcher loop state.
+
+``BlockGridMatcher`` serves bounded-radius matching through the tile sweep
+of :mod:`.ops.tilesweep` (K7, or K8 for knn > 1): the map is cut into
+sub-blocks at ``init``, and each registration's queries are tiled once at
+loop start (:meth:`BlockGridMatcher.prepare_loop`).
 """
 
 from __future__ import annotations
@@ -22,17 +27,19 @@ import math
 import os
 from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
 
 from .cloud import PointCloud
 from .ops import sweep, sweep_cuda
-from .ops.dispatch import MXU_EPSILON_FLOOR, knn_search
+from .ops.dispatch import MXU_EPSILON_FLOOR, apply_max_dist, knn_search
 from .ops.morton import morton_argsort
+from .ops.tilesweep import (assign_tiles, build_sub_blocks, gather_candidates,
+                            tile_knnk_from_candidates,
+                            tile_nn1_from_candidates)
 from .registry import Param, Parametrizable, Registrar
 
 __all__ = ["Matches", "Matcher", "NullMatcher", "KDTreeMatcher",
-           "MatcherRegistrar"]
+           "BlockGridMatcher", "MatcherRegistrar", "tile_aux_to_device"]
 
 
 class Matches(NamedTuple):
@@ -61,6 +68,12 @@ class Matcher(Parametrizable):
                          reference: PointCloud) -> Matches:
         raise NotImplementedError
 
+    def prepare_loop(self, reading: PointCloud):
+        """Called by the engine with the filtered, pre-transformed reading
+        before the loop → the matcher's per-registration tables, passed to
+        :meth:`find_closests_in` as ``aux``. Default: none."""
+        return None
+
     #: True when serving must put each scan in its Morton order before the
     #: loop (the matcher's stateful route runs in sorted space)
     SERVING_PERMUTES_READING = False
@@ -73,6 +86,23 @@ class Matcher(Parametrizable):
 
 
 MatcherRegistrar = Registrar("Matcher")
+
+
+def _dense_matches(reading, reference, knn: int, epsilon: float,
+                   max_dist: float) -> Matches:
+    """The exact dense search (K1, K9, K5) of every scan of ``reading``
+    against a shared ``reference``, or with a reference ``[B, M, d]`` each
+    scan against its own, ``max_dist`` applied."""
+    if reference.points.ndim == 3:
+        dists, ids = knn_search(reading.points, reading.mask, reference.points,
+                                reference.mask, k=knn, epsilon=epsilon)
+        return Matches(*apply_max_dist(dists, ids, max_dist))
+    b = reading.points.shape[:-2]
+    dists, ids = knn_search(reading.points.reshape(-1, reading.dim),
+                            reading.mask.reshape(-1), reference.points,
+                            reference.mask, k=knn, epsilon=epsilon)
+    return Matches(*apply_max_dist(dists.reshape(*b, -1, knn),
+                                   ids.reshape(*b, -1, knn), max_dist))
 
 
 @MatcherRegistrar.register
@@ -122,27 +152,8 @@ class KDTreeMatcher(Matcher):
         self.survivor_fractions = []
 
     def find_closests_in(self, reading, reference):
-        if reference.points.ndim == 3:      # one reference per scan
-            dists, ids = knn_search(reading.points, reading.mask,
-                                    reference.points, reference.mask,
-                                    k=self.knn, epsilon=float(self.epsilon))
-            return self._apply_max_dist(Matches(dists, ids))
-        b = reading.points.shape[:-2]
-        dists, ids = knn_search(reading.points.reshape(-1, reading.dim),
-                                reading.mask.reshape(-1),
-                                reference.points, reference.mask, k=self.knn,
-                                epsilon=float(self.epsilon))
-        matches = Matches(dists.reshape(*b, -1, self.knn),
-                          ids.reshape(*b, -1, self.knn))
-        return self._apply_max_dist(matches)
-
-    def _apply_max_dist(self, m: Matches) -> Matches:
-        if self.maxDist == float("inf"):
-            return m
-        limit = float(np.float32(self.maxDist) * np.float32(self.maxDist))
-        keep = m.dists <= limit
-        return Matches(torch.where(keep, m.dists, torch.full_like(m.dists, float("inf"))),
-                       torch.where(keep, m.ids, torch.full_like(m.ids, -1)))
+        return _dense_matches(reading, reference, self.knn,
+                              float(self.epsilon), self.maxDist)
 
     # ---- survivor-sweep serving route (ops/sweep.py): the serving loop runs
     # in Morton-sorted space, the scans permuted once before the loop and the
@@ -229,10 +240,122 @@ class KDTreeMatcher(Matcher):
             dk, ik, frac = sweep.nnk_sorted_v2(qs, qm, ub_t, aux["skip_rt3"],
                                                aux["skip_ct"], int(self.knn))
             self.survivor_fractions.append(frac)
-            return self._apply_max_dist(Matches(dk, ik)), (qs, dk[..., -1])
+            return (Matches(*apply_max_dist(dk, ik, self.maxDist)),
+                    (qs, dk[..., -1]))
         d_s, i_s, frac = sweep.nn1_sorted_v2(qs, qm, ub_t, aux["skip_rt3"],
                                              aux["skip_ct"],
                                              stream=self._skip_stream)
         self.survivor_fractions.append(frac)
-        matches = Matches(d_s[..., None], i_s[..., None])
-        return self._apply_max_dist(matches), (qs, d_s)
+        matches = apply_max_dist(d_s[..., None], i_s[..., None], self.maxDist)
+        return Matches(*matches), (qs, d_s)
+
+
+def tile_aux_to_device(per_scan: dict, units: torch.Tensor) -> dict:
+    """A tile assignment in host form (numpy ``q_rows``, ``blocks``,
+    ``parent``, ``vrows``, of one scan or stacked ``[B, ...]``) → the
+    tables :meth:`BlockGridMatcher.find_closests_in` takes, on the device
+    of ``units``: the candidate tables gathered once from the map's
+    sub-block units, and the index arrays. ``q_rows`` is kept only if
+    given (the serving drivers consume it by putting each scan in tile
+    order)."""
+    dev = units.device
+    t = lambda a: torch.as_tensor(a, device=dev).long()
+    cand_t = gather_candidates(units, t(per_scan["blocks"]))
+    aux = {"cand_t": cand_t, "parent": t(per_scan["parent"]),
+           "vrows": t(per_scan["vrows"])}
+    if "q_rows" in per_scan:
+        aux["q_rows"] = t(per_scan["q_rows"])
+    return aux
+
+
+@MatcherRegistrar.register
+class BlockGridMatcher(Matcher):
+    """Bounded-radius k-NN (k ≤ 32) through the tile sweep (an extension
+    beyond the reference registry, as in the JAX package; see
+    ops/tilesweep.py). The map is cut into 8-row sub-blocks at ``init`` and
+    each registration's queries are tiled once at loop start
+    (:meth:`prepare_loop`); every iteration is then one K7 launch (knn = 1)
+    or one K8 launch (knn > 1) over all tiles. Exactness across the moving
+    loop rests on the cell edge ``maxDist + motionBound``: as long as no
+    reading point moves farther than ``motionBound`` from its loop-entry
+    pose, the 3^d cells around its own cover its ``maxDist`` ball. The
+    engine tracks a bound on that displacement and reports a violation
+    (``ICP.motion_bound_exceeded``, the serving ``info`` entry). Points
+    with no neighbour within ``maxDist`` get (+inf, −1), the contract of
+    ``KDTreeMatcher`` with ``maxDist`` (reference: MatchersImpl.cpp:78-150).
+    """
+
+    PARAMS = (
+        Param("knn", "number of nearest neighbors to consider (the tile "
+              "sweep serves k<=32 fused; per-iteration cost grows ~k)",
+              int, 1, min=1, max=32),
+        Param("maxDist", "maximum distance to consider for neighbors "
+              "(required finite)", float, 1.0, min=0.0000001),
+        Param("motionBound", "upper bound on how far any reading point "
+              "moves during one registration (cell edge = maxDist + "
+              "motionBound)", float, 1.0, min=0.0),
+        Param("tileQueries", "queries per sweep tile (spatially coherent "
+              "Morton groups; smaller tiles shrink candidate unions, "
+              "larger tiles amortize per-step issue overhead)",
+              int, 256, min=8),
+        Param("blockCap", "candidate rows per virtual tile: tiles whose "
+              "candidate union exceeds this are split, bounding the "
+              "padded sweep at ceil(union/cap)*cap instead of the global "
+              "max union (see ops/tilesweep.py)", int, 1024, min=128),
+    )
+
+    def __init__(self, params=None):
+        super().__init__(params)
+        self._blocks = None
+        #: the map's sub-block units on its device (None before init)
+        self.units: Optional[torch.Tensor] = None
+        self._ref_shape = None
+
+    @property
+    def cell_size(self) -> float:
+        return float(self.maxDist) + float(self.motionBound)
+
+    def init(self, reference: PointCloud) -> None:
+        """Cut the (filtered, centred) reference into sub-blocks."""
+        super().init(reference)
+        pts, mask = reference.host_rows()
+        self._blocks = build_sub_blocks(pts, mask, self.cell_size)
+        self.units = torch.as_tensor(self._blocks.units, device=reference.device)
+        self._ref_shape = tuple(reference.points.shape)
+
+    def prepare_loop(self, reading: PointCloud):
+        """The reading's tile assignment and candidate tables (one scan)."""
+        if self._blocks is None:
+            return None
+        pts, mask = reading.host_rows()
+        return tile_aux_to_device(self.prepare_loop_host(pts, mask), self.units)
+
+    def prepare_loop_host(self, pts, mask, pad_tiles_to: int = 0,
+                          pad_blocks_to: int = 0) -> dict:
+        """The tile assignment of host rows ``pts`` [N, d] in host form
+        (numpy ``q_rows``, ``blocks``, ``parent``, ``vrows``): the serving
+        drivers build one per scan, stack them and make one copy."""
+        ta = assign_tiles(pts, mask, self._blocks, tile_q=int(self.tileQueries),
+                          pad_tiles_to=pad_tiles_to,
+                          pad_blocks_to=pad_blocks_to,
+                          block_cap=int(self.blockCap))
+        return {"q_rows": ta.q_rows, "blocks": ta.blocks,
+                "parent": ta.parent, "vrows": ta.vrows}
+
+    def find_closests_in(self, reading, reference, aux=None) -> Matches:
+        """Through the tile sweep with ``aux`` (:meth:`prepare_loop`'s, or
+        a serving driver's for readings in tile order, without ``q_rows``)
+        against the reference of ``init``; else the exact dense search with
+        ``maxDist`` applied."""
+        if aux is not None and tuple(reference.points.shape) == self._ref_shape:
+            q_rows = aux.get("q_rows")
+            if self.knn > 1:
+                return Matches(*tile_knnk_from_candidates(
+                    reading.points, reading.mask, q_rows, aux["cand_t"],
+                    float(self.maxDist), aux["parent"], aux["vrows"],
+                    int(self.knn)))
+            d1, i1 = tile_nn1_from_candidates(
+                reading.points, reading.mask, q_rows, aux["cand_t"],
+                float(self.maxDist), aux["parent"], aux["vrows"])
+            return Matches(d1[..., None], i1[..., None])
+        return _dense_matches(reading, reference, self.knn, 0.0, self.maxDist)

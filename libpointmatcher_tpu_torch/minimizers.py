@@ -13,7 +13,7 @@ scan.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -34,6 +34,9 @@ class MinimizerStats(NamedTuple):
     residual: torch.Tensor
     nb_rejected_matches: torch.Tensor
     nb_rejected_points: torch.Tensor
+    #: the engine's running bound on reading-point displacement, for a
+    #: bounded-search matcher served with loop tables (else None)
+    motion_max: Optional[torch.Tensor] = None
 
 
 class Pairs(NamedTuple):

@@ -14,10 +14,13 @@ Results follow the invalid conventions dist = +inf, id = −1
 
 from __future__ import annotations
 
+import numpy as np
+import torch
+
 from .knn import knn_brute_force
 from .knn_cuda import KNNK_MAX, knn1, knn1_mxu, knnk
 
-__all__ = ["knn_search", "MXU_EPSILON_FLOOR"]
+__all__ = ["knn_search", "apply_max_dist", "radius2", "MXU_EPSILON_FLOOR"]
 
 #: ε from which K9 serves the (1+ε) contract of libnabo's approximate
 #: search (reference: MatchersImpl.cpp:86-101): the exact distance of K9's
@@ -44,3 +47,16 @@ def knn_search(query, query_mask, ref, ref_mask, k: int = 1,
     if k <= KNNK_MAX:
         return knnk(query, query_mask, ref, ref_mask, k)
     return knn_brute_force(query, query_mask, ref, ref_mask, k=k)
+
+
+def radius2(max_dist: float) -> float:
+    """``max_dist``² in float32, as the JAX package squares it."""
+    return float(np.float32(max_dist) * np.float32(max_dist))
+
+
+def apply_max_dist(dists, ids, max_dist: float):
+    """k-NN results beyond ``max_dist`` made invalid (+inf, −1)."""
+    if max_dist == float("inf"):
+        return dists, ids
+    keep = dists <= radius2(max_dist)
+    return torch.where(keep, dists, float("inf")), torch.where(keep, ids, -1)

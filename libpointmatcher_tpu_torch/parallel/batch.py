@@ -7,14 +7,21 @@ tables once (``set_map``, then the first serving batch). Each batch of
 scans then runs one lockstep loop against it (``ICP._run_loop``): every
 scan's reading chain draws from its own generators, its filtered rows are
 stacked into one ``[B, rows, d]`` cloud, and every kernel launch of an
-iteration serves all B scans, which share the map. Two routes, picked per
-map by the matcher (``KDTreeMatcher.serving_loop_aux``):
+iteration serves all B scans, which share the map. Three routes, picked
+per map by the matcher (``KDTreeMatcher.serving_loop_aux``, or a
+``BlockGridMatcher``):
 
 - dense: one K1 launch per iteration over all scans' rows;
 - survivor sweep (maps of 16 384 rows or more): each scan is put in its
   Morton order first, the loop runs against the Morton-sorted map, and
   each iteration makes one K2 launch and one K3, K4 or (knn 2..4) K6
-  launch.
+  launch;
+- tile sweep (``BlockGridMatcher`` with a reading chain that only masks
+  rows): each scan's tile assignment is built on the host from its raw rows
+  at its initial pose, the assignments are stacked and their candidate
+  tables gathered on the device once, each scan is put in tile order, and
+  each iteration makes one K7 launch (K8 for knn > 1) over the tiles of
+  every scan.
 
 ``register_batch`` stacks the pairs' references as well as their readings
 and runs the same loop, each reading against its own reference.
@@ -22,6 +29,7 @@ and runs the same loop, each reading against its own reference.
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -31,6 +39,8 @@ from ..cloud import PointCloud
 from ..filters.base import apply_filter_chain
 from ..icp import (READING_STREAM, REFERENCE_STREAM, _apply_transform,
                    _center_cloud)
+from ..loggers import log_warning
+from ..matchers import tile_aux_to_device
 from ..ops.morton import morton_argsort_device
 from ..utils import se3
 
@@ -126,6 +136,92 @@ def _prep_scans(seq, readings: Sequence[PointCloud], T_rmd: torch.Tensor,
     return batch, np.asarray(overflow, bool), cap
 
 
+def _tile_route(seq) -> bool:
+    """True when the matcher serves through tile tables (a
+    ``BlockGridMatcher`` with its map's sub-blocks) and every reading
+    filter only masks rows (``TRACEABLE``), so that the assignment built
+    from the raw rows stays valid after the chain. Otherwise serving runs
+    the matcher's dense fallback, as the JAX package's host path does."""
+    m = seq.matcher
+    return (getattr(m, "units", None) is not None
+            and hasattr(m, "prepare_loop_host")
+            and all(getattr(f, "TRACEABLE", False) for f in seq.reading_filters))
+
+
+def _pad_tile_aux_np(pers, sentinel: int) -> dict:
+    """Align and stack per-scan host tile assignments (their tile and block
+    counts differ) → ``[B, ...]`` numpy arrays.
+
+    ``sentinel`` is the all-pad gather unit U, ``units.shape[0] − 1``:
+    padded candidate slots point at it and read (+inf, −1). The JAX
+    package's queue passes the sub-block count S instead, an index past
+    the unit table that a JAX gather clamps to the last unit and a torch
+    index refuses. Padded parent tiles carry −1 query rows; extra merge
+    steps and padded ``vrows`` columns point at virtual tile
+    ``max_tv − 1``, all-pad in every scan (``assign_tiles`` keeps at least
+    one trailing all-pad virtual tile), a no-op merge."""
+    b = len(pers)
+    tq = pers[0]["q_rows"].shape[1]
+    max_tp = max(p["q_rows"].shape[0] for p in pers)
+    max_tv = max(p["blocks"].shape[0] for p in pers)
+    max_b = max(p["blocks"].shape[1] for p in pers)
+    max_k = max(p["vrows"].shape[0] for p in pers)
+    q_rows = np.full((b, max_tp, tq), -1, np.int32)
+    blocks = np.full((b, max_tv, max_b), sentinel, np.int32)
+    parent = np.zeros((b, max_tv), np.int32)
+    vrows = np.full((b, max_k, max_tp), max_tv - 1, np.int32)
+    for i, p in enumerate(pers):
+        tp = p["q_rows"].shape[0]
+        tv, bb = p["blocks"].shape
+        q_rows[i, :tp] = p["q_rows"]
+        blocks[i, :tv, :bb] = p["blocks"]
+        parent[i, :tv] = p["parent"]
+        vrows[i, :p["vrows"].shape[0], :tp] = p["vrows"]
+    return {"q_rows": q_rows, "blocks": blocks, "parent": parent,
+            "vrows": vrows}
+
+
+def _prep_tile_scans(seq, readings: Sequence[PointCloud], T_inits,
+                     T_rmd: torch.Tensor, seed: int):
+    """The tile route's prep of every scan → ``(batch [B, Tp·TQ, d], aux)``.
+
+    Each scan's assignment is built on the host, in a thread pool, from its
+    raw rows and mask moved by its T_rmd in float64, the JAX package's
+    data, so that tiles, virtual splits and the row order of the loop's
+    sums are its own. The assignments are stacked, copied once, and their
+    candidate tables gathered on the device. The reading chain runs without
+    compaction (the assignment's row ids address raw rows), and each scan
+    is then put in tile order: row t·TQ + r is tile t's query r, a padding
+    slot a masked row. ``aux`` holds ``[B, ...]`` tables."""
+    dev = seq.device
+    dim = readings[0].dim
+    matcher = seq.matcher
+    trm_inv = np.linalg.inv(seq.trm_host())
+    eye = np.eye(dim + 1)
+
+    def assign(i):
+        pts, mask = readings[i].host_rows()
+        T = trm_inv @ np.asarray(eye if T_inits is None else T_inits[i],
+                                 np.float64)
+        return matcher.prepare_loop_host(pts @ T[:dim, :dim].T + T[:dim, dim],
+                                         mask)
+
+    with ThreadPoolExecutor(max_workers=min(len(readings), 8)) as ex:
+        pers = list(ex.map(assign, range(len(readings))))
+    aux = tile_aux_to_device(
+        _pad_tile_aux_np(pers, int(matcher.units.shape[0]) - 1), matcher.units)
+    q_rows = aux.pop("q_rows").reshape(len(readings), -1)
+    scans = []
+    for i, rd in enumerate(readings):
+        c = apply_filter_chain(seq.reading_filters, rd.to(dev), seed,
+                               READING_STREAM, scan=i, allow_empty=True,
+                               compact=False)
+        safe = q_rows[i].clamp(min=0)
+        scans.append(PointCloud(c.points[safe], (q_rows[i] >= 0) & c.mask[safe],
+                                {k: v[safe] for k, v in c.descriptors.items()}))
+    return _apply_transform(seq.transformations, _stack(scans), T_rmd), aux
+
+
 def _serving_route(seq, reference):
     """The matcher's route for this map → ``(permute, loop reference,
     aux)``: aux is None on the dense route."""
@@ -136,8 +232,11 @@ def _serving_route(seq, reference):
             seq.matcher.serving_reference(reference), seq.matcher.serving_aux())
 
 
-def _info(iters, codes, stats, overflow=None) -> dict:
-    """The serving functions' per-scan ``info`` on the host."""
+def _info(iters, codes, stats, overflow=None, matcher=None) -> dict:
+    """The serving functions' per-scan ``info`` on the host; with a
+    tracked displacement bound, ``motion_bound_exceeded`` per scan (True
+    where it passed the matcher's ``motionBound``: matches beyond the
+    cells assigned at the initial pose may have been missed), logged."""
     info = {
         "iterations": iters.cpu().numpy(),
         "codes": codes.cpu().numpy(),
@@ -148,6 +247,17 @@ def _info(iters, codes, stats, overflow=None) -> dict:
     }
     if overflow is not None:
         info["compact_overflow"] = overflow
+    if stats.motion_max is not None:
+        motion = stats.motion_max.cpu().numpy()
+        bound = float(matcher.motionBound)
+        exceeded = motion > bound
+        info["motion_bound_exceeded"] = exceeded
+        if exceeded.any():
+            log_warning(f"{int(exceeded.sum())}/{len(exceeded)} scans exceeded "
+                        f"motionBound {bound:.3f} (max displacement bound "
+                        f"{float(motion.max()):.3f}): matches beyond the "
+                        f"assigned cells may have been missed; raise "
+                        f"motionBound or tighten the priors")
     return info
 
 
@@ -162,9 +272,11 @@ def register_batch_to_map(seq, readings: Sequence[PointCloud],
     holds one entry per scan: ``iterations``, ``codes``,
     ``point_used_ratio``, ``weighted_point_used_ratio``, ``residual`` and
     ``compact_overflow`` (True where the scan's filtered rows exceeded the
-    ``compact_rows`` capacity and were cut). A scan that its filters empty
-    stops with the no-inliers code (4) instead of raising. ``seed`` seeds
-    each scan's reading filters."""
+    ``compact_rows`` capacity and were cut; never on the tile route, which
+    keeps each scan's raw rows) and, on the tile route,
+    ``motion_bound_exceeded``. A scan that its filters empty stops with the
+    no-inliers code (4) instead of raising. ``seed`` seeds each scan's
+    reading filters."""
     if not seq.has_map():
         raise RuntimeError("set_map first")
     seq._require_modules()
@@ -172,15 +284,21 @@ def register_batch_to_map(seq, readings: Sequence[PointCloud],
     Trm = seq._T_refIn_refMean
     T_rmd = se3.inverse(Trm) @ _initial_poses(T_inits, len(readings),
                                               readings[0].dim, seq.device)
-    permute, ref_loop, aux = _serving_route(seq, reference)
-    batch, overflow, _ = _prep_scans(seq, readings, T_rmd, seed,
-                                     compact_rows, permute)
-    T_iter, iters, codes, stats = seq._run_loop(batch, ref_loop, aux)
+    if _tile_route(seq):
+        batch, aux = _prep_tile_scans(seq, readings, T_inits, T_rmd, seed)
+        overflow = np.zeros(len(readings), bool)
+        T_iter, iters, codes, stats = seq._run_loop(batch, reference, aux)
+    else:
+        permute, ref_loop, aux = _serving_route(seq, reference)
+        batch, overflow, _ = _prep_scans(seq, readings, T_rmd, seed,
+                                         compact_rows, permute)
+        T_iter, iters, codes, stats = seq._run_loop(batch, ref_loop, aux)
     T_out = Trm @ T_iter @ T_rmd
     seq.last_stats = stats
 
     def finish():
-        return T_out.cpu().numpy(), _info(iters, codes, stats, overflow)
+        return T_out.cpu().numpy(), _info(iters, codes, stats, overflow,
+                                          seq.matcher)
 
     return finish() if block else PendingRegistration(finish)
 

@@ -13,7 +13,9 @@ per iteration, from which the swaps are decided.
 Per scan the queue gives what ``register_batch_to_map`` gives: the same
 prep (scan i draws from its own generators, as the batch's scan i does),
 and every per-scan quantity of a step is independent of the other lanes
-(the sweep tiles never mix scans).
+(the sweep tiles never mix scans). On the tile route (``BlockGridMatcher``)
+the pool also holds every scan's candidate tables, and a lane swap gathers
+the new scan's tables and starts its displacement bound afresh.
 
 Coarse-to-fine (``coarse=(decim, max_iter[, tol_mult])``): the reference's
 graduated resolution (``FixStepSampling``'s schedule, reference:
@@ -28,6 +30,7 @@ from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..checkers import (CounterTransformationChecker,
@@ -35,22 +38,25 @@ from ..checkers import (CounterTransformationChecker,
 from ..cloud import PointCloud
 from ..utils import se3
 from .batch import (PendingRegistration, _info, _initial_poses, _prep_scans,
-                    _serving_route, register_batch_to_map)
+                    _prep_tile_scans, _serving_route, _tile_route,
+                    register_batch_to_map)
 
 __all__ = ["register_queue_to_map", "queue_eligible"]
 
 
 def _queue_mode(seq) -> str:
-    """Serving mode of the queue: ``"skip"`` (the matcher's survivor-sweep
-    loop state, built by ``serving_loop_aux`` for the current map),
-    ``"dense"`` (no matcher loop state), or ``""`` when the reading chain
-    holds a filter that is not ``TRACEABLE`` (it runs a host step per
-    scan, as SamplingSurfaceNormal's median split does): such a chain
-    serves through :func:`register_batch_to_map`, as in the JAX package,
-    whose queue program cannot run a host step. The JAX package's ``tile``
-    mode serves ``BlockGridMatcher``, which the port does not have yet."""
+    """Serving mode of the queue: ``"tile"`` (``BlockGridMatcher``'s
+    per-scan tile tables, pooled and swapped with the lanes), ``"skip"``
+    (the matcher's survivor-sweep loop state, built by ``serving_loop_aux``
+    for the current map), ``"dense"`` (no matcher loop state), or ``""``
+    when the reading chain holds a filter that is not ``TRACEABLE`` (it
+    runs a host step per scan, as SamplingSurfaceNormal's median split
+    does): such a chain serves through :func:`register_batch_to_map`, as in
+    the JAX package, whose queue program cannot run a host step."""
     if not all(getattr(f, "TRACEABLE", False) for f in seq.reading_filters):
         return ""
+    if _tile_route(seq):
+        return "tile"
     if getattr(seq.matcher, "_skip_shared", None) is not None:
         return "skip"
     return "dense"
@@ -68,7 +74,9 @@ def register_queue_to_map(seq, readings: Sequence[PointCloud],
     """Register a queue of readings against the map of ``seq`` (an
     ``ICPSequence`` after ``set_map``) with continuous batching over
     ``lanes`` lanes; ``coarse=(decim, max_iter[, tol_mult])`` adds the
-    coarse pass (``decim`` < 2 disables it).
+    coarse pass (``decim`` < 2 disables it; the tile route ignores it, as
+    the JAX package does: decimation and compaction would void its tile
+    assignments).
 
     Returns ``(T [Q, d+1, d+1] numpy, info)`` exactly as
     :func:`register_batch_to_map` does, or a :class:`PendingRegistration`
@@ -88,9 +96,15 @@ def register_queue_to_map(seq, readings: Sequence[PointCloud],
     dim = readings[0].dim
     Trm = seq._T_refIn_refMean
     T_rmd = se3.inverse(Trm) @ _initial_poses(T_inits, q, dim, seq.device)
+    T0 = se3.identity(dim, seq.device).expand(q, dim + 1, dim + 1).clone()
+    if _queue_mode(seq) == "tile":
+        pool, pool_aux = _prep_tile_scans(seq, readings, T_inits, T_rmd, seed)
+        T_iter, iters, codes, stats = seq._run_queue(
+            pool, reference, T0, lanes, pool_aux=pool_aux)
+        return _finish(seq, Trm @ T_iter @ T_rmd, iters, codes, stats,
+                       np.zeros(q, bool), block)
     pool, overflow, cap = _prep_scans(seq, readings, T_rmd, seed,
                                       compact_rows, permute)
-    T0 = se3.identity(dim, seq.device).expand(q, dim + 1, dim + 1).clone()
     if coarse is not None and int(coarse[0]) >= 2:
         decim, c_iters = int(coarse[0]), int(coarse[1])
         tol_mult = float(coarse[2]) if len(coarse) > 2 else 2.0
@@ -103,11 +117,17 @@ def register_queue_to_map(seq, readings: Sequence[PointCloud],
                                      aux)
     T_iter, iters, codes, stats = seq._run_queue(pool, ref_loop, T0, lanes,
                                                  matcher_aux=aux)
-    T_out = Trm @ T_iter @ T_rmd
+    return _finish(seq, Trm @ T_iter @ T_rmd, iters, codes, stats, overflow,
+                   block)
+
+
+def _finish(seq, T_out, iters, codes, stats, overflow, block: bool):
+    """``(T, info)`` on the host, or its :class:`PendingRegistration`."""
     seq.last_stats = stats
 
     def finish():
-        return T_out.cpu().numpy(), _info(iters, codes, stats, overflow)
+        return T_out.cpu().numpy(), _info(iters, codes, stats, overflow,
+                                          seq.matcher)
 
     return finish() if block else PendingRegistration(finish)
 

@@ -1,13 +1,14 @@
-"""The port on the card: the K1, K9, K5, K2, K3, K4 and K6 kernels against
-their plain versions on CUDA tensors (K1 and K5 with a pair axis too), and
-registrations, batch and queue serving and pair-parallel one-shot ICP on
-the card against the same calls on the CPU. Every test needs a CUDA device and skips
+"""The port on the card: the K1, K9, K5, K2, K3, K4, K6, K7 and K8 kernels
+against their plain versions on CUDA tensors (K1 and K5 with a pair axis
+too), the tile sweep against dense K1 within maxDist, and registrations,
+batch and queue serving (the tile route too) and pair-parallel one-shot ICP
+on the card against the same calls on the CPU. Every test needs a CUDA device and skips
 without one. The file imports neither JAX nor the JAX package, so it runs
 on a machine with the card alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: K1, K5, K2, K3, K4 and K6 equal their plain versions bit for bit
+Tolerances: K1, K5, K2, K3, K4, K6, K7 and K8 equal their plain versions bit for bit
 (the same rounded operations in the same order); K9 agrees within
 2^-20·(q² + r²), its expansion form's rounding bound, and its excess over
 the exact neighbour distance stays below MXU_EPSILON_FLOOR.
@@ -19,15 +20,18 @@ import torch
 
 import libpointmatcher_tpu_torch as pt
 from libpointmatcher_tpu_torch.checkers import CounterTransformationChecker
-from libpointmatcher_tpu_torch.ops import dispatch, sweep
+from libpointmatcher_tpu_torch.filters.normals import SurfaceNormalDataPointsFilter
+from libpointmatcher_tpu_torch.ops import dispatch, sweep, tile_cuda, tilesweep
 from libpointmatcher_tpu_torch.ops import knn_cuda as kc
 from libpointmatcher_tpu_torch.ops import sweep_cuda as sc
 from libpointmatcher_tpu_torch.ops.knn import knn_brute_force
 from libpointmatcher_tpu_torch.ops.morton import morton_argsort
-from libpointmatcher_tpu_torch.matchers import KDTreeMatcher
+from libpointmatcher_tpu_torch.matchers import (BlockGridMatcher, KDTreeMatcher,
+                                                tile_aux_to_device)
 from libpointmatcher_tpu_torch.parallel import (register_batch,
                                                 register_batch_to_map,
                                                 register_queue_to_map)
+from libpointmatcher_tpu_torch.parallel.batch import _pad_tile_aux_np
 
 pytestmark = pytest.mark.cuda
 
@@ -333,3 +337,145 @@ def test_register_batch_on_card_matches_cpu(cuda):
     np.testing.assert_array_equal(ig["iterations"], ic["iterations"])
     np.testing.assert_allclose(Tg, Tc, atol=1e-5)
     assert kc.knn1.launches == int(ig["iterations"].max())
+
+
+def _tile_inputs(seed, T, tq, m, dim, device):
+    """Random tiles with ties (every fourth candidate a copy of the one
+    before) and a padded tail of candidates (penalty +inf, id −1)."""
+    rng = np.random.default_rng(seed)
+    q = np.zeros((T, tq, 8), np.float32)
+    q[..., :dim] = rng.uniform(-2, 2, (T, tq, dim))
+    cand = np.zeros((T, 8, m), np.float32)
+    cand[:, :dim] = rng.uniform(-2, 2, (T, dim, m))
+    cand[:, :dim, 1::4] = cand[:, :dim, 0::4][..., : cand[:, :, 1::4].shape[2]]
+    cand[:, 7] = rng.permutation(T * m).reshape(T, m)
+    pad = rng.integers(0, m // 3, T)
+    for t in range(T):
+        cand[t, 6, m - pad[t]:] = np.inf
+        cand[t, 7, m - pad[t]:] = -1
+    return torch.as_tensor(q, device=device), torch.as_tensor(cand, device=device)
+
+
+@pytest.mark.parametrize("T,tq,m,dim", [(37, 64, 1024, 3), (5, 300, 640, 3),
+                                        (9, 50, 1152, 2), (3, 8, 128, 3)])
+@pytest.mark.parametrize("k", [1, 2, 10, 32])
+def test_k7_k8_equal_plain(cuda, T, tq, m, dim, k):
+    q, cand = _tile_inputs(T + tq + k, T, tq, m, dim, cuda)
+    if k == 1:
+        d, i = tile_cuda.tile_sweep(q, cand, dim)
+        dp, ip = tile_cuda.tile_sweep_plain(q, cand, dim)
+    else:
+        d, i = tile_cuda.tile_sweep_k(q, cand, dim, k)
+        dp, ip = tile_cuda.tile_sweep_k_plain(q, cand, dim, k)
+    torch.cuda.synchronize()
+    assert torch.equal(d, dp) and torch.equal(i, ip)
+
+
+def _terrain(rng, n):
+    side = float(np.sqrt(n / 120.0))
+    xy = rng.uniform(0, side, (n, 2))
+    z = 0.4 * np.sin(xy[:, 0]) * np.cos(xy[:, 1] * 0.7) + 0.05 * rng.standard_normal(n)
+    return np.c_[xy, z].astype(np.float32), side
+
+
+def test_tile_batch_matches_dense_k1(cuda):
+    """One K7 launch over the tiles of two scans in tile order, with maxDist
+    applied, against dense K1: equal d² wherever K1's neighbour lies within
+    maxDist (the exactness contract, given the motion bound), equal ids
+    where it is unique, and +inf beyond."""
+    rng = np.random.default_rng(11)
+    world, side = _terrain(rng, 20000)
+    ref = torch.as_tensor(world, device=cuda)
+    refm = torch.ones(len(world), dtype=torch.bool, device=cuda)
+    bg = BlockGridMatcher({"maxDist": "0.5", "motionBound": "1.0",
+                           "tileQueries": "64", "blockCap": "256"})
+    bg.init(pt.PointCloud(ref, refm))
+    scans = [world[rng.choice(len(world), 3000, replace=False)]
+             + 0.02 * rng.standard_normal((3000, 3)).astype(np.float32)
+             for _ in range(2)]
+    pers = [bg.prepare_loop_host(s, np.ones(len(s), bool)) for s in scans]
+    aux = tile_aux_to_device(_pad_tile_aux_np(pers, bg.units.shape[0] - 1),
+                             bg.units)
+    q_rows = aux.pop("q_rows").reshape(2, -1)
+    qs = torch.stack([torch.as_tensor(s, device=cuda)[r.clamp(min=0)]
+                      for s, r in zip(scans, q_rows)])
+    qm = q_rows >= 0
+    tile_cuda.reset_launch_counts()
+    d, i = tilesweep.tile_nn1_from_candidates(qs, qm, None, aux["cand_t"], 0.5,
+                                              aux["parent"], aux["vrows"])
+    assert tile_cuda.tile_sweep.launches == 1
+    d1, i1 = kc.knn1(qs.reshape(-1, 3), qm.reshape(-1), ref, refm)
+    d2, _ = kc.knnk(qs.reshape(-1, 3), qm.reshape(-1), ref, refm, 2)
+    torch.cuda.synchronize()
+    d, i = d.reshape(-1), i.reshape(-1)
+    inside = qm.reshape(-1) & (d1 <= float(np.float32(0.5) ** 2))
+    assert torch.equal(torch.isfinite(d), inside)
+    assert torch.equal(d[inside], d1[inside])
+    unique = inside & (d2[:, 1] > d1)
+    assert torch.equal(i[unique], i1[unique])
+    assert int(unique.sum()) > 5000
+
+
+@pytest.mark.parametrize("knn", [1, 3])
+def test_tile_serving_on_card_matches_cpu(cuda, knn):
+    """BlockGridMatcher (knn 1: K7; knn 3: K8) through the batch, the queue
+    and one-shot ICP on both devices, fed the same draws: iterations and
+    codes equal, poses to float32 summation noise, one tile launch per
+    lockstep or lane iteration."""
+    rng = np.random.default_rng(12)
+    world, side = _terrain(rng, 8000)
+    scans = []
+    for _ in range(4):
+        c = rng.uniform(2.5, side - 2.5, 2)
+        ball = world[np.linalg.norm(world[:, :2] - c, axis=1) < 2.5][:2000]
+        scans.append(ball + np.float32([0.05, -0.03, 0.02]))
+    u_scans = rng.random((4, 2000)).astype(np.float32)
+    params = {"maxDist": "0.5", "motionBound": "1.0", "tileQueries": "64",
+              "blockCap": "1024", "knn": str(knn)}
+    launches = (lambda: tile_cuda.tile_sweep.launches if knn == 1
+                else tile_cuda.tile_sweep_k.launches)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        seq = pt.ICPSequence(device=dev)
+        seq.set_default()
+        seq.reference_filters = [SurfaceNormalDataPointsFilter({"knn": "10"})]
+        seq.matcher = BlockGridMatcher(params)
+        seq.reading_filters[0].uniform = u_scans
+        seq.set_map(pt.PointCloud.from_numpy(world, device=dev))
+        clouds = [pt.PointCloud.from_numpy(s, device=dev) for s in scans]
+        tile_cuda.reset_launch_counts()
+        kc.reset_launch_counts()
+        out[dev] = [register_batch_to_map(seq, clouds), launches()]
+        tile_cuda.reset_launch_counts()
+        out[dev] += [register_queue_to_map(seq, clouds, lanes=2), launches()]
+        assert kc.knn1.launches == 0
+        seq.reading_filters[0].uniform = u_scans[0]
+        out[dev].append(seq.compute(clouds[0]).cpu().numpy())
+        seq.reading_filters[0].uniform = u_scans
+    (bc, _, qc, _, oc), (bg, nb, qg, nq, og) = out["cpu"], out["cuda"]
+    for (Tc, ic), (Tg, ig) in ((bc, bg), (qc, qg)):
+        np.testing.assert_array_equal(ig["iterations"], ic["iterations"])
+        np.testing.assert_array_equal(ig["codes"], ic["codes"])
+        np.testing.assert_array_equal(ig["motion_bound_exceeded"],
+                                      ic["motion_bound_exceeded"])
+        np.testing.assert_allclose(Tg, Tc, atol=1e-5)
+    np.testing.assert_allclose(og, oc, atol=1e-5)
+    assert nb == int(bg[1]["iterations"].max())
+    assert 0 < nq <= int(qg[1]["iterations"].sum())
+
+
+def test_surface_normal_culled_on_card_matches_cpu(cuda):
+    """SurfaceNormal of a 70 000-point terrain, above CULL_MIN_POINTS: one
+    K8 launch (and K5 for the rows the tile sweep cannot resolve), normals
+    equal to the CPU's up to sign, the k-NN ids equal."""
+    world, _ = _terrain(np.random.default_rng(13), 70000)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        tile_cuda.reset_launch_counts()
+        f = SurfaceNormalDataPointsFilter({"knn": "10", "keepMatchedIds": "1"})
+        out[dev] = f.filter(pt.PointCloud.from_numpy(world, device=dev))
+    assert tile_cuda.tile_sweep_k.launches == 1
+    nc, ng = (out[d].descriptors["normals"].cpu().numpy() for d in ("cpu", "cuda"))
+    assert np.all(np.abs(np.sum(nc * ng, axis=1)) >= 1 - 1e-5)
+    assert torch.equal(out["cuda"].descriptors["matchedIds"].cpu(),
+                       out["cpu"].descriptors["matchedIds"])

@@ -8,8 +8,11 @@ For each route of chip_smoke.py's serving phase (the 100 000-point scene's
 25 000-point scene's map: dense K1) it serves, with ``--driver batch``, 8
 scans of 25 000 points per ``register_batch_to_map`` call, or with
 ``--driver queue`` a queue of 64 such scans through 8 lanes per
-``register_queue_to_map`` call (``--coarse`` adds the coarse pass). After
-one warm-up call it
+``register_queue_to_map`` call (``--coarse`` adds the coarse pass). The
+tile route (K7) serves chip_smoke.py's large-map configuration: the
+10^5-point terrain map through ``BlockGridMatcher``, 8 scans of ~18 500
+points per batch, or a queue of those 8 scans three times (the tile route
+has no coarse pass). After one warm-up call it
 
 1. times ``--batches`` calls on the host clock, each ending in a
    synchronize (ms per call, iterations of the loop, ms per iteration: a
@@ -56,31 +59,45 @@ def main(argv=None) -> int:
     import libpointmatcher_tpu_torch as pt
     from libpointmatcher_tpu_torch.ops import knn_cuda as kc
     from libpointmatcher_tpu_torch.ops import sweep_cuda as sc
+    from libpointmatcher_tpu_torch.ops import tile_cuda as tc
     from libpointmatcher_tpu_torch.parallel import (register_batch_to_map,
                                                     register_queue_to_map)
     from torch.profiler import ProfilerActivity, profile
 
     kc.build()
     sc.build()
+    tc.build()
     rng = np.random.default_rng(0)
     smi = os.popen("nvidia-smi --query-gpu=name,power.limit "
                    "--format=csv,noheader").read().strip()
     queue = args.driver == "queue"
     coarse = (tuple(float(x) if "." in x else int(x)
                     for x in args.coarse.split(",")) if args.coarse else None)
-    scans = cs.QUEUE_SCANS if queue else cs.SERVE_BATCH
-    out = {"device": smi, "driver": args.driver, "scans_per_call": scans,
+    out = {"device": smi, "driver": args.driver,
            "lanes": cs.QUEUE_LANES if queue else None, "coarse": coarse,
            "routes": {}}
-    for route, target in cs.SERVE_SCENES.items():
-        world = cs.make_scene(rng, target)
-        poses = cs.make_poses(world, scans, rng)
-        clouds = [pt.PointCloud.from_numpy(cs.make_scan(world, P, rng))
-                  for P in poses]
-        inits = [cs.perturb(rng) @ P for P in poses]
-        seq = pt.ICPSequence()
-        seq.set_default()
-        seq.set_map(pt.PointCloud.from_numpy(world), seed=0)
+    for route in (*cs.SERVE_SCENES, "tile"):
+        if route == "tile":
+            trng = np.random.default_rng(7)      # chip_smoke.py's scene
+            terrain, side = cs.make_terrain(cs.TERRAIN_MAPS[0], trng)
+            scans_np, _ = cs.make_terrain_scans(terrain, side, trng)
+            if queue:
+                scans_np = scans_np * cs.TILE_QUEUE_REPEAT
+            clouds = [pt.PointCloud.from_numpy(x) for x in scans_np]
+            inits = None
+            seq = cs.terrain_sequence(pt)
+            seq.set_map(pt.PointCloud.from_numpy(terrain), seed=0)
+        else:
+            world = cs.make_scene(rng, cs.SERVE_SCENES[route])
+            poses = cs.make_poses(
+                world, cs.QUEUE_SCANS if queue else cs.SERVE_BATCH, rng)
+            clouds = [pt.PointCloud.from_numpy(cs.make_scan(world, P, rng))
+                      for P in poses]
+            inits = [cs.perturb(rng) @ P for P in poses]
+            seq = pt.ICPSequence()
+            seq.set_default()
+            seq.set_map(pt.PointCloud.from_numpy(world), seed=0)
+        scans = len(clouds)
         steps = [0]
         step = seq._step
 
@@ -123,6 +140,7 @@ def main(argv=None) -> int:
         per_iter = float(np.median(np.array(wall) / np.array(iters)))
         out["routes"][route] = {
             "map_rows": seq.prefiltered_reference_pts_count,
+            "scans_per_call": scans,
             "ms_per_call": wall,
             "registrations_per_s": [1e3 * scans / w for w in wall],
             "loop_iterations": iters,

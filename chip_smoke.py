@@ -6,8 +6,9 @@ Phases, each fatal on failure:
 
 1. device: the card's name and power limit, torch and CUDA versions;
    compute capability 9.0 is required;
-2. build: every kernel source of ``libpointmatcher_tpu_torch/csrc``, one
-   nvcc each, all started together; ptxas's register and spill report;
+2. build: every kernel source of ``libpointmatcher_tpu_torch/csrc``
+   (knn.cu, sweep.cu, tile.cu, skip.cu), one nvcc each, all started
+   together; ptxas's register and spill report;
 3. dense kernels: K1, K9 and K5 against their plain torch versions on the
    card, at the serving shapes 20480 x 12459 and 25000 x 100000, timed with
    CUDA events beside the plain version and a ``torch.cdist`` yardstick;
@@ -87,7 +88,35 @@ Phases, each fatal on failure:
    codes equal to the batch's;
 16. one batch of the 8 scans against a 4·10^5-point terrain map, under the
    same gates and launch rule. K7 and K8 are timed at their recorded inputs
-   beside their plain versions and a batched ``torch.cdist`` yardstick.
+   beside their plain versions and a batched ``torch.cdist`` yardstick;
+17. the v1 skip route's kernels K10 and K11 on the 8 scans of phase 6
+   against the ~30 000-row map, cold and with a transported bound: K10 and
+   K11 equal to their plain versions bit for bit, the v1 step (with the
+   transported bound alone and tightened by K10) equal to dense K1 (d², and
+   ids through the Morton order where the neighbour is unique), every valid
+   query's true neighbour in a super-chunk its tile does not skip, and K10's
+   bound above K1's d² on every valid query; the effective error constant of
+   K10 is logged and must leave 8x headroom under ``BOUND_ERR_C``; the
+   skipped shares are logged;
+18. serving through the v1 routes on that map: ``register_batch_to_map`` of
+   the 8 scans of phase 7 under ``PMTPU_SKIP_V1=1``, under it with
+   ``PMTPU_SKIP_MXU_BOUND=1``, and under it with ``PMTPU_SKIP_HOST_MORTON=1``;
+   ``register_queue_to_map`` of phase 11's 64 scans through 8 lanes, plain
+   and coarse-to-fine, under both switches. Every pose under the gates;
+   launches, counted from 0, equal to the iterations for K11 (and K10 under
+   the bound switch) and 0 for every other kernel; per scan, iterations and
+   codes equal, and T within 1e-6 of, the survivor route's runs of the same
+   scans (phases 7 and 11; for the host order, a survivor-route batch under
+   the same switch); registrations per second logged. K10 and K11 are timed
+   at the bound-switch batch's second lockstep iteration beside their plain
+   versions and their yardsticks, one call per scan: ``(qa @ ra).amin(-1)``
+   in fp32 (TF32 off) for K10, ``torch.cdist`` + ``min`` against the sorted
+   map for K11;
+19. K7's ablations T4 and T5 (tools_torch/tile_kernel_micro.py) at phase
+   14's recorded K7 inputs, and through the tool itself at its shape (2048
+   tiles × 256 queries × 4096 candidates), its launches counted from 0: both
+   equal their plain version and K7's d² bit for bit; timed there beside K7
+   and a batched ``torch.cdist`` + ``amin`` yardstick.
 
 The second-to-last line is the JSON of kernels, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
@@ -223,6 +252,15 @@ def pose_error(T, gT):
 
 
 # ----------------------------------------------------------------- timing
+def reset_launch_counts() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from libpointmatcher_tpu_torch.ops import (knn_cuda, skip_cuda, sweep_cuda,
+                                               tile_cuda)
+
+    for mod in (knn_cuda, sweep_cuda, tile_cuda, skip_cuda):
+        mod.reset_launch_counts()
+
+
 def cuda_ms(torch, fn, reps):
     fn()
     torch.cuda.synchronize()
@@ -254,6 +292,13 @@ KERNELS = {
     # are not counted
     "K7 tile_sweep": ("libpointmatcher_tpu/ops/tilesweep.py:460", 9),
     "K8 tile_sweep_k": ("libpointmatcher_tpu/ops/tilesweep.py:737", 9),
+    # per (valid query, valid map row): five products, four sums, one min
+    "K10 approx_min_sorted": ("libpointmatcher_tpu/ops/knn_skip.py:270", 10),
+    # per (valid query, valid row of a super-chunk its tile does not skip)
+    "K11 nn1_sorted_skip": ("libpointmatcher_tpu/ops/knn_skip.py:377", 9),
+    # per (valid query, valid candidate) of a tile, as K7
+    "T4 tile_min_only": ("tools/tile_kernel_micro.py:79", 9),
+    "T5 tile_min_one": ("tools/tile_kernel_micro.py:131", 9),
 }
 QUEUE_SCANS = 64
 QUEUE_LANES = 8
@@ -635,7 +680,7 @@ def check_pair_axis(torch, kc, scans):
         f"launch, {ms1:.4f} ms in {PAIRS}")
 
 
-def run_queue(torch, kc, sc, register_queue_to_map, seq, cell, coarse,
+def run_queue(torch, register_queue_to_map, seq, cell, coarse,
               launches, label):
     """One queue through the port's entry point, its launches counted from
     0 and its lane iterations (calls of the engine's step) counted →
@@ -661,8 +706,7 @@ def run_queue(torch, kc, sc, register_queue_to_map, seq, cell, coarse,
                     for mod, name in ((sweep, "nn1_sorted_v2"),
                                       (sweep, "nnk_sorted_v2"),
                                       (matchers, "knn_search"))] if coarse else []
-            kc.reset_launch_counts()
-            sc.reset_launch_counts()
+            reset_launch_counts()
             torch.cuda.synchronize()
             t = time.perf_counter()
             T, info = register_queue_to_map(seq, cell["qclouds"],
@@ -865,7 +909,8 @@ def check_tile_step(torch, kc, call, ref, label):
 
 
 def tile_serving(torch, pt, kc, sc, tc, launches):
-    """Phases 13-16 → the K7 and K8 kernel records."""
+    """Phases 13-16 → (the K7 and K8 kernel records, K7's recorded inputs
+    ``(q, cand_t, dim, valid queries per tile)``)."""
     from contextlib import ExitStack
 
     from libpointmatcher_tpu_torch import matchers
@@ -878,9 +923,7 @@ def tile_serving(torch, pt, kc, sc, tc, launches):
                     K8=tc.tile_sweep_k.launches)
 
     def reset():
-        kc.reset_launch_counts()
-        sc.reset_launch_counts()
-        tc.reset_launch_counts()
+        reset_launch_counts()
         torch.cuda.synchronize()
 
     def gates(T, poses, info, label):
@@ -1016,7 +1059,383 @@ def tile_serving(torch, pt, kc, sc, tc, launches):
     (q8, cand8, dim8, k8), qvalid8 = k8_inputs[0][:4], k8_inputs[1]
     records.append(record_tile_kernel(torch, tc, "K8 tile_sweep_k", q8, cand8,
                                       dim8, k8, qvalid8, k8_launches))
-    return records
+    return records, (q7, cand7, dim7, qvalid7)
+
+
+# ------------------------------------------------------------ slice 5
+V1_KEYS = ("PMTPU_SKIP_V1", "PMTPU_SKIP_MXU_BOUND", "PMTPU_SKIP_HOST_MORTON")
+V1_RUNS = {"v1": ("PMTPU_SKIP_V1",),
+           "v1 + bound": ("PMTPU_SKIP_V1", "PMTPU_SKIP_MXU_BOUND"),
+           "v1 + host order": ("PMTPU_SKIP_V1", "PMTPU_SKIP_HOST_MORTON")}
+EPS = float(np.float32(1.1920929e-07))     # ops/skip.py's eps
+HEADROOM = 8.0
+
+
+def set_switches(on) -> None:
+    """Each of V1_KEYS to "1" where named in ``on``, else to "0"."""
+    for key in V1_KEYS:
+        os.environ[key] = "1" if key in on else "0"
+
+
+def gates(T, poses, label):
+    """Every pose within ROT_TOL / TRANS_TOL of its truth → worst errors."""
+    errs = [pose_error(Ti, P) for Ti, P in zip(T, poses)]
+    for j, ((a, b), Ti) in enumerate(zip(errs, T)):
+        if not (np.isfinite(Ti).all() and a < ROT_TOL and b < TRANS_TOL):
+            raise AssertionError(f"{label} scan {j}: pose error {a}, {b}")
+    return max(a for a, _ in errs), max(b for _, b in errs)
+
+
+def same_per_scan(T, info, ref, label):
+    """Per scan the iterations and codes of ``ref`` = (T, info), and T
+    within 1e-6."""
+    T_ref, info_ref = ref
+    for key in ("iterations", "codes"):
+        if not np.array_equal(info[key], info_ref[key]):
+            raise AssertionError(f"{label} {key} {info[key]} differ from the "
+                                 f"survivor route's {info_ref[key]}")
+    err = float(np.abs(T - T_ref).max())
+    if err > 1e-6:
+        raise AssertionError(f"{label}: T differs from the survivor route's "
+                             f"by {err}")
+    return err
+
+
+def v1_tables(torch, skip, tab):
+    """The v1 route's tables of the sorted map, as KDTreeMatcher builds
+    them → (rt, rpen, super-chunk boxes, K10's table) on the card."""
+    from libpointmatcher_tpu_torch.ops import skip_cuda
+
+    rs, rsm = tab[2].cpu().numpy(), tab[3].cpu().numpy()
+    m_pad = 128 * -(-len(rs) // 128)
+    rt, rpen = skip.v1_tables(rs, rsm, m_pad)
+    t = lambda a: torch.as_tensor(a, device="cuda")
+    return (t(rt), t(rpen), t(skip.chunk_bboxes(rs, rsm, skip_cuda.SUPER)),
+            t(skip.augmented_ref_table(rs, rsm, m_pad)[0]))
+
+
+def check_v1_step(torch, kc, skc, skip, qs, qm, ub2, vt, tab, label):
+    """K10 and K11 against their plain versions, and the v1 step (with the
+    transported bound ``ub2`` alone, then tightened by K10) against dense
+    K1, on one query batch → (the step's d², K10's effective error
+    constant: the largest (d² − amin) / (eps (8 (q² + max(amin, 0)) + 1e-6))
+    over the valid queries)."""
+    rt, rpen, cbox, ra = vt
+    _, _, ref_s, refm_s, rorder, ref, refm = tab
+    b, n, _ = qs.shape
+    qa, q2 = skip.augment_queries(qs, -(-n // skc.TILE_Q) * skc.TILE_Q)
+    amin = skc.approx_min_sorted(qa, ra)
+    aminp = skc.approx_min_sorted_plain(qa, ra)
+    torch.cuda.synchronize()
+    if not torch.equal(amin, aminp):
+        raise AssertionError(f"{label}: K10 differs from its plain version")
+    amin = amin[:, :n]
+    margin = skip.bound_margin(q2, amin)
+    flat_q, flat_m = qs.reshape(-1, 3), qm.reshape(-1)
+    e1, j1 = kc.knn1(flat_q, flat_m, ref, refm)
+    e2, _ = kc.knnk(flat_q, flat_m, ref, refm, 2)
+    _, js = kc.knn1(flat_q, flat_m, ref_s, refm_s)   # the neighbour's sorted row
+    d1 = e1.reshape(b, n)
+    if not bool(((amin + margin)[qm] >= d1[qm]).all()):
+        raise AssertionError(f"{label}: K10's bound lies below K1's d²")
+    scale = EPS * (8.0 * (q2 + amin.clamp(min=0.0)) + 1e-6)
+    c_eff = float(((d1 - amin) / scale)[qm].max())
+    unique = flat_m & torch.isfinite(e1) & (e2[:, 1] > e1)
+    tile = torch.arange(n, device="cuda") // skc.TILE_Q
+    scan = torch.arange(b, device="cuda")[:, None]
+    sg = js.reshape(b, n).clamp(min=0).long() // skc.SUPER
+    shares = {}
+    for bound, ub in (("transported", ub2),
+                      ("with K10", torch.minimum(ub2, amin + margin))):
+        flags = skip.build_skip_mask(qs, qm, ub, cbox)
+        d, i = skc.nn1_sorted_skip(qs, qm, rt, rpen, flags)
+        dp, ip = skc.nn1_sorted_skip_plain(qs, qm, rt, rpen, flags)
+        torch.cuda.synchronize()
+        if not (torch.equal(d, dp) and torch.equal(i, ip)):
+            raise AssertionError(f"{label}, {bound} bound: K11 differs from its "
+                                 f"plain version")
+        if not torch.equal(d.reshape(-1), e1):
+            raise AssertionError(f"{label}, {bound} bound: v1 d² differs from K1's")
+        mapped = rorder[i.reshape(-1).clamp(min=0).long()].to(torch.int32)
+        if not torch.equal(mapped[unique], j1[unique]):
+            raise AssertionError(f"{label}, {bound} bound: v1 ids differ from K1's")
+        swept = flags[scan, tile[None, :], sg] == 0
+        if not bool(swept[qm].all()):
+            raise AssertionError(f"{label}, {bound} bound: a true neighbour's "
+                                 f"super-chunk was skipped")
+        shares[bound] = round(float(flags.float().mean()), 4)
+    d2, ids, frac = skip.nn1_sorted_v1(qs, qm, ub2, rt, rpen, cbox, ra)
+    if not (torch.equal(d2.reshape(-1), e1) and torch.equal(d2, d)
+            and torch.equal(ids, i)):
+        raise AssertionError(f"{label}: nn1_sorted_v1 differs from the step")
+    log(f"[v1] {label}: {b} x {n} query rows x {rt.shape[1]} map columns "
+        f"({cbox.shape[0]} super-chunks), skipped share {shares}, "
+        f"{int(unique.sum())} unique neighbours compared, K10's effective "
+        f"error constant {c_eff:.4f}; K10 and K11 equal their plain versions")
+    return d2, c_eff
+
+
+def record_v1_kernels(torch, skc, skip, call, tab, launches):
+    """Time K10 and K11 at one serving iteration's inputs (the arguments of
+    ``ops.skip.nn1_sorted_v1``, bound switch on) → their kernel records.
+    The yardsticks, one call per scan (no one PyTorch call takes the batch,
+    as for K3), are logged beside the records, whose ``library_ms`` is
+    null."""
+    qs, qm, ub2, rt, rpen, cbox, ra = call[:7]
+    b, n, _ = qs.shape
+    ni = -(-n // skc.TILE_Q)
+    qa, q2 = skip.augment_queries(qs, ni * skc.TILE_Q)
+    nq = float(qm.sum())
+    valid = rpen[0] == 0
+    mv = float(valid.sum())
+    amin = skc.approx_min_sorted(qa, ra)[:, :n]
+    flags = skip.build_skip_mask(
+        qs, qm, torch.minimum(ub2, amin + skip.bound_margin(q2, amin)), cbox)
+    nsg = flags.shape[-1]
+    rows = torch.nn.functional.pad(valid, (0, nsg * skc.SUPER - valid.numel()))
+    rows = rows.reshape(nsg, skc.SUPER).sum(dim=1).double()
+    vq = torch.nn.functional.pad(qm, (0, ni * skc.TILE_Q - n))
+    vq = vq.reshape(b, ni, skc.TILE_Q).sum(dim=-1).double()
+    pairs = float((((flags == 0).double() @ rows) * vq).sum())
+    rv = tab[2][tab[3]]
+
+    def k10_lib():
+        return [(qa[j] @ ra).amin(dim=-1) for j in range(b)]
+
+    def k11_lib():
+        return [torch.cdist(q[m], rv, compute_mode="donot_use_mm_for_euclid_dist")
+                .min(dim=1) for q, m in zip(qs, qm)]
+
+    kernels = (
+        ("K10 approx_min_sorted", lambda: skc.approx_min_sorted(qa, ra),
+         lambda: skc.approx_min_sorted_plain(qa, ra), k10_lib,
+         # five products, four sums and a min per pair; 5 floats of qa and
+         # ra, and one output, per valid query and map column
+         KERNELS["K10 approx_min_sorted"][1] * nq * mv, 24 * nq + 20 * mv),
+        ("K11 nn1_sorted_skip", lambda: skc.nn1_sorted_skip(qs, qm, rt, rpen, flags),
+         lambda: skc.nn1_sorted_skip_plain(qs, qm, rt, rpen, flags), k11_lib,
+         # per pair of a super-chunk the tile sweeps; the queries in and the
+         # (d², id) out, each valid map row (x, y, z, pen) once, the flags
+         KERNELS["K11 nn1_sorted_skip"][1] * pairs,
+         20 * nq + 16 * mv + 4 * flags.numel()))
+    out = []
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for name, run, plain, lib, ops, nbytes in kernels:
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            if name.startswith("K10"):
+                got, want = (got,), (want,)
+            if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                raise AssertionError(f"{name}: kernel and plain version differ")
+            fin = torch.isfinite(want[0])
+            err = (float((got[0][fin] - want[0][fin]).abs().max())
+                   if bool(fin.any()) else 0.0)
+            ms = cuda_ms(torch, run, 20)
+            plain_ms = cuda_ms(torch, plain, 2)
+            torch.cuda.empty_cache()
+            lib_ms = cuda_ms(torch, lib, 1)
+            torch.cuda.empty_cache()
+            bms, by = bound_of(ops, nbytes)
+            rec = {"name": name, "route": "cuda",
+                   "source": "libpointmatcher_tpu_torch/csrc/skip.cu",
+                   "replaces": KERNELS[name][0],
+                   "launches": launches[name.split()[0]],
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bms, "bound_by": by, "library_ms": None}
+            log(f"[kernel] main path {name} {b} x {n} query rows ({nq:.0f} valid) "
+                f"x {rt.shape[1]} map columns ({mv:.0f} valid), skipped share "
+                f"{float(flags.float().mean()):.4f}, {pairs:.0f} pairs swept, "
+                f"yardstick one call per scan x{b}: {lib_ms:.2f} ms: "
+                + json.dumps(rec))
+            out.append(rec)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out
+
+
+def v1_serving(torch, pt, kc, skc, skip, morton, cell, launches, route_launches):
+    """Phases 17 and 18 on the ~30 000-row map of ``cell`` → the K10 and
+    K11 kernel records."""
+    from libpointmatcher_tpu_torch.ops import sweep
+    from libpointmatcher_tpu_torch.parallel import (register_batch_to_map,
+                                                    register_queue_to_map)
+
+    tab = cell["tab"]
+    vt = v1_tables(torch, skip, tab)
+    # ---- 17. K10 and K11 on the 8 scans of phase 6, cold and warm
+    qs, qm = serving_queries(torch, morton, cell)
+    ub2 = torch.full(qm.shape, float("inf"), device="cuda")
+    d2, c_cold = check_v1_step(torch, kc, skc, skip, qs, qm, ub2, vt, tab, "cold")
+    shift = torch.tensor([0.012, -0.01, 0.012], device="cuda")
+    ub = torch.sqrt(d2) + torch.linalg.norm(shift)
+    _, c_warm = check_v1_step(torch, kc, skc, skip, qs + shift, qm,
+                              (ub * ub) * sweep.UP, vt, tab, "warm")
+    c_eff = max(c_cold, c_warm)
+    headroom = skip.BOUND_ERR_C / c_eff if c_eff > 0 else float("inf")
+    log(f"[v1] K10's effective error constant {c_eff:.4f} against BOUND_ERR_C "
+        f"{skip.BOUND_ERR_C}: headroom {headroom:.2f}x")
+    if headroom < HEADROOM:
+        raise AssertionError(f"K10's bound keeps {headroom:.2f}x headroom, "
+                             f"below {HEADROOM}x")
+    del qs, qm, d2, ub, ub2
+    torch.cuda.empty_cache()
+
+    # ---- 18. serving through the v1 routes
+    s_seq = cell["seq"]
+    clouds = [pt.PointCloud.from_numpy(x) for x in cell["scans"]]
+    totals = {"K10": 0, "K11": 0}
+    saved = {key: os.environ.get(key) for key in V1_KEYS}
+
+    def batch():
+        return register_batch_to_map(s_seq, clouds, T_inits=cell["T_inits"], seed=1)
+
+    try:
+        for label, on in V1_RUNS.items():
+            ref = cell["batch_out"]
+            if "PMTPU_SKIP_HOST_MORTON" in on:
+                # the survivor route with the same row order
+                set_switches(("PMTPU_SKIP_HOST_MORTON",))
+                ref = batch()
+            set_switches(on)
+            batch()                                    # warm-up
+            with InputRecorder(skip, "nn1_sorted_v1", keep=2) as rec:
+                reset_launch_counts()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                T, info = batch()
+                sec = time.perf_counter() - t
+                counts = launches()
+            it = int(info["iterations"].max())
+            worst = gates(T, cell["poses"], f"{label} batch")
+            bound = "PMTPU_SKIP_MXU_BOUND" in on
+            want = route_launches("V1_MXU" if bound else "V1", it)
+            if counts != want:
+                raise AssertionError(f"{label} batch launches {counts}, expected "
+                                     f"{want}")
+            err = same_per_scan(T, info, ref, f"{label} batch")
+            fr = [round(float(f.mean()), 4) for f in s_seq.matcher.skip_fractions]
+            log(f"[v1] {label} batch of {len(clouds)}: {1e3 * sec:.2f} ms, "
+                f"{len(clouds) / sec:.2f} registrations/s, iterations "
+                f"{info['iterations'].tolist()}, codes {info['codes'].tolist()}, "
+                f"worst rot err {worst[0]:.5f} rad, trans err {worst[1]:.5f} m, "
+                f"|T - survivor T| {err:.3g}, skipped share per iteration {fr}, "
+                f"launches {counts}")
+            for key in totals:
+                totals[key] += counts[key]
+            if bound:
+                recorded = rec.calls[1]
+        set_switches(V1_RUNS["v1 + bound"])
+        for coarse in (None, COARSE):
+            T, info, counts, steps, _ = run_queue(
+                torch, register_queue_to_map, s_seq, cell, coarse, launches,
+                "v1 + bound route")
+            want = route_launches("V1_MXU", steps)
+            if counts != want:
+                raise AssertionError(f"v1 queue launches {counts}, expected {want}")
+            same_per_scan(T, info, cell["queue_out"][coarse],
+                          f"v1 + bound queue{' c2f' if coarse else ''}")
+            for key in totals:
+                totals[key] += counts[key]
+    finally:
+        for key, val in saved.items():
+            if val is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = val
+    log(f"[v1] launches over phase 18: {totals}")
+    return record_v1_kernels(torch, skc, skip, recorded, tab, totals)
+
+
+def cdist_min_ms(torch, q, cand_t, dim, label):
+    """ms of one batched ``torch.cdist`` + ``amin`` over the tiles (pen
+    added), T4's and T5's function; None, logged, where cdist's grid
+    refuses the shape."""
+    pen = cand_t[:, 6]
+    qq = q[..., :dim].contiguous()
+    cc = cand_t[:, :dim].transpose(1, 2).contiguous()
+
+    def lib():
+        dist = torch.cdist(qq, cc, compute_mode="donot_use_mm_for_euclid_dist")
+        return dist.square_().add_(pen[:, None, :]).amin(dim=2)
+
+    torch.cuda.empty_cache()
+    try:
+        return cuda_ms(torch, lib, 1)
+    except RuntimeError as e:          # a batch cdist's grid may refuse it
+        log(f"[kernel] {label}: batched cdist refused at {tuple(q.shape)} x "
+            f"{tuple(cand_t.shape)}: {e}")
+        return None
+    finally:
+        torch.cuda.empty_cache()
+
+
+def record_min_kernel(torch, tc, name, fn, q, cand_t, dim, launches):
+    """T4 or T5 at one input against its plain version and K7's d², timed
+    beside K7 and a batched ``torch.cdist`` + ``amin`` yardstick → its
+    kernel record. The bound counts every query valid and every candidate
+    with pen 0: 9 operations a pair, each valid query's coordinates and
+    minimum, and the (x, y, z, pen) of each valid candidate column."""
+    d = fn(q, cand_t, dim)
+    dp = tc.tile_min_plain(q, cand_t, dim)
+    d7, _ = tc.tile_sweep(q, cand_t, dim)
+    torch.cuda.synchronize()
+    if not (torch.equal(d, dp) and torch.equal(d, d7)):
+        raise AssertionError(f"{name} differs from its plain version or K7's d²")
+    ms = cuda_ms(torch, lambda: fn(q, cand_t, dim), 20)
+    k7_ms = cuda_ms(torch, lambda: tc.tile_sweep(q, cand_t, dim), 20)
+    plain_ms = cuda_ms(torch, lambda: tc.tile_min_plain(q, cand_t, dim), 2)
+    library_ms = cdist_min_ms(torch, q, cand_t, dim, name)
+    pen = cand_t[:, 6]
+    ncand = (pen == 0).sum(dim=1).double()
+    nq = float(q.shape[0] * q.shape[1])
+    pairs = float((ncand * q.shape[1]).sum())
+    nbytes = 4 * (dim + 1) * nq + 4 * (dim + 1) * float(ncand.sum())
+    bms, by = bound_of(KERNELS[name][1] * pairs, nbytes)
+    rec = {"name": name, "route": "cuda",
+           "source": "libpointmatcher_tpu_torch/csrc/tile.cu",
+           "replaces": KERNELS[name][0], "launches": launches,
+           "max_abs_err": float((d - dp).abs().max()), "ms": ms,
+           "plain_ms": plain_ms,
+           "bound_ms": bms, "bound_by": by, "library_ms": library_ms}
+    log(f"[kernel] main path {name} {q.shape[0]} tiles x {q.shape[1]} queries x "
+        f"{cand_t.shape[2]} candidates, {pairs:.0f} pairs, K7 at the same "
+        f"inputs {k7_ms:.4f} ms: " + json.dumps(rec))
+    return rec
+
+
+def tile_ablations(torch, tc, k7_inputs):
+    """Phase 19 → the T4 and T5 kernel records (at the tool's shape)."""
+    from tools_torch import tile_kernel_micro as tkm
+
+    q7, cand7, dim7, _ = k7_inputs
+    d7, _ = tc.tile_sweep(q7, cand7, dim7)
+    times = {"K7": cuda_ms(torch, lambda: tc.tile_sweep(q7, cand7, dim7), 20)}
+    for name, fn in (("T4", tc.tile_min_only), ("T5", tc.tile_min_one)):
+        d = fn(q7, cand7, dim7)
+        dp = tc.tile_min_plain(q7, cand7, dim7)
+        torch.cuda.synchronize()
+        if not (torch.equal(d, dp) and torch.equal(d, d7)):
+            raise AssertionError(f"{name} at K7's recorded inputs differs from its "
+                                 f"plain version or K7's d²")
+        times[name] = cuda_ms(torch, lambda: fn(q7, cand7, dim7), 20)
+    times["cdist + amin"] = cdist_min_ms(torch, q7, cand7, dim7, "K7's inputs")
+    log(f"[tile] T4 and T5 at phase 14's K7 inputs ({q7.shape[0]} tiles x "
+        f"{q7.shape[1]} queries x {cand7.shape[2]} candidates) equal their plain "
+        f"version and K7's d²; ms {json.dumps(times)}")
+    reset_launch_counts()
+    report = tkm.run()
+    counts = {"T4 tile_min_only": tc.tile_min_only.launches,
+              "T5 tile_min_one": tc.tile_min_one.launches}
+    log(f"[tile] tools_torch/tile_kernel_micro.py: {json.dumps(report)}, "
+        f"launches {counts}")
+    if min(counts.values()) == 0:
+        raise AssertionError(f"the tool launched T4/T5 {counts} times")
+    q, cand, _, _ = tkm.make_inputs(torch, tkm.T, tkm.TQ, tkm.M, "cuda")
+    fns = {"T4 tile_min_only": tc.tile_min_only, "T5 tile_min_one": tc.tile_min_one}
+    return [record_min_kernel(torch, tc, name, fn, q, cand, 3, counts[name])
+            for name, fn in fns.items()]
 
 
 def kernel_inputs(torch, world, scan_world, n, m, rng, device="cuda"):
@@ -1044,8 +1463,9 @@ def main() -> int:
     import libpointmatcher_tpu_torch as pt
     from libpointmatcher_tpu_torch import matchers
     from libpointmatcher_tpu_torch.matchers import KDTreeMatcher
-    from libpointmatcher_tpu_torch.ops import morton, sweep
+    from libpointmatcher_tpu_torch.ops import morton, skip, sweep
     from libpointmatcher_tpu_torch.ops import knn_cuda as kc
+    from libpointmatcher_tpu_torch.ops import skip_cuda as skc
     from libpointmatcher_tpu_torch.ops import sweep_cuda as sc
     from libpointmatcher_tpu_torch.ops import tile_cuda as tc
     from libpointmatcher_tpu_torch.ops.dispatch import MXU_EPSILON_FLOOR
@@ -1066,10 +1486,10 @@ def main() -> int:
 
     # ---- 2. build
     t0 = time.perf_counter()
-    libs = (kc.LIBRARY, sc.LIBRARY, tc.LIBRARY)
+    libs = (kc.LIBRARY, sc.LIBRARY, tc.LIBRARY, skc.LIBRARY)
     with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source, together
         list(pool.map(lambda lib: lib.load(), libs))
-    log(f"[build] knn.cu, sweep.cu and tile.cu built in "
+    log(f"[build] knn.cu, sweep.cu, tile.cu and skip.cu built in "
         f"{time.perf_counter() - t0:.2f} s")
     for lib in libs:
         for line in lib.build_log.splitlines():
@@ -1239,12 +1659,15 @@ def main() -> int:
                 "K3": sc.nn1_survivor_sweep.launches,
                 "K4": sc.nn1_survivor_sweep_stream.launches,
                 "K5": kc.knnk.launches,
-                "K6": sc.nnk_survivor_sweep.launches}
+                "K6": sc.nnk_survivor_sweep.launches,
+                "K10": skc.approx_min_sorted.launches,
+                "K11": skc.nn1_sorted_skip.launches}
 
     def route_launches(route, n):
         """The launches a serving run of n iterations makes on a route."""
         used = {"K1": ("K1",), "K3": ("K2", "K3"), "K4": ("K2", "K4"),
-                "K6": ("K2", "K6")}[route]
+                "K6": ("K2", "K6"), "V1": ("K11",),
+                "V1_MXU": ("K10", "K11")}[route]
         return {name: n if name in used else 0 for name in launches()}
 
     for route, cell in serve.items():
@@ -1252,8 +1675,7 @@ def main() -> int:
         clouds = [pt.PointCloud.from_numpy(x) for x in cell["scans"]]
         register_batch_to_map(s_seq, clouds, T_inits=cell["T_inits"], seed=1)
         torch.cuda.synchronize()
-        kc.reset_launch_counts()
-        sc.reset_launch_counts()
+        reset_launch_counts()
         t = time.perf_counter()
         T, info = register_batch_to_map(s_seq, clouds, T_inits=cell["T_inits"],
                                         seed=1)
@@ -1279,6 +1701,7 @@ def main() -> int:
             raise AssertionError(f"{route} serving launches {counts}, "
                                  f"expected {want}")
         cell["launches"] = counts
+        cell["batch_out"] = T, info
         with InputRecorder(sweep) as rec:
             pending = register_batch_to_map(s_seq, clouds,
                                             T_inits=cell["T_inits"], seed=1,
@@ -1343,12 +1766,13 @@ def main() -> int:
         q_seq = cell["seq"]
         for coarse in (None, COARSE):
             T, info, counts, steps, recorded = run_queue(
-                torch, kc, sc, register_queue_to_map, q_seq, cell, coarse,
+                torch, register_queue_to_map, q_seq, cell, coarse,
                 launches, f"{route} route")
             want = route_launches(route, steps)
             if counts != want:
                 raise AssertionError(f"{route} queue launches {counts}, "
                                      f"expected {want}")
+            cell.setdefault("queue_out", {})[coarse] = T, info
             if coarse is not None:
                 check_coarse_pass(torch, kc, sc, sweep, recorded,
                                   cell.get("tab"), route)
@@ -1410,7 +1834,18 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 13.-16. large-map tile-sweep serving
-    records += tile_serving(torch, pt, kc, sc, tc, launches)
+    tile_records, k7_inputs = tile_serving(torch, pt, kc, sc, tc, launches)
+    records += tile_records
+    torch.cuda.empty_cache()
+
+    # ---- 17.-18. the v1 skip routes on the ~30 000-row map
+    records += v1_serving(torch, pt, kc, skc, skip, morton, serve["K3"],
+                          launches, route_launches)
+    del serve
+    torch.cuda.empty_cache()
+
+    # ---- 19. K7's ablations T4 and T5
+    records += tile_ablations(torch, tc, k7_inputs)
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

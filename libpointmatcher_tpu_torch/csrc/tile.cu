@@ -39,6 +39,20 @@
 // so among equal distances the lowest position wins. Outputs: K7 d2 [T, TQ],
 // id [T, TQ]; K8 d2 [T, k, TQ], id [T, k, TQ] ascending along k; the id is
 // -1 wherever d2 is not finite (no candidate, or an exhausted list).
+//
+// The ablations of tools/tile_kernel_micro.py, which measure what K7's id
+// tracking and its schedule cost, are one min-only template (tile_min<TILES>)
+// on K7's own table: per query the minimum d2 over its tile's candidates, no
+// id read or kept, d2 formed as in K7, so both equal K7's d2 bit for bit.
+//   T4  tile_min<8>  <- _min_only  (tile_kernel_micro.py:79, main.min_only)
+//       eight tiles per block, candidates staged 2048 columns at a time,
+//       each stage of each tile in turn (the Pallas grid step's schedule);
+//   T5  tile_min<1>  <- _one       (tile_kernel_micro.py:131, main.one)
+//       one tile per block, its whole candidate list staged in one pass
+//       (dynamic shared memory, 16 bytes a column, so M <= 14528).
+// They read 16 bytes per candidate column (x, y, z, pen) where K7 reads 20,
+// and do K7's 9 operations per pair without its id select: bound by the fp32
+// issue rate on full tiles, as K7.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -51,6 +65,10 @@ constexpr int kStage = 512;       // candidate columns per shared-memory stage
 constexpr int kPenRow = 6;
 constexpr int kCidRow = 7;
 constexpr int kRows = 8;
+constexpr int kMinStage = 2048;   // T4's candidate columns per stage
+// T5's largest candidate list: 232,448 bytes of shared memory a block, at 16
+// bytes a column
+constexpr int kMinOneMax = 232448 / 16;
 
 __device__ __forceinline__ float pair_d2(float qx, float qy, float qz,
                                          float4 r) {
@@ -186,6 +204,50 @@ tile_nnk(const float* __restrict__ q, const float* __restrict__ cand, int tq,
   }
 }
 
+// T4 (TILES = 8) and T5 (TILES = 1): the minimum d2 of each query over its
+// tile's candidates, `stage_cols` columns of one tile staged at a time.
+template <int TILES>
+__global__ void __launch_bounds__(kMaxThreads)
+tile_min(const float* __restrict__ q, const float* __restrict__ cand, int T,
+         int tq, int M, int dim, int stage_cols, float* __restrict__ out_d) {
+  extern __shared__ float4 s_dyn[];    // stage_cols entries
+  const int64_t t0 = (int64_t)blockIdx.x * TILES;
+  const int qi = blockIdx.y * blockDim.x + threadIdx.x;
+  const bool live = qi < tq;
+  float qx[TILES], qy[TILES], qz[TILES], best[TILES];
+#pragma unroll
+  for (int s = 0; s < TILES; ++s) {
+    load_query(q, (t0 + s) * tq + qi, live && t0 + s < T, dim, qx[s], qy[s],
+               qz[s]);
+    best[s] = CUDART_INF_F;
+  }
+  for (int m0 = 0; m0 < M; m0 += stage_cols) {
+    const int cnt = M - m0 < stage_cols ? M - m0 : stage_cols;
+#pragma unroll
+    for (int s = 0; s < TILES; ++s) {
+      if (t0 + s < T) {                // the same for every thread
+        const float* tab = cand + (t0 + s) * kRows * (int64_t)M;
+        __syncthreads();
+        for (int l = threadIdx.x; l < cnt; l += blockDim.x) {
+          const int m = m0 + l;
+          s_dyn[l] = make_float4(tab[m], tab[(int64_t)M + m],
+                                 dim == 3 ? tab[2 * (int64_t)M + m] : 0.0f,
+                                 tab[kPenRow * (int64_t)M + m]);
+        }
+        __syncthreads();
+#pragma unroll 8
+        for (int l = 0; l < cnt; ++l)
+          best[s] = fminf(best[s], pair_d2(qx[s], qy[s], qz[s], s_dyn[l]));
+      }
+    }
+  }
+  if (live) {
+#pragma unroll
+    for (int s = 0; s < TILES; ++s)
+      if (t0 + s < T) out_d[(t0 + s) * tq + qi] = best[s];
+  }
+}
+
 dim3 grid_of(int T, int tq, int& threads) {
   const int warps = (tq + 31) / 32 * 32;
   threads = warps < kMaxThreads ? warps : kMaxThreads;
@@ -236,6 +298,36 @@ int pm_tile_nnk(const float* q, const float* cand, int T, int tq, int M,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+int pm_tile_min_stage() { return kMinStage; }
+int pm_tile_min_one_max() { return kMinOneMax; }
+
+// T4 (tiles_per_block 8) or T5 (1): q [T, tq, 8], cand [T, 8, M]; out_d
+// [T, tq]. T5 takes M <= pm_tile_min_one_max().
+int pm_tile_min(const float* q, const float* cand, int T, int tq, int M,
+                int dim, int tiles_per_block, float* out_d, void* stream) {
+  if (T == 0 || tq == 0) return cudaSuccess;
+  cudaStream_t st = (cudaStream_t)stream;
+  int threads;
+  dim3 grid = grid_of(T, tq, threads);
+  if (tiles_per_block == 8) {
+    grid.x = (unsigned)((T + 7) / 8);
+    const int stage = M < kMinStage ? M : kMinStage;
+    tile_min<8><<<grid, threads, stage * sizeof(float4), st>>>(
+        q, cand, T, tq, M, dim, kMinStage, out_d);
+  } else if (tiles_per_block == 1) {
+    if (M > kMinOneMax) return cudaErrorInvalidValue;
+    const size_t bytes = (size_t)(M > 0 ? M : 1) * sizeof(float4);
+    const cudaError_t e = cudaFuncSetAttribute(
+        tile_min<1>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return e;
+    tile_min<1><<<grid, threads, bytes, st>>>(q, cand, T, tq, M, dim,
+                                              M > 0 ? M : 1, out_d);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
 }
 
 const char* pm_error_string(int e) {

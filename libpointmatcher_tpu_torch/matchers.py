@@ -13,7 +13,10 @@ Serving (``parallel.register_batch_to_map``, ``register_queue_to_map``)
 takes, on maps of 16 384 rows or more, the survivor-sweep route of
 :mod:`.ops.sweep`: the serving loop runs against a Morton-sorted copy of
 the map, and each iteration bounds every query's neighbour distance by the
-one it had in the previous iteration, carried as matcher loop state.
+one it had in the previous iteration, carried as matcher loop state. Two
+opt-in switches of the JAX package take another route on a resident map
+with knn = 1: ``PMTPU_SKIP_V1=1`` the predicated sweep of :mod:`.ops.skip`
+(K11), and with it ``PMTPU_SKIP_MXU_BOUND=1`` its bound pass (K10).
 
 ``BlockGridMatcher`` serves bounded-radius matching through the tile sweep
 of :mod:`.ops.tilesweep` (K7, or K8 for knn > 1): the map is cut into
@@ -30,9 +33,9 @@ from typing import NamedTuple, Optional
 import torch
 
 from .cloud import PointCloud
-from .ops import sweep, sweep_cuda
+from .ops import skip, skip_cuda, sweep, sweep_cuda
 from .ops.dispatch import MXU_EPSILON_FLOOR, apply_max_dist, knn_search
-from .ops.morton import morton_argsort
+from .ops.morton import morton_argsort, morton_argsort_batch
 from .ops.tilesweep import (assign_tiles, build_sub_blocks, gather_candidates,
                             tile_knnk_from_candidates,
                             tile_nn1_from_candidates)
@@ -140,7 +143,14 @@ class KDTreeMatcher(Matcher):
     #: largest padded map the survivor sweep serves (K4 above
     #: ``ops.sweep.SKIP_MAX_MPAD``); larger maps go dense
     STREAM_MAX_MPAD = 131072
+    #: queries per tile and 128-row chunks per super-chunk of the v1 route's
+    #: skip flags (K11's own)
+    SKIP_TILE_Q = skip_cuda.TILE_Q
+    SKIP_GROUP = skip_cuda.GROUP
     SERVING_PERMUTES_READING = True
+    #: the batch orders each scan on the device unless
+    #: ``PMTPU_SKIP_HOST_MORTON=1`` asks for :meth:`prepare_loop_host_batch`
+    SERVING_DEVICE_ORDER = True
 
     def __init__(self, params=None):
         super().__init__(params)
@@ -150,6 +160,8 @@ class KDTreeMatcher(Matcher):
         self._skip_stream = False
         #: survivor share per serving iteration ([B] tensors), for diagnostics
         self.survivor_fractions = []
+        #: skipped share of (tile, super-chunk) steps per v1 iteration ([B])
+        self.skip_fractions = []
 
     def find_closests_in(self, reading, reference):
         return _dense_matches(reading, reference, self.knn,
@@ -170,7 +182,9 @@ class KDTreeMatcher(Matcher):
         the top-k sweep (K6) only under an explicit ``PMTPU_SERVE_SKIP=1``
         and on a resident map (up to ``ops.sweep.SKIP_MAX_MPAD`` rows: K6
         has no streaming form); knn > 4, ε at or above the K9 floor and
-        d > 3 go dense."""
+        d > 3 go dense. A resident map with knn = 1 also gets the v1
+        route's tables (``skip_rt``, ``skip_rpen``, ``skip_cbox``,
+        ``skip_ra``), which ``PMTPU_SKIP_V1=1`` takes."""
         mode = os.environ.get("PMTPU_SERVE_SKIP", "auto")
         rows = 512 * math.ceil(max(reference.count_host(), 1) / 512)
         dense = (mode not in ("1", "auto")
@@ -190,13 +204,18 @@ class KDTreeMatcher(Matcher):
         pts, mask = reference.host_rows()
         rorder, _ = morton_argsort(pts, mask)
         rs, rmask = pts[rorder], mask[rorder]
+        tables = {"skip_rt3": sweep.chunked_ref_table(rs, rmask),
+                  "skip_ct": sweep.chunk_summaries(rs, rmask)}
+        if not self._skip_stream and self.knn == 1:
+            m_pad = 128 * math.ceil(len(rs) / 128)
+            tables["skip_rt"], tables["skip_rpen"] = skip.v1_tables(rs, rmask,
+                                                                    m_pad)
+            tables["skip_cbox"] = skip.chunk_bboxes(rs, rmask,
+                                                    128 * self.SKIP_GROUP)
+            tables["skip_ra"] = skip.augmented_ref_table(rs, rmask, m_pad)[0]
         dev = reference.device
-        self._skip_shared = {
-            "skip_rt3": torch.as_tensor(sweep.chunked_ref_table(rs, rmask),
-                                        device=dev),
-            "skip_ct": torch.as_tensor(sweep.chunk_summaries(rs, rmask),
-                                       device=dev),
-        }
+        self._skip_shared = {k: torch.as_tensor(v, device=dev)
+                             for k, v in tables.items()}
         self._skip_sorted_ref = reference.permute_rows(
             torch.as_tensor(rorder, dtype=torch.int64, device=dev))
         self._skip_for = reference
@@ -212,6 +231,21 @@ class KDTreeMatcher(Matcher):
     def serving_aux(self) -> dict:
         """The map's tables for :meth:`find_closests_in_stateful`."""
         return dict(self._skip_shared)
+
+    def prepare_loop_host(self, pts, mask):
+        """Host: the Morton order of one scan's rows ``pts [n, d]`` (at its
+        initial pose in the map's frame) → ``{"qorder": int32 [n]}``, or
+        None off the survivor route."""
+        if self._skip_shared is None:
+            return None
+        return {"qorder": morton_argsort(pts, mask)[0]}
+
+    def prepare_loop_host_batch(self, pts_b, mask_b):
+        """:meth:`prepare_loop_host` of a stack of scans ``pts_b [b, n, d]``
+        in one pass → ``{"qorder": int32 [b, n]}`` (invalid rows last)."""
+        if self._skip_shared is None:
+            return None
+        return {"qorder": morton_argsort_batch(pts_b, mask_b)}
 
     def loop_state_init(self, reading: PointCloud, aux):
         """Per-scan loop state: each query's position at the previous sweep
@@ -231,10 +265,27 @@ class KDTreeMatcher(Matcher):
         d(q_prev, w_prev) + ‖q − q_prev‖, w_prev being a real map point,
         and inflated by 4 ulp for its own roundings. For knn > 1 the k
         previous winners are real points within the k-th distance of
-        q_prev, so the same transport bounds the k-th distance now."""
+        q_prev, so the same transport bounds the k-th distance now.
+
+        Under ``PMTPU_SKIP_V1=1``, with knn = 1 and the v1 tables (a
+        resident map), the v1 route serves instead: the squared bound,
+        inflated by 4 ulp, tightened by K10 under ``PMTPU_SKIP_MXU_BOUND=1``,
+        gives the skip flags, and K11 sweeps (:func:`.ops.skip.nn1_sorted_v1`).
+        A streaming map or knn > 1 stays on the survivor sweep, as in the
+        JAX package."""
         qs, qm = reading.points, reading.mask
         prev_pos, prev_d2 = state
         step = torch.sqrt(torch.sum((qs - prev_pos) ** 2, dim=-1))
+        if (self.knn == 1 and "skip_rt" in aux
+                and os.environ.get("PMTPU_SKIP_V1", "0") == "1"):
+            ub = torch.sqrt(prev_d2) + step          # inf-safe
+            mxu = os.environ.get("PMTPU_SKIP_MXU_BOUND", "0") == "1"
+            d_s, i_s, frac = skip.nn1_sorted_v1(
+                qs, qm, (ub * ub) * sweep.UP, aux["skip_rt"], aux["skip_rpen"],
+                aux["skip_cbox"], aux["skip_ra"] if mxu else None)
+            self.skip_fractions.append(frac)
+            matches = apply_max_dist(d_s[..., None], i_s[..., None], self.maxDist)
+            return Matches(*matches), (qs, d_s)
         ub_t = (torch.sqrt(prev_d2) + step) * sweep.UP
         if self.knn > 1:
             dk, ik, frac = sweep.nnk_sorted_v2(qs, qm, ub_t, aux["skip_rt3"],

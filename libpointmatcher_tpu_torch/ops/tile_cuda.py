@@ -5,7 +5,14 @@ kernel    replaces (TPU, Pallas)                          plain version
 ========  ==============================================  =========================
 K7        tilesweep.py::_tile_sweep_pallas (1-NN)         :func:`tile_sweep_plain`
 K8        tilesweep.py::_tile_sweep_pallas_k (top-k)      :func:`tile_sweep_k_plain`
+T4        tile_kernel_micro.py::main.min_only             :func:`tile_min_plain`
+T5        tile_kernel_micro.py::main.one                  :func:`tile_min_plain`
 ========  ==============================================  =========================
+
+T4 and T5 are the ablations of ``tools_torch/tile_kernel_micro.py``: K7's
+function without the id (per query, the minimum d² over its tile's
+candidates) on K7's own table, eight tiles per block in 2048-column stages
+(T4) or one tile per block over its whole list at once (T5).
 
 The kernels are CUDA C++ in ``csrc/tile.cu`` (see its header for the design
 and for what bounds them), built at first use by :mod:`.cuda_build`. Both
@@ -30,8 +37,9 @@ import torch
 from .cuda_build import KernelLibrary
 
 __all__ = ["tile_sweep", "tile_sweep_k", "tile_sweep_plain",
-           "tile_sweep_k_plain", "build", "LIBRARY", "TILE_KNN_MAX", "DPAD",
-           "PEN_ROW", "CID_ROW", "reset_launch_counts"]
+           "tile_sweep_k_plain", "tile_min_only", "tile_min_one",
+           "tile_min_plain", "build", "LIBRARY", "TILE_KNN_MAX", "DPAD",
+           "PEN_ROW", "CID_ROW", "MIN_ONE_MAX", "reset_launch_counts"]
 
 #: largest k of the top-k tile sweep K8 (as ``tilesweep.TILE_KNN_MAX``)
 TILE_KNN_MAX = 32
@@ -40,6 +48,10 @@ PEN_ROW = 6      # candidate-table row of the pad penalty
 CID_ROW = 7      # candidate-table row of the original row id
 #: register list lengths instantiated in csrc/tile.cu
 _KK = (4, 8, 16, 32)
+#: T4's candidate columns per stage
+MIN_STAGE = 2048
+#: T5's largest candidate list (its shared memory holds the whole list)
+MIN_ONE_MAX = 232448 // 16
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -48,6 +60,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pm_tile_nn1.restype = i
     lib.pm_tile_nnk.argtypes = [p, p, i, i, i, i, i, i, p, p, p]
     lib.pm_tile_nnk.restype = i
+    lib.pm_tile_min.argtypes = [p, p, i, i, i, i, i, p, p]
+    lib.pm_tile_min.restype = i
+    lib.pm_tile_min_stage.restype = i
+    lib.pm_tile_min_one_max.restype = i
+    if (lib.pm_tile_min_stage(), lib.pm_tile_min_one_max()) != (MIN_STAGE,
+                                                                 MIN_ONE_MAX):
+        raise RuntimeError("csrc/tile.cu stages differ from ops/tile_cuda.py")
 
 
 LIBRARY = KernelLibrary("tile.cu", _declare)
@@ -170,8 +189,51 @@ def tile_sweep_k(q, cand_t, dim: int, k: int):
     return out_d, out_i
 
 
+def tile_min_plain(q, cand_t, dim: int):
+    """Plain version of T4 and T5 → ``d2 [T, TQ]``, each query's minimum d²
+    over its tile's candidates, formed as in :func:`tile_sweep_plain`."""
+    T, tq, _ = q.shape
+    out = torch.empty((T, tq), dtype=torch.float32, device=q.device)
+    step = _tiles_per_step(tq, cand_t.shape[2])
+    for t0 in range(0, T, step):
+        d2 = _tile_d2(q[t0:t0 + step], cand_t[t0:t0 + step], dim)
+        out[t0:t0 + step] = d2.amin(dim=2)
+    return out
+
+
+def _launch_min(fn, q, cand_t, dim: int, tiles_per_block: int):
+    _check(q, cand_t, dim)
+    if q.device.type == "cpu":
+        return tile_min_plain(q, cand_t, dim)
+    lib = build()
+    q, cand_t = q.contiguous(), cand_t.contiguous()
+    T, tq, _ = q.shape
+    out = torch.empty((T, tq), dtype=torch.float32, device=q.device)
+    err = lib.pm_tile_min(q.data_ptr(), cand_t.data_ptr(), T, tq,
+                          cand_t.shape[2], dim, tiles_per_block, out.data_ptr(),
+                          torch.cuda.current_stream(q.device).cuda_stream)
+    LIBRARY.check(err, f"tile min-only kernel ({tiles_per_block} tiles a block)")
+    fn.launches += 1
+    return out
+
+
+def tile_min_only(q, cand_t, dim: int):
+    """T4: each query's minimum d² over its tile's candidates, eight tiles
+    a block, 2048 candidate columns a stage → ``d2 [T, TQ]``."""
+    return _launch_min(tile_min_only, q, cand_t, dim, 8)
+
+
+def tile_min_one(q, cand_t, dim: int):
+    """T5: T4's function, one tile a block, its whole candidate list staged
+    at once (M ≤ ``MIN_ONE_MAX``) → ``d2 [T, TQ]``."""
+    if cand_t.shape[-1] > MIN_ONE_MAX:
+        raise ValueError(f"T5 takes at most {MIN_ONE_MAX} candidates a tile, "
+                         f"got {cand_t.shape[-1]}")
+    return _launch_min(tile_min_one, q, cand_t, dim, 1)
+
+
 def reset_launch_counts() -> None:
-    for fn in (tile_sweep, tile_sweep_k):
+    for fn in (tile_sweep, tile_sweep_k, tile_min_only, tile_min_one):
         fn.launches = 0
 
 

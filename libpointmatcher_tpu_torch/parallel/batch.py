@@ -15,7 +15,11 @@ per map by the matcher (``KDTreeMatcher.serving_loop_aux``, or a
 - survivor sweep (maps of 16 384 rows or more): each scan is put in its
   Morton order first, the loop runs against the Morton-sorted map, and
   each iteration makes one K2 launch and one K3, K4 or (knn 2..4) K6
-  launch;
+  launch; under ``PMTPU_SKIP_V1=1`` (knn = 1, a resident map) one K11
+  launch instead, after one K10 launch under ``PMTPU_SKIP_MXU_BOUND=1``.
+  The device orders each scan's filtered rows; under
+  ``PMTPU_SKIP_HOST_MORTON=1`` the batch (not the queue) orders its raw
+  rows on the host instead, as the JAX package's switch does;
 - tile sweep (``BlockGridMatcher`` with a reading chain that only masks
   rows): each scan's tile assignment is built on the host from its raw rows
   at its initial pose, the assignments are stacked and their candidate
@@ -29,6 +33,7 @@ and runs the same loop, each reading against its own reference.
 
 from __future__ import annotations
 
+import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Optional, Sequence
 
@@ -103,24 +108,55 @@ def _initial_poses(T_inits, b: int, dim: int, dev) -> torch.Tensor:
                         for t in T_inits])
 
 
+def _host_orders(seq, readings: Sequence[PointCloud], T_inits) -> list:
+    """Each scan's Morton order (``PMTPU_SKIP_HOST_MORTON=1``), computed on
+    the host by the matcher's ``prepare_loop_host_batch`` from the scan's
+    raw rows and mask moved by Trm⁻¹·T_init in float64 and stored into
+    float32, as the JAX package's batch computes it (its rows and scale,
+    so another order than the device's, which sorts the filtered rows
+    before the pre-transform) → one int64 order of the raw rows per scan."""
+    dim = readings[0].dim
+    rows = max(rd.num_points for rd in readings)
+    trm_inv = np.linalg.inv(seq.trm_host())
+    pts_b = np.zeros((len(readings), rows, dim), np.float32)
+    mask_b = np.zeros((len(readings), rows), bool)
+    for i, rd in enumerate(readings):
+        pts, mask = rd.host_rows()
+        T = trm_inv @ np.asarray(np.eye(dim + 1) if T_inits is None
+                                 else T_inits[i], np.float64)
+        pts_b[i, :len(pts)] = pts @ T[:dim, :dim].T + T[:dim, dim]
+        mask_b[i, :len(pts)] = mask
+    orders = seq.matcher.prepare_loop_host_batch(pts_b, mask_b)["qorder"]
+    # the invalid rows sort last, in row order: a scan's first rows are
+    # a permutation of its own
+    return [torch.as_tensor(orders[i, :rd.num_points], dtype=torch.int64,
+                            device=seq.device) for i, rd in enumerate(readings)]
+
+
 def _prep_scans(seq, readings: Sequence[PointCloud], T_rmd: torch.Tensor,
-                seed: int, compact_rows, permute: bool):
+                seed: int, compact_rows, permute: bool, host_orders=None):
     """The serving prep of every scan: its reading chain (scan i draws from
     its own generators), the Morton order on the survivor route, the
     compaction cap, stacking and the pre-transform by ``T_rmd [B, d+1,
     d+1]`` → ``(batch [B, rows, d], overflow [B] bool numpy, cap)``, cap
-    None when no scan is cut."""
+    None when no scan is cut. With ``host_orders`` (:func:`_host_orders`),
+    the chain keeps the raw rows, each scan is put in its host order and
+    then compacted, which keeps that order; else the device orders the
+    filtered rows."""
     dev = seq.device
     filtered = [apply_filter_chain(seq.reading_filters, rd.to(dev), seed,
-                                   READING_STREAM, scan=i, allow_empty=True)
+                                   READING_STREAM, scan=i, allow_empty=True,
+                                   compact=host_orders is None)
                 for i, rd in enumerate(readings)]
     rows = max(rd.num_points for rd in readings)
     keep_rate = filtered[0].count_host() / max(readings[0].count_host(), 1)
     cap = _serve_compact_cap(keep_rate, rows, compact_rows)
     prepped = []
     overflow = []
-    for c in filtered:
-        if permute:
+    for i, c in enumerate(filtered):
+        if host_orders is not None:
+            c = c.permute_rows(host_orders[i]).compact()
+        elif permute:
             c = c.permute_rows(morton_argsort_device(c.points, c.mask))
         n = c.count_host()
         overflow.append(cap is not None and n > cap)
@@ -136,16 +172,21 @@ def _prep_scans(seq, readings: Sequence[PointCloud], T_rmd: torch.Tensor,
     return batch, np.asarray(overflow, bool), cap
 
 
+def _traceable(seq) -> bool:
+    """True when every reading filter only masks rows (``TRACEABLE``), so
+    that a table built from a scan's raw rows stays valid after the chain."""
+    return all(getattr(f, "TRACEABLE", False) for f in seq.reading_filters)
+
+
 def _tile_route(seq) -> bool:
     """True when the matcher serves through tile tables (a
-    ``BlockGridMatcher`` with its map's sub-blocks) and every reading
-    filter only masks rows (``TRACEABLE``), so that the assignment built
-    from the raw rows stays valid after the chain. Otherwise serving runs
-    the matcher's dense fallback, as the JAX package's host path does."""
+    ``BlockGridMatcher`` with its map's sub-blocks) and the reading chain
+    is :func:`_traceable`, so that the assignment built from the raw rows
+    stays valid after it. Otherwise serving runs the matcher's dense
+    fallback, as the JAX package's host path does."""
     m = seq.matcher
     return (getattr(m, "units", None) is not None
-            and hasattr(m, "prepare_loop_host")
-            and all(getattr(f, "TRACEABLE", False) for f in seq.reading_filters))
+            and hasattr(m, "prepare_loop_host") and _traceable(seq))
 
 
 def _pad_tile_aux_np(pers, sentinel: int) -> dict:
@@ -228,6 +269,7 @@ def _serving_route(seq, reference):
     if not seq.matcher.serving_loop_aux(reference):
         return False, reference, None
     seq.matcher.survivor_fractions = []
+    seq.matcher.skip_fractions = []
     return (seq.matcher.SERVING_PERMUTES_READING,
             seq.matcher.serving_reference(reference), seq.matcher.serving_aux())
 
@@ -290,8 +332,12 @@ def register_batch_to_map(seq, readings: Sequence[PointCloud],
         T_iter, iters, codes, stats = seq._run_loop(batch, reference, aux)
     else:
         permute, ref_loop, aux = _serving_route(seq, reference)
+        host = (permute and _traceable(seq)
+                and (not getattr(seq.matcher, "SERVING_DEVICE_ORDER", True)
+                     or os.environ.get("PMTPU_SKIP_HOST_MORTON", "0") == "1"))
+        orders = _host_orders(seq, readings, T_inits) if host else None
         batch, overflow, _ = _prep_scans(seq, readings, T_rmd, seed,
-                                         compact_rows, permute)
+                                         compact_rows, permute, orders)
         T_iter, iters, codes, stats = seq._run_loop(batch, ref_loop, aux)
     T_out = Trm @ T_iter @ T_rmd
     seq.last_stats = stats

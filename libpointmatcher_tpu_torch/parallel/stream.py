@@ -39,7 +39,7 @@ from ..cloud import PointCloud
 from ..utils import se3
 from .batch import (PendingRegistration, _info, _initial_poses, _prep_scans,
                     _prep_tile_scans, _serving_route, _tile_route,
-                    register_batch_to_map)
+                    _traceable, register_batch_to_map)
 
 __all__ = ["register_queue_to_map", "queue_eligible"]
 
@@ -53,7 +53,7 @@ def _queue_mode(seq) -> str:
     runs a host step per scan, as SamplingSurfaceNormal's median split
     does): such a chain serves through :func:`register_batch_to_map`, as in
     the JAX package, whose queue program cannot run a host step."""
-    if not all(getattr(f, "TRACEABLE", False) for f in seq.reading_filters):
+    if not _traceable(seq):
         return ""
     if _tile_route(seq):
         return "tile"

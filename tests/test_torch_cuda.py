@@ -1,17 +1,18 @@
-"""The port on the card: the K1, K9, K5, K2, K3, K4, K6, K7 and K8 kernels
-against their plain versions on CUDA tensors (K1 and K5 with a pair axis
-too), the tile sweep against dense K1 within maxDist, and registrations,
-batch and queue serving (the tile route too) and pair-parallel one-shot ICP
-on the card against the same calls on the CPU. Every test needs a CUDA device and skips
-without one. The file imports neither JAX nor the JAX package, so it runs
-on a machine with the card alone:
+"""The port on the card: the K1, K9, K5, K2, K3, K4, K6, K7, K8, K10, K11,
+T4 and T5 kernels against their plain versions on CUDA tensors (K1 and K5
+with a pair axis too), the tile sweep against dense K1 within maxDist,
+registrations, batch and queue serving (the tile route too) and
+pair-parallel one-shot ICP on the card against the same calls on the CPU,
+and the v1 skip routes' batch against the survivor route's. Every test
+needs a CUDA device and skips without one. The file imports neither JAX
+nor the JAX package, so it runs on a machine with the card alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: K1, K5, K2, K3, K4, K6, K7 and K8 equal their plain versions bit for bit
-(the same rounded operations in the same order); K9 agrees within
-2^-20·(q² + r²), its expansion form's rounding bound, and its excess over
-the exact neighbour distance stays below MXU_EPSILON_FLOOR.
+Tolerances: K1, K5, K2, K3, K4, K6, K7, K8, K10, K11, T4 and T5 equal their
+plain versions bit for bit (the same rounded operations in the same order);
+K9 agrees within 2^-20·(q² + r²), its expansion form's rounding bound, and
+its excess over the exact neighbour distance stays below MXU_EPSILON_FLOOR.
 """
 
 import numpy as np
@@ -21,7 +22,8 @@ import torch
 import libpointmatcher_tpu_torch as pt
 from libpointmatcher_tpu_torch.checkers import CounterTransformationChecker
 from libpointmatcher_tpu_torch.filters.normals import SurfaceNormalDataPointsFilter
-from libpointmatcher_tpu_torch.ops import dispatch, sweep, tile_cuda, tilesweep
+from libpointmatcher_tpu_torch.ops import (dispatch, skip, skip_cuda, sweep,
+                                          tile_cuda, tilesweep)
 from libpointmatcher_tpu_torch.ops import knn_cuda as kc
 from libpointmatcher_tpu_torch.ops import sweep_cuda as sc
 from libpointmatcher_tpu_torch.ops.knn import knn_brute_force
@@ -479,3 +481,97 @@ def test_surface_normal_culled_on_card_matches_cpu(cuda):
     assert np.all(np.abs(np.sum(nc * ng, axis=1)) >= 1 - 1e-5)
     assert torch.equal(out["cuda"].descriptors["matchedIds"].cpu(),
                        out["cpu"].descriptors["matchedIds"])
+
+
+def _skip_inputs(seed, n, m, device):
+    """Two Morton-sorted scans of clustered queries (every 9th masked), a
+    sorted map (every 13th row masked) and the v1 route's tables."""
+    qs, qm, rs, rsm, _, _ = _survivor_inputs(seed, n, m, "cpu")
+    m_pad = 128 * -(-m // 128)
+    rt, rpen = skip.v1_tables(rs.numpy(), rsm.numpy(), m_pad)
+    ra, _ = skip.augmented_ref_table(rs.numpy(), rsm.numpy(), m_pad)
+    cbox = skip.chunk_bboxes(rs.numpy(), rsm.numpy(), skip_cuda.SUPER)
+    t = lambda a: torch.as_tensor(a, device=device)
+    return [t(a) for a in (qs, qm, rs, rsm, rt, rpen, ra, cbox)]
+
+
+@pytest.mark.parametrize("n,m", [(3000, 5000), (300, 700), (1, 128)])
+def test_k10_k11_equal_plain(cuda, n, m):
+    """K10 and K11 bit for bit against their plain versions, cold and with a
+    transported bound; K11 equal to K1 on the sorted map; the bound above
+    K1's exact d² on every valid query."""
+    qs, qm, rs, rsm, rt, rpen, ra, cbox = _skip_inputs(n + m, n, m, cuda)
+    n_pad = -(-n // skip_cuda.TILE_Q) * skip_cuda.TILE_Q
+    ub2 = torch.full(qm.shape, float("inf"), device=cuda)
+    for _ in range(2):
+        qa, q2 = skip.augment_queries(qs, n_pad)
+        amin = skip_cuda.approx_min_sorted(qa, ra)
+        aminp = skip_cuda.approx_min_sorted_plain(qa, ra)
+        flags = skip.build_skip_mask(qs, qm, ub2, cbox)
+        d, i = skip_cuda.nn1_sorted_skip(qs, qm, rt, rpen, flags)
+        dp, ip = skip_cuda.nn1_sorted_skip_plain(qs, qm, rt, rpen, flags)
+        torch.cuda.synchronize()
+        assert torch.equal(amin, aminp)
+        assert torch.equal(d, dp) and torch.equal(i, ip)
+        d1, i1 = kc.knn1(qs.reshape(-1, 3), qm.reshape(-1), rs, rsm)
+        assert torch.equal(d.reshape(-1), d1) and torch.equal(i.reshape(-1), i1)
+        amin = amin[:, :n]
+        bound = amin + skip.bound_margin(q2, amin)
+        assert bool((bound[qm] >= d[qm]).all())
+        ub2 = (torch.sqrt(d) + 0.01) ** 2 * sweep.UP
+        qs = qs + torch.tensor([0.006, -0.006, 0.0048], device=cuda)
+
+
+@pytest.mark.parametrize("T,tq,m,dim", [(37, 64, 1024, 3), (5, 300, 640, 3),
+                                        (9, 50, 1152, 2), (20, 256, 4096, 3)])
+def test_t4_t5_equal_plain_and_k7(cuda, T, tq, m, dim):
+    q, cand = _tile_inputs(T + tq, T, tq, m, dim, cuda)
+    d4 = tile_cuda.tile_min_only(q, cand, dim)
+    d5 = tile_cuda.tile_min_one(q, cand, dim)
+    dp = tile_cuda.tile_min_plain(q, cand, dim)
+    d7, _ = tile_cuda.tile_sweep(q, cand, dim)
+    torch.cuda.synchronize()
+    assert torch.equal(d4, dp) and torch.equal(d5, dp) and torch.equal(d7, dp)
+
+
+def test_v1_batch_equals_survivor_route(cuda, monkeypatch):
+    """register_batch_to_map on the card under PMTPU_SKIP_V1=1, with and
+    without PMTPU_SKIP_MXU_BOUND=1, against the survivor route: per scan
+    the same iterations and codes, poses within 1e-6; K11 (and K10) launch
+    once per lockstep iteration and no other k-NN kernel does."""
+    monkeypatch.setenv("PMTPU_SERVE_SKIP", "1")
+    rng = np.random.default_rng(6)
+    world = _room(rng, 8000)
+    scans = [world[rng.choice(len(world), 1500, replace=False)]
+             + np.float32([0.05, -0.03, 0.02]) for _ in range(3)]
+    seq = pt.ICPSequence(device="cuda")
+    seq.set_default()
+    seq.reference_filters[0].uniform = rng.random(len(world)).astype(np.float32)
+    seq.reading_filters[0].uniform = rng.random((3, 1500)).astype(np.float32)
+    seq.set_map(pt.PointCloud.from_numpy(world, device="cuda"))
+    clouds = [pt.PointCloud.from_numpy(s, device="cuda") for s in scans]
+    out = {}
+    for route, env in (("survivor", {}), ("v1", {"PMTPU_SKIP_V1": "1"}),
+                       ("v1_mxu", {"PMTPU_SKIP_V1": "1",
+                                   "PMTPU_SKIP_MXU_BOUND": "1"})):
+        for k in ("PMTPU_SKIP_V1", "PMTPU_SKIP_MXU_BOUND"):
+            monkeypatch.setenv(k, env.get(k, "0"))
+        kc.reset_launch_counts()
+        sc.reset_launch_counts()
+        skip_cuda.reset_launch_counts()
+        T, info = register_batch_to_map(seq, clouds)
+        it = int(info["iterations"].max())
+        launches = (kc.knn1.launches, sc.survivors_and_bounds.launches,
+                    sc.nn1_survivor_sweep.launches,
+                    skip_cuda.approx_min_sorted.launches,
+                    skip_cuda.nn1_sorted_skip.launches)
+        assert launches == {"survivor": (0, it, it, 0, 0),
+                            "v1": (0, 0, 0, 0, it),
+                            "v1_mxu": (0, 0, 0, it, it)}[route]
+        out[route] = T, info
+    Ts, infos = out["survivor"]
+    for route in ("v1", "v1_mxu"):
+        T, info = out[route]
+        np.testing.assert_array_equal(info["iterations"], infos["iterations"])
+        np.testing.assert_array_equal(info["codes"], infos["codes"])
+        np.testing.assert_allclose(T, Ts, atol=1e-6)

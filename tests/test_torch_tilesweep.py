@@ -211,6 +211,43 @@ def test_k8_plain_matches_pallas_and_xla(name, k, interpret_mode):
     np.testing.assert_array_equal(i1.numpy(), ip[:, 0])
 
 
+@pytest.mark.parametrize("name", ["3d", "2d", "masked", "split"])
+def test_tile_min_plain_matches_pallas(name, interpret_mode):
+    """T4 and T5 (the min-only ablations of the JAX tool
+    tools/tile_kernel_micro.py, whose closures are K7's body without the
+    argmin): their plain version is the minimum of the interpret-mode K7's
+    d² within 2 ulp, and K7's own plain d² bit for bit; on CPU tensors both
+    wrappers run it."""
+    qt, cand_t, pen, cid, d = _kernel_inputs(name)
+    q, c = torch.from_numpy(qt), torch.from_numpy(cand_t)
+    dm = tile_cuda.tile_min_plain(q, c, d)
+    dpal, _ = jts._tile_sweep_pallas(jnp.asarray(qt), jnp.asarray(cand_t), pen,
+                                     cid, dim=d)
+    _assert_d2(dm.numpy(), np.asarray(dpal))
+    d7, _ = tile_cuda.tile_sweep_plain(q, c, d)
+    assert torch.equal(dm, d7)
+    assert torch.equal(tile_cuda.tile_min_only(q, c, d), dm)
+    assert torch.equal(tile_cuda.tile_min_one(q, c, d), dm)
+    with pytest.raises(ValueError, match="T5 takes at most"):
+        tile_cuda.tile_min_one(q[:1], torch.zeros(1, 8, 128 * 114), d)
+
+
+def test_tile_kernel_micro_runs_on_the_cpu():
+    """tools_torch/tile_kernel_micro.py at a small shape with the plain
+    versions: it checks T4 and T5 against K7 and reports every kernel."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools_torch"))
+    import tile_kernel_micro
+
+    rep = tile_kernel_micro.run(tiles=9, tq=32, m=256, reps=1, device="cpu")
+    assert list(rep["kernels"]) == ["K1 control", "K7 tile_sweep",
+                                    "T4 tile_min_only", "T5 tile_min_one"]
+    assert rep["cells"] == 9 * 32 * 256
+    assert all(r["ms"] > 0 for r in rep["kernels"].values())
+
+
 def _step_inputs(name):
     q, qm, r, rm, cell, tq, cap = _case(name)
     sj = jts.build_sub_blocks(r, rm, cell)

@@ -1,7 +1,8 @@
 """Where scan-to-map serving of the port spends its time on the card.
 
     python3 tools_torch/profile_serving.py [--driver batch|queue]
-        [--coarse 4,16,1.0] [--batches 5] [--out FILE.json]
+        [--coarse 4,16,1.0] [--batches 5] [--routes K4,K3,K1,tile]
+        [--out FILE.json]
 
 For each route of chip_smoke.py's serving phase (the 100 000-point scene's
 50 147-row map: K2 + K4; a 60 000-point scene's map: K2 + K3; a
@@ -12,7 +13,10 @@ scans of 25 000 points per ``register_batch_to_map`` call, or with
 tile route (K7) serves chip_smoke.py's large-map configuration: the
 10^5-point terrain map through ``BlockGridMatcher``, 8 scans of ~18 500
 points per batch, or a queue of those 8 scans three times (the tile route
-has no coarse pass). After one warm-up call it
+has no coarse pass). ``--routes`` profiles a subset (each route's scene is
+drawn all the same, so a route serves the same scans in any subset); the
+v1 skip routes are the K3 route run under ``PMTPU_SKIP_V1=1`` (and
+``PMTPU_SKIP_MXU_BOUND=1``) in the environment. After one warm-up call it
 
 1. times ``--batches`` calls on the host clock, each ending in a
    synchronize (ms per call, iterations of the loop, ms per iteration: a
@@ -48,6 +52,8 @@ def main(argv=None) -> int:
     ap.add_argument("--coarse", default=None,
                     help="the queue's coarse pass, e.g. 4,16,1.0")
     ap.add_argument("--batches", type=int, default=5)
+    ap.add_argument("--routes", default="K4,K3,K1,tile",
+                    help="the routes to profile, comma-separated")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
 
@@ -58,15 +64,16 @@ def main(argv=None) -> int:
     import chip_smoke as cs
     import libpointmatcher_tpu_torch as pt
     from libpointmatcher_tpu_torch.ops import knn_cuda as kc
+    from libpointmatcher_tpu_torch.ops import skip_cuda as skc
     from libpointmatcher_tpu_torch.ops import sweep_cuda as sc
     from libpointmatcher_tpu_torch.ops import tile_cuda as tc
     from libpointmatcher_tpu_torch.parallel import (register_batch_to_map,
                                                     register_queue_to_map)
     from torch.profiler import ProfilerActivity, profile
 
-    kc.build()
-    sc.build()
-    tc.build()
+    for lib in (kc, sc, tc, skc):
+        lib.build()
+    routes = args.routes.split(",")
     rng = np.random.default_rng(0)
     smi = os.popen("nvidia-smi --query-gpu=name,power.limit "
                    "--format=csv,noheader").read().strip()
@@ -75,9 +82,12 @@ def main(argv=None) -> int:
                     for x in args.coarse.split(",")) if args.coarse else None)
     out = {"device": smi, "driver": args.driver,
            "lanes": cs.QUEUE_LANES if queue else None, "coarse": coarse,
+           "switches": {k: os.environ[k] for k in cs.V1_KEYS if k in os.environ},
            "routes": {}}
     for route in (*cs.SERVE_SCENES, "tile"):
         if route == "tile":
+            if route not in routes:
+                continue
             trng = np.random.default_rng(7)      # chip_smoke.py's scene
             terrain, side = cs.make_terrain(cs.TERRAIN_MAPS[0], trng)
             scans_np, _ = cs.make_terrain_scans(terrain, side, trng)
@@ -94,6 +104,8 @@ def main(argv=None) -> int:
             clouds = [pt.PointCloud.from_numpy(cs.make_scan(world, P, rng))
                       for P in poses]
             inits = [cs.perturb(rng) @ P for P in poses]
+            if route not in routes:
+                continue
             seq = pt.ICPSequence()
             seq.set_default()
             seq.set_map(pt.PointCloud.from_numpy(world), seed=0)

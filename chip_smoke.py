@@ -7,13 +7,14 @@ Phases, each fatal on failure:
 1. device: the card's name and power limit, torch and CUDA versions;
    compute capability 9.0 is required;
 2. build: every kernel source of ``libpointmatcher_tpu_torch/csrc``
-   (knn.cu, sweep.cu, tile.cu, skip.cu), one nvcc each, all started
-   together; ptxas's register and spill report;
+   (knn.cu, sweep.cu, tile.cu, skip.cu, knn_variants.cu), one nvcc each,
+   all started together; ptxas's register and spill report;
 3. dense kernels: K1, K9 and K5 against their plain torch versions on the
    card, at the serving shapes 20480 x 12459 and 25000 x 100000, timed with
    CUDA events beside the plain version and a ``torch.cdist`` yardstick;
 4. one-shot and sequence registration: a synthetic indoor scene of about
-   100 000 points and scans of 25 000 points (numpy, seeded). One one-shot
+   100 000 points and scans of 25 000 points (numpy, seeded); the
+   filters draw JAX's threefry values from each call's seed. One one-shot
    ``ICP`` of two scans, ``ICPSequence.set_map`` on the scene and eight
    scans through ``compute``, each pose held to the ground truth (rotation
    < 0.02 rad, translation < 0.05 m). Kernel launch counts are set to 0
@@ -34,7 +35,10 @@ Phases, each fatal on failure:
    25 000-point scene (under 16 384 rows: K1), each pose held to the
    ground truth; the launches of each run, counted from 0, equal the
    lockstep iteration count on the route's kernels and 0 on the others;
-   the same batch with ``block=False`` gives the same poses;
+   the same batch with ``block=False`` gives the same poses; the 8 scans'
+   reading draws formed on the card equal the same draws formed on the CPU
+   bit for bit, and the host time of each batch's prep (the scans'
+   chains, draws included, order, compaction and stacking) is logged;
 8. K2, K3 and K4 once more at the inputs the serving runs gave them (the
    second lockstep iteration), timed beside the plain versions and, for
    K3 and K4, a ``torch.cdist`` yardstick; K3 is also timed at K4's inputs
@@ -116,7 +120,16 @@ Phases, each fatal on failure:
    14's recorded K7 inputs, and through the tool itself at its shape (2048
    tiles × 256 queries × 4096 candidates), its launches counted from 0: both
    equal their plain version and K7's d² bit for bit; timed there beside K7
-   and a batched ``torch.cdist`` + ``amin`` yardstick.
+   and a batched ``torch.cdist`` + ``amin`` yardstick;
+20. the 1-NN lowerings T1, T2 and T3 (tools_torch/knn_micro.py) at the
+   tool's shape (20 480 x 12 459, uniform in [-10, 10]^3, the last 7% of
+   the queries masked) and at phase 5's recorded K1 inputs: each equal to
+   its plain version bit for bit, T1 and T2 equal to K1 in d² and ids, T3
+   within 2^-20·(q² + r²max) of K1's d² with ids equal where the neighbour
+   is unique beyond that bound; timed beside the plain versions and a
+   yardstick (``torch.cdist`` + ``min``, the difference form for T1 and T2,
+   the matrix-product form with TF32 off for T3); then the tool itself
+   runs once, its launches counted from 0.
 
 The second-to-last line is the JSON of kernels, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
@@ -254,10 +267,10 @@ def pose_error(T, gT):
 # ----------------------------------------------------------------- timing
 def reset_launch_counts() -> None:
     """Every kernel wrapper's launch count to 0."""
-    from libpointmatcher_tpu_torch.ops import (knn_cuda, skip_cuda, sweep_cuda,
-                                               tile_cuda)
+    from libpointmatcher_tpu_torch.ops import (knn_cuda, knn_variants_cuda,
+                                               skip_cuda, sweep_cuda, tile_cuda)
 
-    for mod in (knn_cuda, sweep_cuda, tile_cuda, skip_cuda):
+    for mod in (knn_cuda, sweep_cuda, tile_cuda, skip_cuda, knn_variants_cuda):
         mod.reset_launch_counts()
 
 
@@ -299,6 +312,10 @@ KERNELS = {
     # per (valid query, valid candidate) of a tile, as K7
     "T4 tile_min_only": ("tools/tile_kernel_micro.py:79", 9),
     "T5 tile_min_one": ("tools/tile_kernel_micro.py:131", 9),
+    # per (valid query, valid reference): as K1, and as K9 for T3
+    "T1 knn1_chunked": ("tools/knn_variants.py:26", 9),
+    "T2 knn1_transposed": ("tools/knn_variants.py:122", 9),
+    "T3 knn1_mxu": ("tools/knn_variants.py:195", 8),
 }
 QUEUE_SCANS = 64
 QUEUE_LANES = 8
@@ -546,6 +563,30 @@ class InputRecorder:
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.orig)
+
+
+class PrepTimer:
+    """Host time of the serving batch's prep calls (``batch._prep_scans``)
+    while the context is open, summed in ``ms``."""
+
+    def __init__(self, module):
+        self.module = module
+        self.ms = 0.0
+
+    def __enter__(self):
+        self.orig = self.module._prep_scans
+
+        def timed(*a, **k):
+            t = time.perf_counter()
+            out = self.orig(*a, **k)
+            self.ms += 1e3 * (time.perf_counter() - t)
+            return out
+
+        self.module._prep_scans = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.module._prep_scans = self.orig
 
 
 # ------------------------------------------------------------ slice 3
@@ -1438,6 +1479,112 @@ def tile_ablations(torch, tc, k7_inputs):
             for name, fn in fns.items()]
 
 
+# ------------------------------------------------------------ slice 6
+def check_draws(torch, batch, scans, seed=1):
+    """The reading draws of a serving batch's scans (their first filter's
+    keys), formed on the card, equal to the same draws formed on the CPU bit
+    for bit; the host time of forming them on the card is logged."""
+    rows = max(len(s) for s in scans)
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        u = batch.scan_keys(seed, len(scans), rows, "cuda").fold_in(0).draws()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t))
+    uc = batch.scan_keys(seed, len(scans), rows, "cpu").fold_in(0).draws()
+    if not torch.equal(u.cpu(), uc):
+        raise AssertionError("the draws formed on the card differ from the CPU's")
+    log(f"[draws] {len(scans)} scans x {rows} rows: the card's draws equal the "
+        f"CPU's bit for bit; formed in {times[0]:.3f} ms (first), "
+        f"{times[1]:.3f} ms of host time")
+
+
+def check_variant(torch, kc, kv, name, q, qm, r, rm, label):
+    """One of T1, T2, T3 at one input: equal to its plain version bit for
+    bit, T1 and T2 to K1 as well, T3 within 2^-20·(q² + r²max) of K1's d²
+    with ids equal where the neighbour is unique beyond that bound; timed
+    beside its plain version and its yardstick → dict of measurements."""
+    from libpointmatcher_tpu_torch.ops.knn import knn_brute_force
+
+    mxu = name.startswith("T3")
+    fn = {"T1": kv.knn1_chunked, "T2": kv.knn1_transposed,
+          "T3": kv.knn1_mxu}[name[:2]]
+    run = lambda: fn(q, qm, r, rm)
+    if mxu:
+        plain = lambda: kv.knn1_mxu3_plain(q, qm, r, rm)
+    else:
+        plain = lambda: tuple(x[:, 0] for x in knn_brute_force(q, qm, r, rm, k=1))
+    mode = "use_mm_for_euclid_dist" if mxu else "donot_use_mm_for_euclid_dist"
+    lib = lambda: torch.cdist(q, r[rm], compute_mode=mode).min(dim=1)
+    d, i = run()
+    dp, ip = plain()
+    d1, i1 = kc.knn1(q, qm, r, rm)
+    torch.cuda.synchronize()
+    if not (torch.equal(d, dp) and torch.equal(i, ip)):
+        raise AssertionError(f"{label} {name} differs from its plain version")
+    fin = torch.isfinite(dp)
+    out = {"max_abs_err": float((d[fin] - dp[fin]).abs().max()) if fin.any() else 0.0}
+    if mxu:
+        fin = torch.isfinite(d1)
+        tol = 2.0 ** -20 * ((q * q).sum(dim=1)
+                            + float((r[rm] * r[rm]).sum(dim=1).max()))
+        if not (torch.equal(fin, torch.isfinite(d))
+                and bool(((d - d1).abs() <= tol)[fin].all())):
+            raise AssertionError(f"{label} {name}: |Δd²| to K1 above 2^-20·(q²+r²max)")
+        second = kc.knnk(q, qm, r, rm, 2)[0][:, 1]
+        unique = fin & ((second - d1) > 2 * tol)
+        if not torch.equal(i[unique], i1[unique]):
+            raise AssertionError(f"{label} {name}: ids differ from K1's where the "
+                                 "neighbour is unique")
+        out["max_abs_err_to_k1"] = float((d - d1).abs()[fin].max())
+        out["unique_share"] = float(unique[qm].float().mean())
+        out["id_agreement"] = float((i[qm] == i1[qm]).float().mean())
+    elif not (torch.equal(d, d1) and torch.equal(i, i1)):
+        raise AssertionError(f"{label} {name} differs from K1")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out["ms"] = cuda_ms(torch, run, 20)
+        out["k1_ms"] = cuda_ms(torch, lambda: kc.knn1(q, qm, r, rm), 20)
+        out["plain_ms"] = cuda_ms(torch, plain, 3)
+        out["library_ms"] = cuda_ms(torch, lib, 3)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    n, m = q.shape[0], r.shape[0]
+    out["bound_ms"], out["bound_by"] = bound_ms(name, int(qm.sum()), int(rm.sum()),
+                                                n, m, 1)
+    log(f"[kernel] {label} {name} {n}x{m}: " + json.dumps(out))
+    return out
+
+
+def knn_variants(torch, kc, kv, seq_k1_inputs):
+    """Phase 20 → the T1, T2 and T3 kernel records (at the tool's shape)."""
+    from tools_torch import knn_micro
+
+    names = ("T1 knn1_chunked", "T2 knn1_transposed", "T3 knn1_mxu")
+    for name in names:
+        check_variant(torch, kc, kv, name, *seq_k1_inputs, "sequence K1 inputs")
+    tool_inputs = knn_micro.make_inputs(torch, knn_micro.N, knn_micro.M, "cuda")
+    res = {name: check_variant(torch, kc, kv, name, *tool_inputs, "tool's shape")
+           for name in names}
+    reset_launch_counts()
+    report = knn_micro.run()
+    counts = {"T1 knn1_chunked": kv.knn1_chunked.launches,
+              "T2 knn1_transposed": kv.knn1_transposed.launches,
+              "T3 knn1_mxu": kv.knn1_mxu.launches}
+    log(f"[variants] tools_torch/knn_micro.py: {json.dumps(report)}, "
+        f"launches {counts}")
+    if min(counts.values()) == 0:
+        raise AssertionError(f"the tool launched T1-T3 {counts} times")
+    return [{"name": name, "route": "cuda",
+             "source": "libpointmatcher_tpu_torch/csrc/knn_variants.cu",
+             "replaces": KERNELS[name][0], "launches": counts[name],
+             **{k: res[name][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                          "bound_ms", "bound_by", "library_ms")}}
+            for name in names]
+
+
 def kernel_inputs(torch, world, scan_world, n, m, rng, device="cuda"):
     """Queries from a scan placed in the world, references from the scene,
     every 11th query and every 7th reference masked."""
@@ -1465,6 +1612,7 @@ def main() -> int:
     from libpointmatcher_tpu_torch.matchers import KDTreeMatcher
     from libpointmatcher_tpu_torch.ops import morton, skip, sweep
     from libpointmatcher_tpu_torch.ops import knn_cuda as kc
+    from libpointmatcher_tpu_torch.ops import knn_variants_cuda as kv
     from libpointmatcher_tpu_torch.ops import skip_cuda as skc
     from libpointmatcher_tpu_torch.ops import sweep_cuda as sc
     from libpointmatcher_tpu_torch.ops import tile_cuda as tc
@@ -1472,6 +1620,7 @@ def main() -> int:
     from libpointmatcher_tpu_torch.parallel import (register_batch,
                                                     register_batch_to_map,
                                                     register_queue_to_map)
+    from libpointmatcher_tpu_torch.parallel import batch as batch_mod
 
     # ---- 1. device
     smi = subprocess.run(
@@ -1486,10 +1635,10 @@ def main() -> int:
 
     # ---- 2. build
     t0 = time.perf_counter()
-    libs = (kc.LIBRARY, sc.LIBRARY, tc.LIBRARY, skc.LIBRARY)
+    libs = (kc.LIBRARY, sc.LIBRARY, tc.LIBRARY, skc.LIBRARY, kv.LIBRARY)
     with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source, together
         list(pool.map(lambda lib: lib.load(), libs))
-    log(f"[build] knn.cu, sweep.cu, tile.cu and skip.cu built in "
+    log(f"[build] {', '.join(lib.source.name for lib in libs)} built in "
         f"{time.perf_counter() - t0:.2f} s")
     for lib in libs:
         for line in lib.build_log.splitlines():
@@ -1611,6 +1760,7 @@ def main() -> int:
             "max_abs_err": res["max_abs_err"], "ms": res["ms"],
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"], "library_ms": res["library_ms"]})
+    seq_k1_inputs = (q, qm, internal.points, internal.mask)
     # K9 serves the (1+ε) contract only if its measured excess over the
     # exact neighbour distance stays below the routing floor
     if max(k9_excess) >= MXU_EPSILON_FLOOR:
@@ -1670,23 +1820,26 @@ def main() -> int:
                 "V1_MXU": ("K10", "K11")}[route]
         return {name: n if name in used else 0 for name in launches()}
 
+    check_draws(torch, batch_mod, serve["K4"]["scans"])
     for route, cell in serve.items():
         s_seq = cell["seq"]
         clouds = [pt.PointCloud.from_numpy(x) for x in cell["scans"]]
         register_batch_to_map(s_seq, clouds, T_inits=cell["T_inits"], seed=1)
         torch.cuda.synchronize()
         reset_launch_counts()
-        t = time.perf_counter()
-        T, info = register_batch_to_map(s_seq, clouds, T_inits=cell["T_inits"],
-                                        seed=1)
-        ms = 1e3 * (time.perf_counter() - t)
+        with PrepTimer(batch_mod) as prep:
+            t = time.perf_counter()
+            T, info = register_batch_to_map(s_seq, clouds,
+                                            T_inits=cell["T_inits"], seed=1)
+            ms = 1e3 * (time.perf_counter() - t)
         counts = launches()
         it = int(info["iterations"].max())
         fracs = [round(float(f.mean()), 4)
                  for f in s_seq.matcher.survivor_fractions]
         log(f"[serve] {route} route, batch {SERVE_BATCH}: {ms:.2f} ms per batch, "
-            f"{ms / SERVE_BATCH:.2f} ms per scan, iterations "
-            f"{info['iterations'].tolist()}, codes {info['codes'].tolist()}")
+            f"{ms / SERVE_BATCH:.2f} ms per scan, prep {prep.ms:.2f} ms, "
+            f"iterations {info['iterations'].tolist()}, codes "
+            f"{info['codes'].tolist()}")
         log(f"[serve] {route} route: launches {counts}, survivor share per "
             f"iteration {fracs}")
         for i, (Ti, P) in enumerate(zip(T, cell["poses"])):
@@ -1846,6 +1999,11 @@ def main() -> int:
 
     # ---- 19. K7's ablations T4 and T5
     records += tile_ablations(torch, tc, k7_inputs)
+    del k7_inputs
+    torch.cuda.empty_cache()
+
+    # ---- 20. the 1-NN lowerings T1, T2 and T3
+    records += knn_variants(torch, kc, kv, seq_k1_inputs)
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

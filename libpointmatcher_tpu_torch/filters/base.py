@@ -6,20 +6,21 @@ Filters are functions on masked clouds. A chain applies them in order,
 compacts after each one, logs the surviving count and raises
 ``ConvergenceError`` when a filter leaves no point.
 
-Random draws come from explicit ``torch.Generator``s, one per filter of a
-chain, seeded from ``(seed, stream, position in the chain)``: the engine
-gives the reference chain stream 1 and the reading chain stream 2, as the
-JAX package folds 1 and 2 into its key. In batch serving each scan's chain
-draws from generators of its own, seeded with the scan's index as well. A
-filter that draws also takes a precomputed ``uniform`` draw, which replaces
-its own: one value in [0, 1) per row, or ``[B, rows]`` for a batch, of
-which scan i takes the first values of row i (the draw over a batch's
-stacked rows). The parity tests hand it the JAX package's draws that way.
+Random draws are JAX's (``utils/prng.py``): a chain takes one key, and
+filter i draws from ``fold_in(key, i)``, as in the JAX package
+(``filters/base.py``). The drivers form the chain keys as the JAX package
+does (``icp.py``, ``parallel/batch.py``). A batch passes
+:class:`ScanKeys`, its scans' chain keys, whose draws are formed for every
+scan in one pass. A filter with no key draws from ``PRNGKey(0)``. A filter
+that draws also takes a precomputed ``uniform`` draw, which replaces its
+own: one value in [0, 1) per row, or ``[B, rows]`` for a batch, of which
+scan i takes the first values of row i (the draw over a batch's stacked
+rows). Tests pin a draw that way.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -28,20 +29,54 @@ from ..cloud import PointCloud
 from ..errors import ConvergenceError
 from ..loggers import log_info
 from ..registry import Parametrizable, Registrar
+from ..utils import prng
 
 __all__ = ["DataPointsFilter", "DataPointsFilterRegistrar",
-           "apply_filter_chain", "chain_generator"]
+           "apply_filter_chain", "ScanKeys"]
 
 DataPointsFilterRegistrar = Registrar("DataPointsFilter")
 
 
-def chain_generator(seed: int, stream: int, index: int, device,
-                    scan: Optional[int] = None) -> torch.Generator:
-    """The generator of the ``index``-th filter of chain ``stream`` (of
-    scan ``scan`` of a batch)."""
-    entropy = [seed, stream, index] + ([] if scan is None else [scan])
-    state = np.random.SeedSequence(entropy).generate_state(1)
-    return torch.Generator(device=device).manual_seed(int(state[0]))
+class ScanKeys:
+    """The chain keys of a batch's scans, one per scan, in scan order.
+
+    ``fold_in(i)`` gives the keys of every scan's i-th filter (kept, so
+    each scan's chain reaches the same object). ``uniform(scan, n)`` is
+    scan ``scan``'s draw of n values: the first time, the draws of every
+    scan are formed together over ``rows`` counters on ``device``, one pass
+    of a few hundred small operations for the whole batch. Threefry draws
+    are prefix-stable, so a scan of n ≤ ``rows`` rows takes the first n
+    values of its row."""
+
+    def __init__(self, keys: Sequence[prng.Key], rows: int, device):
+        self.keys = list(keys)
+        self.rows = int(rows)
+        self.device = device
+        self._children: Dict[int, "ScanKeys"] = {}
+        self._draws: Optional[torch.Tensor] = None
+
+    def fold_in(self, data: int) -> "ScanKeys":
+        if data not in self._children:
+            self._children[data] = ScanKeys(
+                [prng.fold_in(k, data) for k in self.keys], self.rows,
+                self.device)
+        return self._children[data]
+
+    def draws(self) -> torch.Tensor:
+        """Every scan's draw → float32 ``[B, rows]``."""
+        if self._draws is None:
+            k0, k1 = (torch.tensor([k[j] for k in self.keys], dtype=torch.int64)
+                      for j in (0, 1))
+            self._draws = prng.uniform((k0, k1), self.rows, self.device)
+        return self._draws
+
+    def uniform(self, scan: int, n: int) -> torch.Tensor:
+        if n > self.rows:
+            self.rows, self._draws = n, None
+        return self.draws()[scan, :n]
+
+
+ChainKey = Union[prng.Key, ScanKeys]
 
 
 class DataPointsFilter(Parametrizable):
@@ -57,17 +92,16 @@ class DataPointsFilter(Parametrizable):
         #: optional precomputed draw, one value per row of the next input
         self.uniform: Optional[torch.Tensor] = None
 
-    def filter(self, cloud: PointCloud,
-               generator: Optional[torch.Generator] = None,
+    def filter(self, cloud: PointCloud, key: Optional[ChainKey] = None,
                scan: Optional[int] = None) -> PointCloud:
         raise NotImplementedError
 
-    def draw_uniform(self, cloud: PointCloud,
-                     generator: Optional[torch.Generator],
+    def draw_uniform(self, cloud: PointCloud, key: Optional[ChainKey],
                      scan: Optional[int] = None) -> torch.Tensor:
         """One value in [0, 1) per row: the precomputed ``uniform`` if set
-        (row ``scan`` of a ``[B, rows]`` one), else a draw from
-        ``generator`` (seed 0 when none is given)."""
+        (row ``scan`` of a ``[B, rows]`` one), else JAX's draw from ``key``
+        (scan ``scan``'s of a :class:`ScanKeys`; ``PRNGKey(0)`` when no key
+        is given, as in the JAX filters)."""
         n = cloud.num_points
         if self.uniform is not None:
             u = self.uniform
@@ -80,17 +114,19 @@ class DataPointsFilter(Parametrizable):
                 raise ValueError(f"{type(self).__name__}.uniform has shape "
                                  f"{tuple(u.shape)}, the cloud has {n} rows")
             return u
-        if generator is None:
-            generator = torch.Generator(device=cloud.device).manual_seed(0)
-        return torch.rand(n, generator=generator, device=cloud.device)
+        if isinstance(key, ScanKeys):
+            return key.uniform(scan, n)
+        return prng.uniform(prng.prng_key(0) if key is None else key, n,
+                            cloud.device)
 
 
 def apply_filter_chain(filters: Sequence[DataPointsFilter], cloud: PointCloud,
-                       seed: int = 0, stream: int = 0,
+                       key: Optional[ChainKey] = None,
                        scan: Optional[int] = None,
                        allow_empty: bool = False,
                        compact: bool = True) -> PointCloud:
-    """Apply ``filters`` in order, compacting after each unless
+    """Apply ``filters`` in order, filter i drawing from ``fold_in(key,
+    i)`` (scan ``scan``'s of :class:`ScanKeys`), compacting after each unless
     ``compact`` is False (the tile route keeps the raw rows, which its
     assignment addresses). A filter that leaves no point raises
     ``ConvergenceError``, unless ``allow_empty``: in serving, the emptied
@@ -98,8 +134,12 @@ def apply_filter_chain(filters: Sequence[DataPointsFilter], cloud: PointCloud,
     in the JAX package's serving functions."""
     before = None
     for i, f in enumerate(filters):
-        gen = chain_generator(seed, stream, i, cloud.device, scan)
-        cloud = f.filter(cloud, generator=gen, scan=scan)
+        sub = None
+        if isinstance(key, ScanKeys):
+            sub = key.fold_in(i)
+        elif key is not None:
+            sub = prng.fold_in(key, i)
+        cloud = f.filter(cloud, key=sub, scan=scan)
         if compact:
             cloud = cloud.compact()
         after = cloud.count_host()

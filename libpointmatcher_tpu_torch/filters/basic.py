@@ -21,5 +21,5 @@ class RandomSamplingDataPointsFilter(DataPointsFilter):
               "factor", float, 0.75, min=0.0, max=1.0),
     )
 
-    def filter(self, cloud, generator=None, scan=None):
-        return cloud.with_mask(self.draw_uniform(cloud, generator, scan) < self.prob)
+    def filter(self, cloud, key=None, scan=None):
+        return cloud.with_mask(self.draw_uniform(cloud, key, scan) < self.prob)

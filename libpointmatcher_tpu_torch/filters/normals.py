@@ -93,7 +93,7 @@ class SurfaceNormalDataPointsFilter(DataPointsFilter):
               bool, False),
     )
 
-    def filter(self, cloud, generator=None, scan=None):
+    def filter(self, cloud, key=None, scan=None):
         d = cloud.dim
         pts, mask = cloud.points, cloud.mask
         if cloud.count_host() >= knn_self.CULL_MIN_POINTS:
@@ -208,7 +208,7 @@ class SamplingSurfaceNormalDataPointsFilter(DataPointsFilter):
         Param("keepEigenVectors", "add eigen vectors to the output", bool, False),
     )
 
-    def filter(self, cloud, generator=None, scan=None):
+    def filter(self, cloud, key=None, scan=None):
         pts_h, mask_h = cloud.host_rows()
         valid = np.flatnonzero(mask_h)
         box_ids = median_split_boxes(np.asarray(pts_h, np.float64)[valid],
@@ -240,7 +240,7 @@ class SamplingSurfaceNormalDataPointsFilter(DataPointsFilter):
         unfit = degenerate | (box_dim > self.maxBoxDim)
 
         if self.samplingMethod == 0:
-            keep = self.draw_uniform(cloud, generator, scan) < self.ratio
+            keep = self.draw_uniform(cloud, key, scan) < self.ratio
             new_pts = pts
             desc_src = dict(cloud.descriptors)
         else:

@@ -38,15 +38,21 @@ from .loggers import log_info, log_warning
 from .minimizers import MinimizerStats
 from .outlierfilters import compute_outlier_weights
 from .transformations import RigidTransformation
-from .utils import se3
+from .utils import prng, se3
 
 __all__ = ["ICP", "ICPSequence", "ICPChainBase", "CODE_NO_INLIERS"]
 
 CODE_NO_INLIERS = 4
 
-#: chain streams of the per-filter generators (filters/base.py)
+#: what the engine folds into ``PRNGKey(seed)`` for the reference chain's
+#: key and the reading chain's, as the JAX engine does (its icp.py)
 REFERENCE_STREAM = 1
 READING_STREAM = 2
+
+
+def chain_key(seed: int, stream: int) -> prng.Key:
+    """The chain key ``fold_in(PRNGKey(seed), stream)``."""
+    return prng.fold_in(prng.prng_key(seed), stream)
 
 
 class ICPChainBase:
@@ -185,8 +191,8 @@ class ICP(ICPChainBase):
                 "clouds must share the same dimensionality")
         T_init = self._as_pose(T_init, reading.dim)
         reference = apply_filter_chain(self.reference_filters,
-                                       reference.to(self.device), seed,
-                                       REFERENCE_STREAM)
+                                       reference.to(self.device),
+                                       chain_key(seed, REFERENCE_STREAM))
         reference, T_refIn_refMean = _center_cloud(reference)
         self.matcher.init(reference)
         self.prefiltered_reference_pts_count = reference.count_host()
@@ -201,8 +207,8 @@ class ICP(ICPChainBase):
         t0 = time.perf_counter()
         T_refMean_dataIn = se3.inverse(T_refIn_refMean) @ T_init
         reading = apply_filter_chain(self.reading_filters,
-                                     reading_in.to(self.device), seed,
-                                     READING_STREAM)
+                                     reading_in.to(self.device),
+                                     chain_key(seed, READING_STREAM))
         self.prefiltered_reading_pts_count = reading.count_host()
         reading = _apply_transform(self.transformations, reading, T_refMean_dataIn)
 
@@ -518,7 +524,7 @@ class ICPSequence(ICP):
         (reference: ICP.cpp:463-508)."""
         self._require_modules()
         cloud = apply_filter_chain(self.reference_filters, cloud.to(self.device),
-                                   seed, REFERENCE_STREAM)
+                                   chain_key(seed, REFERENCE_STREAM))
         cloud, T = _center_cloud(cloud)
         self._install_map(cloud, T)
         return True

@@ -5,7 +5,8 @@ ICP, ``register_batch``.
 The map of an ``ICPSequence`` is filtered, centred and given its matcher
 tables once (``set_map``, then the first serving batch). Each batch of
 scans then runs one lockstep loop against it (``ICP._run_loop``): every
-scan's reading chain draws from its own generators, its filtered rows are
+scan's reading chain draws from its own key, ``fold_in(PRNGKey(seed), i)``
+for scan i as in the JAX serving drivers, its filtered rows are
 stacked into one ``[B, rows, d]`` cloud, and every kernel launch of an
 iteration serves all B scans, which share the map. Three routes, picked
 per map by the matcher (``KDTreeMatcher.serving_loop_aux``, or a
@@ -41,13 +42,12 @@ import numpy as np
 import torch
 
 from ..cloud import PointCloud
-from ..filters.base import apply_filter_chain
-from ..icp import (READING_STREAM, REFERENCE_STREAM, _apply_transform,
-                   _center_cloud)
+from ..filters.base import ScanKeys, apply_filter_chain
+from ..icp import _apply_transform, _center_cloud
 from ..loggers import log_warning
 from ..matchers import tile_aux_to_device
 from ..ops.morton import morton_argsort_device
-from ..utils import se3
+from ..utils import prng, se3
 
 __all__ = ["register_batch", "register_batch_to_map", "PendingRegistration"]
 
@@ -133,10 +133,18 @@ def _host_orders(seq, readings: Sequence[PointCloud], T_inits) -> list:
                             device=seq.device) for i, rd in enumerate(readings)]
 
 
+def scan_keys(seed: int, count: int, rows: int, device) -> ScanKeys:
+    """The serving drivers' chain keys: scan i's reading chain draws from
+    ``fold_in(PRNGKey(seed), i)``, as in the JAX package's batch and queue
+    (no stream is folded), formed for all scans at once over ``rows``."""
+    base = prng.prng_key(seed)
+    return ScanKeys([prng.fold_in(base, i) for i in range(count)], rows, device)
+
+
 def _prep_scans(seq, readings: Sequence[PointCloud], T_rmd: torch.Tensor,
                 seed: int, compact_rows, permute: bool, host_orders=None):
-    """The serving prep of every scan: its reading chain (scan i draws from
-    its own generators), the Morton order on the survivor route, the
+    """The serving prep of every scan: its reading chain (scan i's key
+    from :func:`scan_keys`), the Morton order on the survivor route, the
     compaction cap, stacking and the pre-transform by ``T_rmd [B, d+1,
     d+1]`` → ``(batch [B, rows, d], overflow [B] bool numpy, cap)``, cap
     None when no scan is cut. With ``host_orders`` (:func:`_host_orders`),
@@ -144,11 +152,12 @@ def _prep_scans(seq, readings: Sequence[PointCloud], T_rmd: torch.Tensor,
     then compacted, which keeps that order; else the device orders the
     filtered rows."""
     dev = seq.device
-    filtered = [apply_filter_chain(seq.reading_filters, rd.to(dev), seed,
-                                   READING_STREAM, scan=i, allow_empty=True,
+    rows = max(rd.num_points for rd in readings)
+    keys = scan_keys(seed, len(readings), rows, dev)
+    filtered = [apply_filter_chain(seq.reading_filters, rd.to(dev), keys,
+                                   scan=i, allow_empty=True,
                                    compact=host_orders is None)
                 for i, rd in enumerate(readings)]
-    rows = max(rd.num_points for rd in readings)
     keep_rate = filtered[0].count_host() / max(readings[0].count_host(), 1)
     cap = _serve_compact_cap(keep_rate, rows, compact_rows)
     prepped = []
@@ -253,10 +262,11 @@ def _prep_tile_scans(seq, readings: Sequence[PointCloud], T_inits,
         _pad_tile_aux_np(pers, int(matcher.units.shape[0]) - 1), matcher.units)
     q_rows = aux.pop("q_rows").reshape(len(readings), -1)
     scans = []
+    keys = scan_keys(seed, len(readings),
+                     max(rd.num_points for rd in readings), dev)
     for i, rd in enumerate(readings):
-        c = apply_filter_chain(seq.reading_filters, rd.to(dev), seed,
-                               READING_STREAM, scan=i, allow_empty=True,
-                               compact=False)
+        c = apply_filter_chain(seq.reading_filters, rd.to(dev), keys,
+                               scan=i, allow_empty=True, compact=False)
         safe = q_rows[i].clamp(min=0)
         scans.append(PointCloud(c.points[safe], (q_rows[i] >= 0) & c.mask[safe],
                                 {k: v[safe] for k, v in c.descriptors.items()}))
@@ -357,8 +367,10 @@ def register_batch(icp, readings: Sequence[PointCloud],
     per-pair path of ``register_batch``).
 
     Per pair, as ``ICP.compute``: the reference chain and centring, the
-    reading chain and the pre-transform; pair i's filters draw from
-    generators of their own, seeded with i. Then one lockstep loop runs
+    reading chain and the pre-transform; pair i's reading chain draws from
+    ``fold_in(PRNGKey(seed), 2i)`` and its reference chain from
+    ``fold_in(PRNGKey(seed), 2i + 1)``, as in the JAX package's per-pair
+    path. Then one lockstep loop runs
     every pair, each reading against its own reference (one K1 launch per
     iteration for all pairs, with a pair axis), and each pose is composed
     back into its pair's frame. A filter that empties a cloud raises
@@ -374,14 +386,19 @@ def register_batch(icp, readings: Sequence[PointCloud],
     dev = icp.device
     dim = readings[0].dim
     T_inits = _initial_poses(T_inits, len(readings), dim, dev)
+    base = prng.prng_key(seed)
+    keys_r, keys_f = (ScanKeys([prng.fold_in(base, 2 * i + side)
+                                for i in range(len(readings))],
+                               max(c.num_points for c in clouds), dev)
+                      for side, clouds in ((0, readings), (1, references)))
     prepped_r, prepped_f, T_rm, T_rmd = [], [], [], []
     for i, (reading, reference) in enumerate(zip(readings, references)):
         reference = apply_filter_chain(icp.reference_filters, reference.to(dev),
-                                       seed, REFERENCE_STREAM, scan=i)
+                                       keys_f, scan=i)
         reference, Trm = _center_cloud(reference)
         Trd = se3.inverse(Trm) @ T_inits[i]
         reading = apply_filter_chain(icp.reading_filters, reading.to(dev),
-                                     seed, READING_STREAM, scan=i)
+                                     keys_r, scan=i)
         prepped_r.append(_apply_transform(icp.transformations, reading, Trd))
         prepped_f.append(reference)
         T_rm.append(Trm)

@@ -11,9 +11,9 @@ The loop stays driven from the host, with one read of the ``[L]`` flags
 per iteration, from which the swaps are decided.
 
 Per scan the queue gives what ``register_batch_to_map`` gives: the same
-prep (scan i draws from its own generators, as the batch's scan i does),
-and every per-scan quantity of a step is independent of the other lanes
-(the sweep tiles never mix scans). On the tile route (``BlockGridMatcher``)
+prep (scan i's chain draws from ``fold_in(PRNGKey(seed), i)``, as the
+batch's scan i does), and every per-scan quantity of a step is
+independent of the other lanes (the sweep tiles never mix scans). On the tile route (``BlockGridMatcher``)
 the pool also holds every scan's candidate tables, and a lane swap gathers
 the new scan's tables and starts its displacement bound afresh.
 

@@ -1,16 +1,19 @@
 """The port on the card: the K1, K9, K5, K2, K3, K4, K6, K7, K8, K10, K11,
-T4 and T5 kernels against their plain versions on CUDA tensors (K1 and K5
-with a pair axis too), the tile sweep against dense K1 within maxDist,
-registrations, batch and queue serving (the tile route too) and
-pair-parallel one-shot ICP on the card against the same calls on the CPU,
-and the v1 skip routes' batch against the survivor route's. Every test
+T1-T5 kernels against their plain versions on CUDA tensors (K1 and K5 with
+a pair axis too; T1 and T2 against K1 as well), the tile sweep against
+dense K1 within maxDist, JAX's threefry draws formed on the card against
+the same draws on the CPU, registrations, batch and queue serving (the
+tile route too) and pair-parallel one-shot ICP on the card against the same
+calls on the CPU, and the v1 skip routes' batch against the survivor
+route's. Every test
 needs a CUDA device and skips without one. The file imports neither JAX
 nor the JAX package, so it runs on a machine with the card alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: K1, K5, K2, K3, K4, K6, K7, K8, K10, K11, T4 and T5 equal their
-plain versions bit for bit (the same rounded operations in the same order);
+Tolerances: K1, K5, K2, K3, K4, K6, K7, K8, K10, K11 and T1-T5 equal their
+plain versions bit for bit (the same rounded operations in the same order),
+and the draws their CPU counterparts (the same integer operations);
 K9 agrees within 2^-20·(q² + r²), its expansion form's rounding bound, and
 its excess over the exact neighbour distance stays below MXU_EPSILON_FLOOR.
 """
@@ -25,6 +28,7 @@ from libpointmatcher_tpu_torch.filters.normals import SurfaceNormalDataPointsFil
 from libpointmatcher_tpu_torch.ops import (dispatch, skip, skip_cuda, sweep,
                                           tile_cuda, tilesweep)
 from libpointmatcher_tpu_torch.ops import knn_cuda as kc
+from libpointmatcher_tpu_torch.ops import knn_variants_cuda as kv
 from libpointmatcher_tpu_torch.ops import sweep_cuda as sc
 from libpointmatcher_tpu_torch.ops.knn import knn_brute_force
 from libpointmatcher_tpu_torch.ops.morton import morton_argsort
@@ -34,6 +38,7 @@ from libpointmatcher_tpu_torch.parallel import (register_batch,
                                                 register_batch_to_map,
                                                 register_queue_to_map)
 from libpointmatcher_tpu_torch.parallel.batch import _pad_tile_aux_np
+from libpointmatcher_tpu_torch.utils import prng
 
 pytestmark = pytest.mark.cuda
 
@@ -575,3 +580,48 @@ def test_v1_batch_equals_survivor_route(cuda, monkeypatch):
         np.testing.assert_array_equal(info["iterations"], infos["iterations"])
         np.testing.assert_array_equal(info["codes"], infos["codes"])
         np.testing.assert_allclose(T, Ts, atol=1e-6)
+
+
+@pytest.mark.parametrize("n,m,dim", [(3000, 5003, 3), (20480, 12459, 3),
+                                     (333, 1234, 2), (1, 1, 3), (0, 7, 3),
+                                     (7, 0, 3), (2049, 300, 3)])
+def test_t1_t2_t3_equal_plain(cuda, n, m, dim):
+    """T1 and T2 equal K1 and their plain version bit for bit, ties
+    included; T3 equals its plain version bit for bit."""
+    q, qm, r, rm = _inputs(n, m, n + m + dim, cuda)
+    q, r = q[:, :dim].contiguous(), r[:, :dim].contiguous()
+    d1, i1 = kc.knn1(q, qm, r, rm)
+    for fn in (kv.knn1_chunked, kv.knn1_transposed):
+        d, i = fn(q, qm, r, rm)
+        dp, ip = fn(q.cpu(), qm.cpu(), r.cpu(), rm.cpu())
+        torch.cuda.synchronize()
+        assert torch.equal(d, d1) and torch.equal(i, i1)
+        assert torch.equal(d.cpu(), dp) and torch.equal(i.cpu(), ip)
+    d, i = kv.knn1_mxu(q, qm, r, rm)
+    dp, ip = kv.knn1_mxu3_plain(q, qm, r, rm)
+    torch.cuda.synchronize()
+    assert torch.equal(d, dp) and torch.equal(i, ip)
+
+
+def test_variant_launch_counts(cuda):
+    q, qm, r, rm = _inputs(500, 900, 3, cuda)
+    kv.reset_launch_counts()
+    for fn in (kv.knn1_chunked, kv.knn1_transposed, kv.knn1_mxu):
+        fn(q, qm, r, rm)
+        fn(q.cpu(), qm.cpu(), r.cpu(), rm.cpu())
+        assert fn.launches == 1
+
+
+@pytest.mark.parametrize("seed,n", [(0, 1), (3, 20992), (2**33 + 7, 25000)])
+def test_draws_on_card_equal_cpu(cuda, seed, n):
+    """prng.uniform on the card, one key and eight at once, bit for bit
+    against the CPU."""
+    keys = [prng.fold_in(prng.fold_in(prng.prng_key(seed), i), 0)
+            for i in range(8)]
+    for key in keys[:2]:
+        assert torch.equal(prng.uniform(key, n, cuda).cpu(),
+                           prng.uniform(key, n, "cpu"))
+    k0, k1 = (torch.tensor([k[j] for k in keys]) for j in (0, 1))
+    u = prng.uniform((k0.to(cuda), k1.to(cuda)), n)
+    assert u.device.type == "cuda"
+    assert torch.equal(u.cpu(), prng.uniform((k0, k1), n, "cpu"))

@@ -26,10 +26,14 @@ Phases, each fatal on failure:
    of 8 scans of 25 000 points, flattened, against the scene's map of
    50 147 rows (K4) and the map of a 60 000-point scene (about 30 000
    rows, K3), cold and with a transported bound: K2's bounds and flags
-   equal, K3 and K4 equal to their plain versions and to each other, the
-   survivor route's d2 equal to K1's bit for bit and its ids equal to K1's
-   through the Morton order where the neighbour is unique, and every valid
-   query's true neighbour in a surviving chunk;
+   equal, K3 and K4 equal to their plain versions and to each other, both
+   at K2's own 256-query flags (the route's) and at their 1024-query fold,
+   and the two folds equal on every valid query; the survivor route's d2
+   equal to K1's bit for bit and its ids equal to K1's through the Morton
+   order where the neighbour is unique, and every valid query's true
+   neighbour in a surviving chunk; the survivor lists' lengths per tile
+   (mean, 99th percentile, maximum) and the pairs swept are logged at both
+   folds;
 7. batch serving: ``register_batch_to_map`` of 8 scans on the 50 147-row
    map (K2 + K4), the ~30 000-row map (K2 + K3) and the map of a
    25 000-point scene (under 16 384 rows: K1), each pose held to the
@@ -42,7 +46,10 @@ Phases, each fatal on failure:
 8. K2, K3 and K4 once more at the inputs the serving runs gave them (the
    second lockstep iteration), timed beside the plain versions and, for
    K3 and K4, a ``torch.cdist`` yardstick; K3 is also timed at K4's inputs
-   and K4 at K3's;
+   and K4 at K3's, each sweep also at the 1024-query fold and with only its
+   longest list kept; the sweeps' bound counts the pairs the route sweeps
+   (its 256-query tiles), and the pairs of the 1024-query fold and the bound
+   over them, with the list statistics, are logged beside it;
 9. K6, the top-k survivor sweep, against its plain version for k = 2, 3
    and 4 on the 8 scans of phase 6 against the ~30 000-row map, cold and
    with a transported bound: equal bit for bit, and the route's d² equal
@@ -402,17 +409,39 @@ def bound_of(ops, nbytes):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def survivor_work(torch, qp, surv4, ct, nch):
-    """Pairs the sweep must visit: per 1024-query tile, its valid queries
-    times the valid rows of its surviving chunks."""
-    valid_q = (qp[:, 3] == 0).reshape(-1, 1024).sum(dim=1).double()
-    rows = surv4[:, :nch].double() @ ct[6, :nch].double()
+def survivor_work(torch, qp, surv, ct, nch):
+    """Pairs a sweep must visit: per tile of ``surv`` (256 or 1024 queries a
+    row), its valid queries times the valid rows of its surviving chunks."""
+    tile = qp.shape[0] // surv.shape[0]
+    valid_q = (qp[:, 3] == 0).reshape(-1, tile).sum(dim=1).double()
+    rows = surv[:, :nch].double() @ ct[6, :nch].double()
     return float((valid_q * rows).sum())
+
+
+def list_stats(torch, qp, surv, ct, nch):
+    """Survivor-list lengths (chunks per tile: mean, 99th percentile and
+    maximum over the tiles that have a list; the tiles without) and the
+    pairs swept, at K2's own 256-query tiles and at the 1024-query fold."""
+    out = {}
+    for fold, flags in (("256", surv),
+                        ("1024", surv.reshape(-1, 4, surv.shape[1]).amax(dim=1))):
+        lens = flags[:, :nch].sum(dim=1).double()
+        kept = lens[lens > 0]
+        out[fold] = {
+            "tiles": int(lens.numel()), "empty": int((lens == 0).sum()),
+            "mean": float(kept.mean()) if kept.numel() else 0.0,
+            "p99": float(torch.quantile(kept, 0.99)) if kept.numel() else 0.0,
+            "max": int(lens.max()) if lens.numel() else 0,
+            "pairs": survivor_work(torch, qp, flags, ct, nch)}
+    out["pairs_256_over_1024"] = (out["256"]["pairs"] / out["1024"]["pairs"]
+                                  if out["1024"]["pairs"] else None)
+    return out
 
 
 def check_survivor_step(torch, sc, sweep, kc, qs, qm, ub_t, tab, label):
     """K2, K3 and K4 against their plain versions and K1 on one query
-    batch → (qp, surv per 1024-tile, survivor share)."""
+    batch, K3 and K4 at K2's own flags and at the 1024-query fold → the
+    route's d2."""
     rt3, ct, ref_s, refm_s, rorder, ref, refm = tab
     nch = rt3.shape[0]
     qp = sweep.query_table(qs, qm, ub_t)
@@ -426,16 +455,26 @@ def check_survivor_step(torch, sc, sweep, kc, qs, qm, ub_t, tab, label):
     if not (torch.equal(ub, ubf) and torch.equal(surv, survf)):
         raise AssertionError(f"{label}: K2 over the padding chunks differs")
     surv4 = surv.reshape(-1, 4, surv.shape[1]).amax(dim=1)
-    d3, i3 = sc.nn1_survivor_sweep(qp, rt3, surv4)
-    d4, i4 = sc.nn1_survivor_sweep_stream(qp, rt3, surv4)
-    dp, ip = sc.survivor_sweep_plain(qp, rt3, surv4)
-    torch.cuda.synchronize()
-    if not (torch.equal(d3, dp) and torch.equal(i3, ip)):
-        raise AssertionError(f"{label}: K3 differs from its plain version")
-    if not (torch.equal(d4, d3) and torch.equal(i4, i3)):
-        raise AssertionError(f"{label}: K4 differs from K3")
-    # the true neighbour's chunk survives for every valid query
+    swept = {}
+    for fold, flags in (("256", surv), ("1024", surv4)):
+        d3, i3 = sc.nn1_survivor_sweep(qp, rt3, flags)
+        d4, i4 = sc.nn1_survivor_sweep_stream(qp, rt3, flags)
+        dp, ip = sc.survivor_sweep_plain(qp, rt3, flags)
+        torch.cuda.synchronize()
+        if not (torch.equal(d3, dp) and torch.equal(i3, ip)):
+            raise AssertionError(f"{label}: K3 differs from its plain version "
+                                 f"at {fold}-query flags")
+        if not (torch.equal(d4, d3) and torch.equal(i4, i3)):
+            raise AssertionError(f"{label}: K4 differs from K3 at {fold}-query "
+                                 f"flags")
+        swept[fold] = d3, i3
+    # valid queries (the rows the step keeps) get the same at both folds
     qv = qp[:, 3] == 0
+    if not (torch.equal(swept["256"][0][qv], swept["1024"][0][qv])
+            and torch.equal(swept["256"][1][qv], swept["1024"][1][qv])):
+        raise AssertionError(f"{label}: the sweep at 256-query flags differs "
+                             f"from the 1024-query fold")
+    # the true neighbour's chunk survives for every valid query
     d1, i1 = kc.knn1(qp[:, :3].contiguous(), qv, ref_s, refm_s)
     row = torch.arange(qp.shape[0], device=qp.device)
     kept = surv[row // 256, i1.clamp(min=0).long() // 128] == 1
@@ -455,7 +494,8 @@ def check_survivor_step(torch, sc, sweep, kc, qs, qm, ub_t, tab, label):
         raise AssertionError(f"{label}: survivor-route ids differ from K1's")
     log(f"[survivor] {label}: {qp.shape[0]} query rows x {rt3.shape[0]} "
         f"chunks, survivor share {float(frac.mean()):.4f}, "
-        f"{int(unique.sum())} unique neighbours compared; K2/K3/K4 equal")
+        f"{int(unique.sum())} unique neighbours compared; K2/K3/K4 equal at "
+        f"both flag folds; lists {json.dumps(list_stats(torch, qp, surv, ct, nch))}")
     return d2
 
 
@@ -474,16 +514,23 @@ def record_survivor_kernels(torch, sc, sweep, qs, qm, ub_t, tab, names,
                             launches, label):
     """Time the named survivor kernels on one serving iteration's inputs →
     kernel records for the JSON line. Both sweeps, K3 and K4, are timed on
-    these inputs; only the named ones are recorded."""
+    these inputs at K2's own flags (the route's), each also at the
+    1024-query fold and with only the longest list kept; only the named ones
+    are recorded. The sweeps' bound counts the pairs the route sweeps, those
+    of its 256-query tiles; the bound over the pairs of the 1024-query fold
+    (the yardstick of the sweeps before they took K2's own tiles) is logged
+    beside it."""
     rt3, ct, ref_s, refm_s = tab[:4]
     nch = rt3.shape[0]
     qp = sweep.query_table(qs, qm, ub_t)
     _, surv = sc.survivors_and_bounds(qp, ct, nch=nch)
     surv4 = surv.reshape(-1, 4, surv.shape[1]).amax(dim=1)
+    stats = list_stats(torch, qp, surv, ct, nch)
     sweeps = {"K3 nn1_survivor_sweep": sc.nn1_survivor_sweep,
               "K4 nn1_survivor_sweep_stream": sc.nn1_survivor_sweep_stream}
     out = []
     for name in [n for n in names if n.startswith("K2")] + list(sweeps):
+        extra = ""
         if name.startswith("K2"):
             run = lambda: sc.survivors_and_bounds(qp, ct, nch=nch)
             plain = lambda: sc.survivors_and_bounds_plain(qp, ct, nch=nch)
@@ -495,8 +542,8 @@ def record_survivor_kernels(torch, sc, sweep, qs, qm, ub_t, tab, names,
             nbytes = 36 * n_pad + 32 * nch + 4 * (n_pad // 256) * nch_pad
         else:
             fn = sweeps[name]
-            run = lambda: fn(qp, rt3, surv4)
-            plain = lambda: sc.survivor_sweep_plain(qp, rt3, surv4)
+            run = lambda: fn(qp, rt3, surv)
+            plain = lambda: sc.survivor_sweep_plain(qp, rt3, surv)
             # no one PyTorch call takes the batch: cdist's CUDA grid refuses
             # 8 x 20480 x 50147 outputs (batched or not). The yardstick is
             # one cdist call per scan, reported beside the record.
@@ -504,9 +551,22 @@ def record_survivor_kernels(torch, sc, sweep, qs, qm, ub_t, tab, names,
             lib = lambda: [torch.cdist(
                 q, rv, compute_mode="donot_use_mm_for_euclid_dist").min(dim=1)
                 for q in qs]
-            ops = KERNELS[name][1] * survivor_work(torch, qp, surv4, ct, nch)
+            ops = KERNELS[name][1] * stats["256"]["pairs"]
             nbytes = (40 * qp.shape[0] + 4096 * nch
-                      + 4 * surv4.shape[0] * surv4.shape[1])
+                      + 4 * surv.shape[0] * surv.shape[1])
+            b1024, _ = bound_of(KERNELS[name][1] * stats["1024"]["pairs"],
+                                nbytes)
+            ms_fold = cuda_ms(torch, lambda: fn(qp, rt3, surv4), 20)
+            longest = torch.zeros_like(surv)
+            top = int(surv[:, :nch].sum(dim=1).argmax())
+            longest[top] = surv[top]
+            ms_longest = cuda_ms(torch, lambda: fn(qp, rt3, longest), 20)
+            extra = (f", {stats['256']['pairs']:.6g} pairs at the 256-query "
+                     f"tiles against {stats['1024']['pairs']:.6g} at the "
+                     f"1024-query fold (bound over those {b1024:.5f} ms); at "
+                     f"the fold {ms_fold:.4f} ms; the longest list "
+                     f"({int(surv[top, :nch].sum())} chunks) alone "
+                     f"{ms_longest:.4f} ms")
         d, i = run()
         dp, ip = plain()
         torch.cuda.synchronize()
@@ -515,7 +575,7 @@ def record_survivor_kernels(torch, sc, sweep, qs, qm, ub_t, tab, names,
         ms = cuda_ms(torch, run, 20)
         if name not in names:
             log(f"[kernel] {name} at the {label} route's inputs ({qp.shape[0]} "
-                f"query rows x {nch} chunks): {ms:.4f} ms")
+                f"query rows x {nch} chunks): {ms:.4f} ms{extra}")
             continue
         fin = torch.isfinite(dp)
         err = float((d[fin] - dp[fin]).abs().max()) if bool(fin.any()) else 0.0
@@ -532,8 +592,9 @@ def record_survivor_kernels(torch, sc, sweep, qs, qm, ub_t, tab, names,
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bms, "bound_by": by, "library_ms": None}
         log(f"[kernel] main path {name} {qp.shape[0]} query rows x {nch} "
-            f"chunks{yard}: " + json.dumps(rec))
+            f"chunks{yard}{extra}: " + json.dumps(rec))
         out.append(rec)
+    log(f"[kernel] {label} route's recorded inputs: lists {json.dumps(stats)}")
     return out
 
 

@@ -12,8 +12,10 @@ K6        knn_sweep2.py::nnk_survivor_sweep            :func:`nnk_survivor_sweep
 The kernels are CUDA C++ in ``csrc/sweep.cu`` (see its header for the
 design and for what bounds them), built at first use by :mod:`.cuda_build`.
 The tables are those of :mod:`.sweep`: ``qp [n_pad, 8]``, ``ct [8,
-nch_pad]``, ``rt3 [nch, 8, 128]``, ``surv [tiles, nch_pad]`` int32.
-K6 returns ``[n_pad, k]`` for k = 2..4.
+nch_pad]``, ``rt3 [nch, 8, 128]``, ``surv [tiles, nch_pad]`` int32: K2
+writes one row per 256 queries, K3 and K4 take those rows or their OR per
+1024 queries (:func:`flag_tile`), K6 the OR. K6 returns ``[n_pad, k]`` for
+k = 2..4.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises. There is no fallback between the two. Each
@@ -34,12 +36,16 @@ __all__ = ["survivors_and_bounds", "nn1_survivor_sweep",
            "nn1_survivor_sweep_stream", "nnk_survivor_sweep",
            "survivors_and_bounds_plain", "survivor_sweep_plain",
            "nnk_survivor_sweep_plain", "build", "LIBRARY", "BOUND_TILE",
-           "SWEEP_TILE", "SWEEPK_MAX", "reset_launch_counts"]
+           "SWEEP_TILE", "SWEEPK_MAX", "flag_tile",
+           "reset_launch_counts"]
 
 #: queries per K2 tile (one flag row each)
 BOUND_TILE = 256
-#: queries per K3/K4 tile
+#: queries per K6 tile, and per flag row of the TPU's fold (four bound
+#: tiles), which K3/K4 also take
 SWEEP_TILE = 1024
+#: segments each K3/K4 survivor list is cut into (partials merged in order)
+SWEEP_SEGMENTS = 8
 #: most chunks a sweep's survivor list may hold (its shared memory)
 MAX_CHUNKS = 8192
 #: largest k of the top-k sweep K6
@@ -54,14 +60,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.pm_survivors_bounds.argtypes = [p, i, p, i, i, i, p, p, p]
     lib.pm_survivors_bounds.restype = i
-    lib.pm_survivor_sweep.argtypes = [p, i, p, i, p, i, i, p, p, p]
+    lib.pm_survivor_sweep.argtypes = [p, i, p, i, p, i, i, p, p, p, p, p]
     lib.pm_survivor_sweep.restype = i
     lib.pm_survivor_sweep_k.argtypes = [p, i, p, i, p, i, i, p, p, p]
     lib.pm_survivor_sweep_k.restype = i
-    lib.pm_bound_tile.restype = i
-    lib.pm_sweep_tile.restype = i
-    if (lib.pm_bound_tile(), lib.pm_sweep_tile()) != (BOUND_TILE, SWEEP_TILE):
-        raise RuntimeError("csrc/sweep.cu tiles differ from ops/sweep_cuda.py")
+    for fn in ("pm_bound_tile", "pm_sweep_tile", "pm_sweep_segments"):
+        getattr(lib, fn).restype = i
+    if ((lib.pm_bound_tile(), lib.pm_sweep_tile(), lib.pm_sweep_segments())
+            != (BOUND_TILE, SWEEP_TILE, SWEEP_SEGMENTS)):
+        raise RuntimeError("csrc/sweep.cu tiles or segments differ from "
+                           "ops/sweep_cuda.py")
 
 
 LIBRARY = KernelLibrary("sweep.cu", _declare)
@@ -187,11 +195,26 @@ def survivors_and_bounds(qp, ct, k: int = 1, nch=None):
 
 
 # ------------------------------------------------------------------ K3 / K4
+def flag_tile(qp, surv) -> int:
+    """Queries per row of ``surv``: ``BOUND_TILE`` (K2's own flags) or
+    ``SWEEP_TILE`` (their OR over four bound tiles, the TPU's fold), read
+    from its row count; any other shape raises."""
+    n_pad = qp.shape[0]
+    rows = surv.shape[0] if surv.ndim == 2 else -1
+    for tile in (BOUND_TILE, SWEEP_TILE):
+        if n_pad % tile == 0 and rows == n_pad // tile:
+            return tile
+    raise ValueError(f"surv must have n_pad/{BOUND_TILE} or n_pad/{SWEEP_TILE} "
+                     f"rows (n_pad {n_pad}), got {tuple(surv.shape)}")
+
+
 def survivor_sweep_plain(qp, rt3, surv):
-    """Plain version of K3 and K4: per 1024-query tile, the exact 1-NN over
-    the rows of its surviving chunks (those of index < nch), swept in
-    increasing index with d² = ((pen + dx²) + dy²) + dz², the lowest index
-    winning a tie; (+inf, 0) where the minimum stays +inf."""
+    """Plain version of K3 and K4: per tile of ``flag_tile(qp, surv)``
+    queries, the exact 1-NN over the rows of its surviving chunks (those of
+    index < nch), swept in increasing index with d² = ((pen + dx²) + dy²) +
+    dz², the lowest index winning a tie; (+inf, 0) where the minimum stays
+    +inf."""
+    tile = flag_tile(qp, surv)
     n_pad = qp.shape[0]
     nch = rt3.shape[0]
     out_d = torch.full((n_pad,), float("inf"), dtype=torch.float32,
@@ -199,24 +222,23 @@ def survivor_sweep_plain(qp, rt3, surv):
     out_i = torch.zeros(n_pad, dtype=torch.int32, device=qp.device)
     rows = rt3[:, :4, :].transpose(1, 2)                    # [nch, 128, 4]
     lane = torch.arange(128, device=qp.device)
-    for t in range(n_pad // SWEEP_TILE):
+    for t in range(n_pad // tile):
         lst = torch.nonzero(surv[t, :nch]).flatten()
         if lst.numel() == 0:
             continue
         r = rows[lst].reshape(-1, 4)
-        q = qp[t * SWEEP_TILE:(t + 1) * SWEEP_TILE, :3]
-        d2 = _tile_d2(q, r[:, :3], r[:, 3])
+        sl = slice(t * tile, (t + 1) * tile)
+        d2 = _tile_d2(qp[sl, :3], r[:, :3], r[:, 3])
         best = torch.argmin(d2, dim=1)
         bd = torch.gather(d2, 1, best[:, None])[:, 0]
         ids = (lst[:, None] * 128 + lane[None, :]).reshape(-1)[best]
-        sl = slice(t * SWEEP_TILE, (t + 1) * SWEEP_TILE)
         out_d[sl] = bd
         out_i[sl] = torch.where(torch.isfinite(bd), ids,
                                 torch.zeros_like(ids)).to(torch.int32)
     return out_d, out_i
 
 
-def _launch_sweep(qp, rt3, surv, stream_map: bool):
+def _launch_sweep(qp, rt3, surv, name):
     lib = build()
     qp = qp.contiguous()
     rt3 = rt3.contiguous()
@@ -224,36 +246,43 @@ def _launch_sweep(qp, rt3, surv, stream_map: bool):
     if rt3.data_ptr() % 16:
         raise ValueError("rt3 must be 16-byte aligned")
     n_pad = qp.shape[0]
+    part_d = torch.empty((SWEEP_SEGMENTS, n_pad), dtype=torch.float32,
+                         device=qp.device)
+    part_i = torch.empty((SWEEP_SEGMENTS, n_pad), dtype=torch.int32,
+                         device=qp.device)
     out_d = torch.empty(n_pad, dtype=torch.float32, device=qp.device)
     out_i = torch.empty(n_pad, dtype=torch.int32, device=qp.device)
     stream = torch.cuda.current_stream(qp.device).cuda_stream
     err = lib.pm_survivor_sweep(qp.data_ptr(), n_pad, rt3.data_ptr(),
-                                rt3.shape[0], surv.data_ptr(), surv.shape[1],
-                                int(stream_map), out_d.data_ptr(),
+                                rt3.shape[0], surv.data_ptr(), surv.shape[0],
+                                surv.shape[1], part_d.data_ptr(),
+                                part_i.data_ptr(), out_d.data_ptr(),
                                 out_i.data_ptr(), stream)
-    LIBRARY.check(err, "K4 survivor sweep (stream)" if stream_map
-                  else "K3 survivor sweep")
+    LIBRARY.check(err, name)
     return out_d, out_i
 
 
 def nn1_survivor_sweep(qp, rt3, surv):
-    """K3: exact 1-NN over each 1024-query tile's surviving chunks →
-    ``(d2 [n_pad], id [n_pad])``, ids into the sorted map."""
-    _check_tables(qp, rt3=rt3, surv=surv, tile=SWEEP_TILE)
+    """K3: exact 1-NN of each query over its tile's surviving chunks →
+    ``(d2 [n_pad], id [n_pad])``, ids into the sorted map. ``surv`` holds
+    K2's flags, one row per 256 queries, or their OR per 1024
+    (:func:`flag_tile`); ``rt3``'s penalty row holds 0 or +inf."""
+    _check_tables(qp, rt3=rt3, surv=surv, tile=flag_tile(qp, surv))
     if qp.device.type == "cpu":
         return survivor_sweep_plain(qp, rt3, surv)
-    out = _launch_sweep(qp, rt3, surv, stream_map=False)
+    out = _launch_sweep(qp, rt3, surv, "K3 survivor sweep")
     nn1_survivor_sweep.launches += 1
     return out
 
 
 def nn1_survivor_sweep_stream(qp, rt3, surv):
-    """K4: K3 with each surviving chunk fetched asynchronously into a
-    two-stage ring while the previous one is swept; the same result."""
-    _check_tables(qp, rt3=rt3, surv=surv, tile=SWEEP_TILE)
+    """K4: the sweep of a streaming map (above ``sweep.SKIP_MAX_MPAD``
+    rows). On the card both maps read through L2, so it launches K3's
+    schedule (``csrc/sweep.cu``), counted apart; the same result."""
+    _check_tables(qp, rt3=rt3, surv=surv, tile=flag_tile(qp, surv))
     if qp.device.type == "cpu":
         return survivor_sweep_plain(qp, rt3, surv)
-    out = _launch_sweep(qp, rt3, surv, stream_map=True)
+    out = _launch_sweep(qp, rt3, surv, "K4 survivor sweep (stream)")
     nn1_survivor_sweep_stream.launches += 1
     return out
 

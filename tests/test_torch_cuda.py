@@ -178,18 +178,92 @@ def test_k2_k3_k4_equal_plain(cuda, k):
         torch.cuda.synchronize()
         assert torch.equal(ub, ubp) and torch.equal(surv, survp)
         assert torch.equal(ubc, ub) and torch.equal(survc, surv)
-        surv = surv.reshape(-1, 4, surv.shape[1]).amax(dim=1)
-        d3, i3 = sc.nn1_survivor_sweep(qp, rt3, surv)
-        d4, i4 = sc.nn1_survivor_sweep_stream(qp, rt3, surv)
-        dp, ip = sc.survivor_sweep_plain(qp, rt3, surv)
-        torch.cuda.synchronize()
-        assert torch.equal(d3, dp) and torch.equal(i3, ip)
-        assert torch.equal(d4, d3) and torch.equal(i4, i3)
+        _sweeps_equal_plain(qp, rt3, survc)
         d2, ids, _ = sweep.nn1_sorted_v2(qs, qm, ub_t, rt3, ct)
         d1, i1 = kc.knn1(qs.reshape(-1, 3), qm.reshape(-1), rs, rsm)
         assert torch.equal(d2.reshape(-1), d1)
         assert torch.equal(ids.reshape(-1), i1)
         d_prev = torch.where(torch.isfinite(d2), d2, torch.zeros_like(d2))
+
+
+def _sweeps_equal_plain(qp, rt3, surv, across=True):
+    """K3 and K4 at K2's 256-query flags and at their 1024-query fold: each
+    equal to the plain version bit for bit, K3 to K4, and (``across``: the
+    flags are K2's, not edited) the two folds to each other on the valid
+    queries."""
+    out = {}
+    for flags in (surv, surv.reshape(-1, 4, surv.shape[1]).amax(dim=1)):
+        d3, i3 = sc.nn1_survivor_sweep(qp, rt3, flags)
+        d4, i4 = sc.nn1_survivor_sweep_stream(qp, rt3, flags)
+        dp, ip = sc.survivor_sweep_plain(qp, rt3, flags)
+        torch.cuda.synchronize()
+        assert torch.equal(d3, dp) and torch.equal(i3, ip)
+        assert torch.equal(d4, d3) and torch.equal(i4, i3)
+        out[flags.shape[0]] = d3, i3
+    (da, ia), (db, ib) = out.values()
+    valid = qp[:, 3] == 0
+    if across:
+        assert torch.equal(da[valid], db[valid])
+        assert torch.equal(ia[valid], ib[valid])
+    return out[surv.shape[0]]
+
+
+@pytest.mark.parametrize("case", ["no_survivor", "whole_map", "near_max_chunks",
+                                  "duplicated_rows", "all_masked_lane"])
+def test_k3_k4_schedule_cases(cuda, case):
+    """The new schedule's edges: a tile with no survivor gives (+inf, 0); a
+    cold tile whose list is the whole map; a map of nearly MAX_CHUNKS chunks;
+    duplicated map rows (ties: the lowest index); a queue's idle lane, all
+    masked, whose tiles keep no chunk."""
+    rng = np.random.default_rng(30)
+    if case == "near_max_chunks":
+        m = (sc.MAX_CHUNKS - 3) * 128 - 17
+        rs = rng.uniform(-8, 8, (m, 3)).astype(np.float32)
+        rsm = np.ones(m, bool)
+        rsm[::13] = False
+        qs = torch.as_tensor(rng.uniform(-8, 8, (1, 2048, 3)).astype(np.float32),
+                             device=cuda)
+        qm = torch.ones((1, 2048), dtype=torch.bool, device=cuda)
+        rt3 = torch.as_tensor(sweep.chunked_ref_table(rs, rsm), device=cuda)
+        qp = sweep.query_table(qs, qm, torch.full(qm.shape, float("inf"),
+                                                  device=cuda))
+        surv = (torch.rand((8, 128 * -(-rt3.shape[0] // 128)), device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(3))
+                < 0.03).to(torch.int32)
+        surv[:, rt3.shape[0]:] = 0
+        d, i = _sweeps_equal_plain(qp, rt3, surv, across=False)
+        assert bool(torch.isfinite(d).all())
+        return
+    qs, qm, rs, rsm, rt3, ct = _survivor_inputs(31, 3000, 5000, cuda)
+    if case == "duplicated_rows":
+        r = rs.cpu().numpy()
+        r[1::2] = r[::2][: len(r[1::2])]
+        rs = torch.as_tensor(r, device=cuda)
+        rt3 = torch.as_tensor(sweep.chunked_ref_table(r, rsm.cpu().numpy()),
+                              device=cuda)
+        ct = torch.as_tensor(sweep.chunk_summaries(r, rsm.cpu().numpy()),
+                             device=cuda)
+    if case == "all_masked_lane":
+        qm[1] = False
+    qp = sweep.query_table(qs, qm, torch.full(qm.shape, float("inf"), device=cuda))
+    _, surv = sc.survivors_and_bounds(qp, ct, nch=rt3.shape[0])
+    if case == "no_survivor":
+        surv[[0, 5]] = 0
+    if case == "whole_map":
+        surv[[1, 2], :rt3.shape[0]] = 1
+    d, i = _sweeps_equal_plain(qp, rt3, surv, across=case != "no_survivor")
+    empty = (surv.sum(dim=1) == 0).repeat_interleave(256)
+    assert bool(torch.isinf(d[empty]).all()) and not bool(i[empty].any())
+    if case == "no_survivor":
+        assert bool(empty[:256].all())
+    if case == "all_masked_lane":
+        lane = qp.shape[0] // 2
+        assert bool(empty[lane:].all())
+    if case in ("duplicated_rows", "all_masked_lane"):
+        d2, ids, _ = sweep.nn1_sorted_v2(qs, qm, torch.full(qm.shape, float("inf"),
+                                                            device=cuda), rt3, ct)
+        d1, i1 = kc.knn1(qs.reshape(-1, 3), qm.reshape(-1), rs, rsm)
+        assert torch.equal(d2.reshape(-1), d1) and torch.equal(ids.reshape(-1), i1)
 
 
 def _room(rng, n):

@@ -8,7 +8,8 @@ Phases, each fatal on failure:
    compute capability 9.0 is required;
 2. build: every kernel source of ``libpointmatcher_tpu_torch/csrc``
    (knn.cu, sweep.cu, tile.cu, skip.cu, knn_variants.cu), one nvcc each,
-   all started together; ptxas's register and spill report;
+   all started together; ptxas's register and spill report, and no spill
+   in knn.cu (K1, K9 and every K5 list length);
 3. dense kernels: K1, K9 and K5 against their plain torch versions on the
    card, at the serving shapes 20480 x 12459 and 25000 x 100000, timed with
    CUDA events beside the plain version and a ``torch.cdist`` yardstick;
@@ -147,6 +148,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1705,6 +1707,11 @@ def main() -> int:
         for line in lib.build_log.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"[build] {lib.source.name}: {line.strip()}")
+    # the dense kernels keep their lists and staging in registers
+    spills = [ln.strip() for ln in kc.LIBRARY.build_log.splitlines()
+              if any(int(x) for x in re.findall(r"(\d+) bytes spill", ln))]
+    if spills:
+        raise AssertionError(f"knn.cu spills: {spills}")
 
     # ---- scene
     rng = np.random.default_rng(0)

@@ -33,6 +33,17 @@ __all__ = ["knn1", "knn1_mxu", "knnk", "knn1_mxu_plain", "build", "LIBRARY",
 
 #: largest k served by the K5 kernel (as ``knn_pallas.KNNK_MAX``)
 KNNK_MAX = 32
+#: K5's list lengths, one kernel instance each
+KNNK_LISTS = tuple(range(2, KNNK_MAX + 1))
+#: chunk granularity (reference rows), mirrored from csrc/knn.cu
+TILE_ROWS = 1024
+#: K1's and K5's rows per group, mirrored from csrc/knn.cu
+GROUP_ROWS = 8
+#: the split rule's aim, blocks per SM over queries × chunks, per kernel
+#: (K9 and T1 keep their first rule's 4). K1 at 16 against 4 on an H100
+#: (tools_torch/dense_micro.py): the dense batch 0.697 against 0.754 ms,
+#: the pair axis 0.369 against 0.412, the sequence 0.361 against 0.357.
+BLOCKS_PER_SM = {"knn1": 16, "knnk": 4}
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -41,8 +52,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pm_knn1.restype = i
     lib.pm_knnk.argtypes = [p, p, i, p, p, i, i, i, i, i, i, i, p, p, p, p, p]
     lib.pm_knnk.restype = i
-    lib.pm_tile_rows.argtypes = []
-    lib.pm_tile_rows.restype = i
+    lib.pm_block_queries.argtypes = [i]
+    for fn in ("pm_tile_rows", "pm_group_rows", "pm_block_queries"):
+        getattr(lib, fn).restype = i
+    if ((lib.pm_tile_rows(), lib.pm_group_rows()) != (TILE_ROWS, GROUP_ROWS)
+            or any(lib.pm_block_queries(kk) != block_queries(kk)
+                   for kk in (0, *KNNK_LISTS))):
+        raise RuntimeError("csrc/knn.cu tiles, groups or blocks differ from "
+                           "ops/knn_cuda.py")
 
 
 LIBRARY = KernelLibrary("knn.cu", _declare)
@@ -80,15 +97,30 @@ def _check_inputs(query, query_mask, ref, ref_mask):
     return query.shape[0] if pairs else 0
 
 
-def _split(lib, n: int, m: int, device, pairs: int = 1) -> tuple:
-    """Reference chunks over gridDim.y: enough blocks for ~4 per SM."""
-    tile = lib.pm_tile_rows()
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    qblocks = max(1, -(-n // 256)) * max(pairs, 1)
-    splits = max(1, min(-(-4 * sms // qblocks), -(-m // tile)))
-    chunk = tile * -(-max(m, 1) // (tile * splits))
+def knnk_list(k: int) -> int:
+    """K5's register list length for ``k``: k itself, at least 2."""
+    return max(2, k)
+
+
+def block_queries(kk: int = 0) -> int:
+    """Queries a block takes: K1 and K9 (``kk`` 0) 256, K5 128."""
+    return 128 if kk else 256
+
+
+def _split(n: int, m: int, sms: int, pairs: int = 1, kk: int = 0,
+           aim: int = 4) -> tuple:
+    """Reference chunks over gridDim.y → ``(splits, chunk)``: enough blocks
+    for ~``aim`` per SM, each chunk a whole number of ``TILE_ROWS``,
+    ``splits * chunk >= m``."""
+    qblocks = max(1, -(-n // block_queries(kk))) * max(pairs, 1)
+    splits = max(1, min(-(-aim * sms // qblocks), -(-m // TILE_ROWS)))
+    chunk = TILE_ROWS * -(-max(m, 1) // (TILE_ROWS * splits))
     splits = max(1, -(-m // chunk))
     return splits, chunk
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _launch_knn1(query, query_mask, ref, ref_mask, mxu: bool, pairs: int):
@@ -100,7 +132,8 @@ def _launch_knn1(query, query_mask, ref, ref_mask, mxu: bool, pairs: int):
     b = max(pairs, 1)
     n, dim = q.shape[-2:]
     m = r.shape[-2]
-    splits, chunk = _split(lib, n, m, q.device, b)
+    splits, chunk = _split(n, m, _sms(q.device), b,
+                           aim=4 if mxu else BLOCKS_PER_SM["knn1"])
     part_d = torch.empty((b, splits, n), dtype=torch.float32, device=q.device)
     part_i = torch.empty((b, splits, n), dtype=torch.int32, device=q.device)
     out_d = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
@@ -192,8 +225,8 @@ def knnk(query, query_mask, ref, ref_mask, k: int):
     b = max(pairs, 1)
     n, dim = q.shape[-2:]
     m = r.shape[-2]
-    kk = max(2, 1 << (k - 1).bit_length())
-    splits, chunk = _split(lib, n, m, q.device, b)
+    kk = knnk_list(k)
+    splits, chunk = _split(n, m, _sms(q.device), b, kk, BLOCKS_PER_SM["knnk"])
     part_d = torch.empty((b, splits, n, kk), dtype=torch.float32, device=q.device)
     part_i = torch.empty((b, splits, n, kk), dtype=torch.int32, device=q.device)
     out_d = torch.empty((*q.shape[:-1], k), dtype=torch.float32, device=q.device)

@@ -36,7 +36,7 @@ import torch
 
 from .cuda_build import KernelLibrary
 from .knn import knn_brute_force
-from .knn_cuda import _check_inputs, _split
+from .knn_cuda import _check_inputs, _sms, _split
 
 __all__ = ["knn1_chunked", "knn1_transposed", "knn1_mxu", "knn1_mxu3_plain",
            "build", "LIBRARY", "reset_launch_counts"]
@@ -86,7 +86,7 @@ def _launch(name, query, query_mask, ref, ref_mask):
     head = (q.data_ptr(), qm.data_ptr(), n, r.data_ptr(), rm.data_ptr(), m, dim)
     tail = (out_d.data_ptr(), out_i.data_ptr(), stream)
     if name == "chunked":
-        splits, chunk = _split(lib, n, m, q.device)
+        splits, chunk = _split(n, m, _sms(q.device))
         part_d = torch.empty((splits, n), dtype=torch.float32, device=q.device)
         part_i = torch.empty((splits, n), dtype=torch.int32, device=q.device)
         err = lib.pm_nn1_chunked(*head, splits, chunk, part_d.data_ptr(),

@@ -1,6 +1,7 @@
 """The port on the card: the K1, K9, K5, K2, K3, K4, K6, K7, K8, K10, K11,
 T1-T5 kernels against their plain versions on CUDA tensors (K1 and K5 with
-a pair axis too; T1 and T2 against K1 as well), the tile sweep against
+a pair axis, masked query tails and short references too, K5 at every k;
+T1 and T2 against K1 as well), the tile sweep against
 dense K1 within maxDist, JAX's threefry draws formed on the card against
 the same draws on the CPU, registrations, batch and queue serving (the
 tile route too) and pair-parallel one-shot ICP on the card against the same
@@ -75,6 +76,67 @@ def test_k1_k5_equal_plain(cuda, n, m, k):
         d, i = kc.knnk(q, qm, r, rm, k)
     dp, ip = knn_brute_force(q, qm, r, rm, k=k)
     torch.cuda.synchronize()
+    assert torch.equal(d, dp) and torch.equal(i, ip)
+
+
+@pytest.mark.parametrize("k", range(2, kc.KNNK_MAX + 1))
+def test_k5_every_k_equals_plain(cuda, k):
+    """Every K5 list length (k slots up to 16, 32 above) on one shape with
+    duplicated rows: ties across groups and chunks."""
+    q, qm, r, rm = _inputs(2500, 5003, 7, cuda)
+    d, i = kc.knnk(q, qm, r, rm, k)
+    dp, ip = knn_brute_force(q, qm, r, rm, k=k)
+    torch.cuda.synchronize()
+    assert torch.equal(d, dp) and torch.equal(i, ip)
+
+
+def _knn(q, qm, r, rm, k):
+    if k == 1:
+        return tuple(x[..., None] for x in kc.knn1(q, qm, r, rm))
+    return kc.knnk(q, qm, r, rm, k)
+
+
+@pytest.mark.parametrize("n", [255, 257, 511])
+@pytest.mark.parametrize("k", [1, 5, 17])
+def test_masked_query_tails(cuda, n, k):
+    """Queries masked from row 100 on, as the dense batch pads each scan:
+    whole warps and blocks of masked queries skip their sweep and still
+    give (+inf, -1)."""
+    q, qm, r, rm = _inputs(n, 3001, n + k, cuda)
+    qm[100:] = False
+    d, i = _knn(q, qm, r, rm, k)
+    dp, ip = knn_brute_force(q, qm, r, rm, k=k)
+    torch.cuda.synchronize()
+    assert torch.equal(d, dp) and torch.equal(i, ip)
+    assert bool(torch.isinf(d[100:]).all()) and bool((i[100:] == -1).all())
+
+
+@pytest.mark.parametrize("m", [1, 3, 4, 5, 7, 9])
+def test_short_references(cuda, m):
+    """References shorter than a group (8 rows) or a float4, or one row
+    past a group: the padded rows never win."""
+    q, qm, r, rm = _inputs(300, m, m, cuda)
+    for k in (1, 2, 5, 17):
+        d, i = _knn(q, qm, r, rm, k)
+        dp, ip = knn_brute_force(q, qm, r, rm, k=k)
+        torch.cuda.synchronize()
+        assert torch.equal(d, dp) and torch.equal(i, ip)
+
+
+@pytest.mark.parametrize("k", [1, 5, 17])
+def test_pair_axis_masked_tails(cuda, k):
+    """Three pairs whose queries are masked from different rows on: one
+    launch equals the single launches and the plain version."""
+    pairs = [_inputs(700, 2001, 60 + b, cuda) for b in range(3)]
+    for b, p in enumerate(pairs):
+        p[1][200 + 200 * b:] = False
+    q, qm, r, rm = (torch.stack(x) for x in zip(*pairs))
+    d, i = _knn(q, qm, r, rm, k)
+    single = [_knn(*p, k) for p in pairs]
+    dp, ip = knn_brute_force(q, qm, r, rm, k=k)
+    torch.cuda.synchronize()
+    assert torch.equal(d, torch.stack([a for a, _ in single]))
+    assert torch.equal(i, torch.stack([b for _, b in single]))
     assert torch.equal(d, dp) and torch.equal(i, ip)
 
 

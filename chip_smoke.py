@@ -9,7 +9,8 @@ Phases, each fatal on failure:
 2. build: every kernel source of ``libpointmatcher_tpu_torch/csrc``
    (knn.cu, sweep.cu, tile.cu, skip.cu, knn_variants.cu), one nvcc each,
    all started together; ptxas's register and spill report, and no spill
-   in knn.cu (K1, K9 and every K5 list length);
+   in knn.cu (K1, K9 and every K5 list length) nor in tile.cu (K7, every
+   K8 list length, T4, T5);
 3. dense kernels: K1, K9 and K5 against their plain torch versions on the
    card, at the serving shapes 20480 x 12459 and 25000 x 100000, timed with
    CUDA events beside the plain version and a ``torch.cdist`` yardstick;
@@ -85,22 +86,28 @@ Phases, each fatal on failure:
    / ``BlockGridMatcher(maxDist=0.5, motionBound=1.0, tileQueries=64,
    blockCap=1024)`` / ``TrimmedDist(0.85)`` / ``PointToPlane`` /
    ``Counter(40)`` + ``Differential``. ``set_map`` runs SurfaceNormal
-   through the culled self-search: one K8 launch (k = 10), its inputs
-   recorded and K8 held to its plain version there bit for bit, and the
-   whole search held to dense K5 (d² equal, ids where unique);
+   through the culled self-search: one K8 launch (k = 10, the parent form:
+   every parent tile over its virtual tiles, merged, the radius applied in
+   the kernel), its call recorded and K8 held to its plain version there
+   bit for bit, and the whole search held to dense K5 (d² equal, ids where
+   unique);
 14. ``register_batch_to_map`` of the 8 scans on that map: every pose under
    the gates, no motion-bound flag, K7 launches equal to the lockstep
    iterations and no other k-NN launch; the second lockstep iteration's K7
-   call is recorded and held to its plain version bit for bit, and the
-   step's result, ``maxDist`` applied, to dense K1 wherever K1's neighbour
-   lies within ``maxDist`` (equal d², equal ids where unique, +inf beyond);
+   call (the parent form) is recorded and held to its plain version bit for
+   bit, and the step's result, ``maxDist`` applied, to dense K1 wherever
+   K1's neighbour lies within ``maxDist`` (equal d², equal ids where
+   unique, +inf beyond);
 15. ``register_queue_to_map`` of 24 scans (the 8, three times) through 8
    lanes on that map: every pose under the gates, no motion-bound flag, K7
    launches equal to the lane iterations, the first 8 scans' iterations and
    codes equal to the batch's;
 16. one batch of the 8 scans against a 4·10^5-point terrain map, under the
-   same gates and launch rule. K7 and K8 are timed at their recorded inputs
-   beside their plain versions and a batched ``torch.cdist`` yardstick;
+   same gates and launch rule. K7 and K8 are timed at their recorded calls
+   beside their plain versions and a batched ``torch.cdist`` yardstick over
+   the same virtual tiles, their bound and issue floor from the recorded
+   work (tools_torch/tile_micro.py's ``stats``: live queries, live and real
+   candidate columns, virtual tiles per parent), which is logged;
 17. the v1 skip route's kernels K10 and K11 on the 8 scans of phase 6
    against the ~30 000-row map, cold and with a transported bound: K10 and
    K11 equal to their plain versions bit for bit, the v1 step (with the
@@ -125,10 +132,11 @@ Phases, each fatal on failure:
    in fp32 (TF32 off) for K10, ``torch.cdist`` + ``min`` against the sorted
    map for K11;
 19. K7's ablations T4 and T5 (tools_torch/tile_kernel_micro.py) at phase
-   14's recorded K7 inputs, and through the tool itself at its shape (2048
-   tiles × 256 queries × 4096 candidates), its launches counted from 0: both
-   equal their plain version and K7's d² bit for bit; timed there beside K7
-   and a batched ``torch.cdist`` + ``amin`` yardstick;
+   14's recorded K7 call, its queries gathered per virtual tile (the
+   per-tile form), and through the tool itself at its shape (2048 tiles ×
+   256 queries × 4096 candidates), its launches counted from 0: both equal
+   their plain version and K7's per-tile d² bit for bit; timed there beside
+   K7's per-tile form and a batched ``torch.cdist`` + ``amin`` yardstick;
 20. the 1-NN lowerings T1, T2 and T3 (tools_torch/knn_micro.py) at the
    tool's shape (20 480 x 12 459, uniform in [-10, 10]^3, the last 7% of
    the queries masked) and at phase 5's recorded K1 inputs: each equal to
@@ -929,21 +937,38 @@ def terrain_sequence(pt):
     return seq
 
 
-def record_tile_kernel(torch, tc, name, q, cand_t, dim, k, qvalid, launches):
-    """K7 (``k`` None) or K8 at recorded main-path inputs against its plain
-    version, timed beside it and a batched ``torch.cdist`` yardstick over
-    the same tiles → its kernel record. ``qvalid`` holds each tile's valid
-    queries. The bound counts what the function needs: its operations on
-    the valid (query, candidate) pairs, and its bytes, each valid query's
-    ``dim`` coordinates, the ``dim`` + 2 rows (coordinates, pen, id) of
-    each valid candidate column of a tile that has a valid query, and the
-    valid queries' outputs (a distance and an id each)."""
-    if k is None:
-        run = lambda: tc.tile_sweep(q, cand_t, dim)
-        plain = lambda: tc.tile_sweep_plain(q, cand_t, dim)
+def vtile_inputs(torch, tc, args):
+    """A recorded parent-form step's per-tile inputs: its queries gathered
+    per virtual tile ``[Bf·Tv, TQ, 8]`` (every query of the parent, masked
+    or not) and the tables ``[Bf·Tv, 8, M]`` → (q, cand_t, dim), what K7's
+    per-tile form, T4, T5 and the ``cdist`` yardstick take."""
+    pts, qmask, q_rows, cand_t, ncols, vrows = args
+    bf, tp, tq, tv, _, m = tc._parent_shape(*args)
+    q, _ = tc._queries(pts, q_rows, tp)
+    q = tc._by_parent(q, tc._parents_of(vrows, bf, tv))
+    return q.reshape(bf * tv, tq, tc.DPAD), cand_t.reshape(bf * tv, tc.DPAD, m), \
+        pts.shape[-1]
+
+
+def record_tile_kernel(torch, tc, name, call, k, launches):
+    """K7 (``k`` 0) or K8 in the parent form at a recorded main-path call
+    ``(points, qmask, q_rows, cand_t, ncols, vrows, max_dist[, k])``
+    against its plain version, timed beside it and a batched
+    ``torch.cdist`` yardstick over the same virtual tiles → its kernel
+    record. The bound and the issue floor count what the function needs
+    (tools_torch/tile_micro.py ``stats`` and ``bounds``): its operations on
+    the valid (live query, real candidate) pairs of each parent, and its
+    bytes, each live query's coordinates and outputs and the dim + 2 rows of
+    each live column of a parent with a live query."""
+    from tools_torch import tile_micro as tm
+
+    args, max_dist = call[:6], call[6]
+    if k == 0:
+        run = lambda: tc.tile_sweep_parents(*args, max_dist)
+        plain = lambda: tc.tile_sweep_parents_plain(*args, max_dist)
     else:
-        run = lambda: tc.tile_sweep_k(q, cand_t, dim, k)
-        plain = lambda: tc.tile_sweep_k_plain(q, cand_t, dim, k)
+        run = lambda: tc.tile_sweep_k_parents(*args, max_dist, k)
+        plain = lambda: tc.tile_sweep_k_parents_plain(*args, max_dist, k)
     d, i = run()
     dp, ip = plain()
     torch.cuda.synchronize()
@@ -951,14 +976,16 @@ def record_tile_kernel(torch, tc, name, q, cand_t, dim, k, qvalid, launches):
         raise AssertionError(f"{name}: kernel and plain version differ")
     ms = cuda_ms(torch, run, 20)
     plain_ms = cuda_ms(torch, plain, 2)
+    q, cand_t, dim = vtile_inputs(torch, tc, args)
     pen = cand_t[:, 6]
     qq = q[..., :dim].contiguous()
     cc = cand_t[:, :dim].transpose(1, 2).contiguous()
+    del q
 
     def lib():
         dist = torch.cdist(qq, cc, compute_mode="donot_use_mm_for_euclid_dist")
         d2 = dist * dist + pen[:, None, :]
-        return d2.min(dim=2) if k is None else d2.topk(k, dim=2, largest=False)
+        return d2.min(dim=2) if k == 0 else d2.topk(k, dim=2, largest=False)
 
     torch.cuda.empty_cache()
     try:
@@ -966,24 +993,20 @@ def record_tile_kernel(torch, tc, name, q, cand_t, dim, k, qvalid, launches):
     except RuntimeError as e:          # a batch cdist's grid may refuse it
         log(f"[kernel] {name}: batched cdist refused: {e}")
         library_ms = None
+    del qq, cc, pen
     torch.cuda.empty_cache()
-    ncand = (pen == 0).sum(dim=1).double()
-    pairs = float((qvalid.double() * ncand).sum())
-    nq = float(qvalid.sum())
-    ncols = float((ncand * (qvalid > 0)).sum())
-    nbytes = 4 * dim * nq + 4 * (dim + 2) * ncols + 8 * (k or 1) * nq
-    bms, by = bound_of(KERNELS[name][1] * pairs, nbytes)
+    st = tm.stats({"kernel": name[:2], "k": k, "args": args})
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    b = tm.bounds(st, sms, tm._sm_clock_hz())
     fin = torch.isfinite(dp)
     rec = {"name": name, "route": "cuda",
            "source": "libpointmatcher_tpu_torch/csrc/tile.cu",
            "replaces": KERNELS[name][0], "launches": launches,
            "max_abs_err": float((d[fin] - dp[fin]).abs().max()) if bool(fin.any()) else 0.0,
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-           "library_ms": library_ms}
-    log(f"[kernel] main path {name}{'' if k is None else f' k={k}'} "
-        f"{q.shape[0]} tiles x {q.shape[1]} queries x {cand_t.shape[2]} "
-        f"candidates, {pairs:.0f} valid pairs, {nq:.0f} valid queries, "
-        f"{ncols:.0f} valid candidate columns, {nbytes:.0f} bytes: "
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
+           "bound_by": b["bound_by"], "library_ms": library_ms}
+    log(f"[kernel] main path {name}{'' if k == 0 else f' k={k}'}: "
+        f"{json.dumps(st)}, issue floor {b['issue_floor_ms']:.4f} ms: "
         + json.dumps(rec))
     return rec
 
@@ -1013,8 +1036,7 @@ def check_tile_step(torch, kc, call, ref, label):
 
 
 def tile_serving(torch, pt, kc, sc, tc, launches):
-    """Phases 13-16 → (the K7 and K8 kernel records, K7's recorded inputs
-    ``(q, cand_t, dim, valid queries per tile)``)."""
+    """Phases 13-16 → (the K7 and K8 kernel records, K7's recorded call)."""
     from contextlib import ExitStack
 
     from libpointmatcher_tpu_torch import matchers
@@ -1051,7 +1073,8 @@ def tile_serving(torch, pt, kc, sc, tc, launches):
         main = n_map == TERRAIN_MAPS[0]
         # ---- 13. set_map: SurfaceNormal through the culled self-search (K8)
         with ExitStack() as stack:
-            rk = stack.enter_context(InputRecorder(tilesweep, "tile_sweep_k", keep=1))
+            rk = stack.enter_context(InputRecorder(tilesweep, "tile_sweep_k_parents",
+                                                   keep=1))
             rs = stack.enter_context(InputRecorder(knn_self,
                                                    "tile_knnk_from_candidates",
                                                    keep=1))
@@ -1068,7 +1091,7 @@ def tile_serving(torch, pt, kc, sc, tc, launches):
                                  f"{counts['K7']} K7 launches, expected 1 and 0")
         internal = seq.get_prefiltered_internal_map()
         if main:
-            pts_c, mask_c, q_rows, _, _, parent = rs.calls[0][:6]
+            pts_c, mask_c = rs.calls[0][:2]
             k = rs.calls[0][7]
             dk, ik = knn_self.knn_self_culled(pts_c, mask_c, k)
             de, ie = kc.knnk(pts_c, mask_c, pts_c, mask_c, k)
@@ -1080,15 +1103,14 @@ def tile_serving(torch, pt, kc, sc, tc, launches):
                 raise AssertionError("the culled self-search differs from dense K5")
             log(f"[tile] culled self-search of {int(mask_c.sum())} points, "
                 f"k={k}: equal to dense K5 ({int(unique.sum())} unique neighbours)")
-            live = (q_rows >= 0) & mask_c[q_rows.clamp(min=0).long()]
-            qvalid = live.sum(dim=1)[parent.long()]
             k8_launches = counts["K8"]
-            k8_inputs = rk.calls[0], qvalid
+            k8_call = rk.calls[0]
         del rk, rs
         # ---- 14. / 16. the batch of 8 scans
         register_batch_to_map(seq, clouds, seed=1)      # warm-up
         with ExitStack() as stack:
-            r7 = stack.enter_context(InputRecorder(tilesweep, "tile_sweep", keep=2))
+            r7 = stack.enter_context(InputRecorder(tilesweep, "tile_sweep_parents",
+                                                   keep=2))
             rstep = stack.enter_context(InputRecorder(
                 matchers, "tile_nn1_from_candidates", keep=2))
             reset()
@@ -1110,10 +1132,7 @@ def tile_serving(torch, pt, kc, sc, tc, launches):
         if main:
             check_tile_step(torch, kc, rstep.calls[1], internal,
                             "tile batch, second lockstep iteration")
-            q7, cand7, dim7 = r7.calls[1][:3]
-            qmask7, parent7 = rstep.calls[1][1], rstep.calls[1][5]
-            qvalid7 = qmask7.reshape(*parent7.shape[:-1], -1, q7.shape[1]).sum(dim=-1)
-            qvalid7 = torch.gather(qvalid7, -1, parent7.long()).reshape(-1)
+            k7_call = r7.calls[1]
             k7_launches = counts["K7"]
             batch_info = info
         del r7, rstep
@@ -1158,12 +1177,11 @@ def tile_serving(torch, pt, kc, sc, tc, launches):
         del seq, internal, clouds
         torch.cuda.empty_cache()
     # ---- the kernels at their recorded inputs, for the record
-    records.append(record_tile_kernel(torch, tc, "K7 tile_sweep", q7, cand7, dim7,
-                                      None, qvalid7, k7_launches))
-    (q8, cand8, dim8, k8), qvalid8 = k8_inputs[0][:4], k8_inputs[1]
-    records.append(record_tile_kernel(torch, tc, "K8 tile_sweep_k", q8, cand8,
-                                      dim8, k8, qvalid8, k8_launches))
-    return records, (q7, cand7, dim7, qvalid7)
+    records.append(record_tile_kernel(torch, tc, "K7 tile_sweep", k7_call, 0,
+                                      k7_launches))
+    records.append(record_tile_kernel(torch, tc, "K8 tile_sweep_k", k8_call,
+                                      k8_call[7], k8_launches))
+    return records, k7_call
 
 
 # ------------------------------------------------------------ slice 5
@@ -1509,11 +1527,11 @@ def record_min_kernel(torch, tc, name, fn, q, cand_t, dim, launches):
     return rec
 
 
-def tile_ablations(torch, tc, k7_inputs):
+def tile_ablations(torch, tc, k7_call):
     """Phase 19 → the T4 and T5 kernel records (at the tool's shape)."""
     from tools_torch import tile_kernel_micro as tkm
 
-    q7, cand7, dim7, _ = k7_inputs
+    q7, cand7, dim7 = vtile_inputs(torch, tc, k7_call[:6])
     d7, _ = tc.tile_sweep(q7, cand7, dim7)
     times = {"K7": cuda_ms(torch, lambda: tc.tile_sweep(q7, cand7, dim7), 20)}
     for name, fn in (("T4", tc.tile_min_only), ("T5", tc.tile_min_one)):
@@ -1707,11 +1725,12 @@ def main() -> int:
         for line in lib.build_log.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"[build] {lib.source.name}: {line.strip()}")
-    # the dense kernels keep their lists and staging in registers
-    spills = [ln.strip() for ln in kc.LIBRARY.build_log.splitlines()
-              if any(int(x) for x in re.findall(r"(\d+) bytes spill", ln))]
-    if spills:
-        raise AssertionError(f"knn.cu spills: {spills}")
+    # the dense and tile kernels keep their lists and staging in registers
+    for lib in (kc.LIBRARY, tc.LIBRARY):
+        spills = [ln.strip() for ln in lib.build_log.splitlines()
+                  if any(int(x) for x in re.findall(r"(\d+) bytes spill", ln))]
+        if spills:
+            raise AssertionError(f"{lib.source.name} spills: {spills}")
 
     # ---- scene
     rng = np.random.default_rng(0)
@@ -2055,7 +2074,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 13.-16. large-map tile-sweep serving
-    tile_records, k7_inputs = tile_serving(torch, pt, kc, sc, tc, launches)
+    tile_records, k7_call = tile_serving(torch, pt, kc, sc, tc, launches)
     records += tile_records
     torch.cuda.empty_cache()
 
@@ -2066,8 +2085,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 19. K7's ablations T4 and T5
-    records += tile_ablations(torch, tc, k7_inputs)
-    del k7_inputs
+    records += tile_ablations(torch, tc, k7_call)
+    del k7_call
     torch.cuda.empty_cache()
 
     # ---- 20. the 1-NN lowerings T1, T2 and T3

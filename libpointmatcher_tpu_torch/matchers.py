@@ -37,7 +37,7 @@ from .ops import skip, skip_cuda, sweep, sweep_cuda
 from .ops.dispatch import MXU_EPSILON_FLOOR, apply_max_dist, knn_search
 from .ops.morton import morton_argsort, morton_argsort_batch
 from .ops.tilesweep import (assign_tiles, build_sub_blocks, gather_candidates,
-                            tile_knnk_from_candidates,
+                            live_columns, tile_knnk_from_candidates,
                             tile_nn1_from_candidates)
 from .registry import Param, Parametrizable, Registrar
 
@@ -303,19 +303,20 @@ class KDTreeMatcher(Matcher):
 
 def tile_aux_to_device(per_scan: dict, units: torch.Tensor) -> dict:
     """A tile assignment in host form (numpy ``q_rows``, ``blocks``,
-    ``parent``, ``vrows``, of one scan or stacked ``[B, ...]``) → the
-    tables :meth:`BlockGridMatcher.find_closests_in` takes, on the device
-    of ``units``: the candidate tables gathered once from the map's
-    sub-block units, and the index arrays. ``q_rows`` is kept only if
-    given (the serving drivers consume it by putting each scan in tile
-    order)."""
+    ``parent``, ``vrows``, ``ncols``, of one scan or stacked ``[B, ...]``)
+    → the tables :meth:`BlockGridMatcher.find_closests_in` takes, on the
+    device of ``units``: the candidate tables gathered once from the map's
+    sub-block units, each parent's virtual tiles ``vrows`` and their live
+    columns ``ncols`` (int32; ``parent`` stays on the host: the kernels
+    read ``vrows``). ``q_rows`` is kept only if given (the serving drivers
+    consume it by putting each scan in tile order)."""
     dev = units.device
-    t = lambda a: torch.as_tensor(a, device=dev).long()
-    cand_t = gather_candidates(units, t(per_scan["blocks"]))
-    aux = {"cand_t": cand_t, "parent": t(per_scan["parent"]),
-           "vrows": t(per_scan["vrows"])}
+    t = lambda a, dt: torch.as_tensor(a, device=dev).to(dt)
+    aux = {"cand_t": gather_candidates(units, t(per_scan["blocks"], torch.long)),
+           "vrows": t(per_scan["vrows"], torch.int32),
+           "ncols": t(per_scan["ncols"], torch.int32)}
     if "q_rows" in per_scan:
-        aux["q_rows"] = t(per_scan["q_rows"])
+        aux["q_rows"] = t(per_scan["q_rows"], torch.long)
     return aux
 
 
@@ -384,14 +385,16 @@ class BlockGridMatcher(Matcher):
     def prepare_loop_host(self, pts, mask, pad_tiles_to: int = 0,
                           pad_blocks_to: int = 0) -> dict:
         """The tile assignment of host rows ``pts`` [N, d] in host form
-        (numpy ``q_rows``, ``blocks``, ``parent``, ``vrows``): the serving
-        drivers build one per scan, stack them and make one copy."""
+        (numpy ``q_rows``, ``blocks``, ``parent``, ``vrows`` and each
+        virtual tile's live columns ``ncols``): the serving drivers build
+        one per scan, stack them and make one copy."""
         ta = assign_tiles(pts, mask, self._blocks, tile_q=int(self.tileQueries),
                           pad_tiles_to=pad_tiles_to,
                           pad_blocks_to=pad_blocks_to,
                           block_cap=int(self.blockCap))
         return {"q_rows": ta.q_rows, "blocks": ta.blocks,
-                "parent": ta.parent, "vrows": ta.vrows}
+                "parent": ta.parent, "vrows": ta.vrows,
+                "ncols": live_columns(ta.blocks, len(self._blocks.units) - 1)}
 
     def find_closests_in(self, reading, reference, aux=None) -> Matches:
         """Through the tile sweep with ``aux`` (:meth:`prepare_loop`'s, or
@@ -403,10 +406,10 @@ class BlockGridMatcher(Matcher):
             if self.knn > 1:
                 return Matches(*tile_knnk_from_candidates(
                     reading.points, reading.mask, q_rows, aux["cand_t"],
-                    float(self.maxDist), aux["parent"], aux["vrows"],
-                    int(self.knn)))
+                    float(self.maxDist), None, aux["vrows"], int(self.knn),
+                    aux["ncols"]))
             d1, i1 = tile_nn1_from_candidates(
                 reading.points, reading.mask, q_rows, aux["cand_t"],
-                float(self.maxDist), aux["parent"], aux["vrows"])
+                float(self.maxDist), None, aux["vrows"], aux["ncols"])
             return Matches(d1[..., None], i1[..., None])
         return _dense_matches(reading, reference, self.knn, 0.0, self.maxDist)

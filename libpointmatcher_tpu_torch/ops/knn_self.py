@@ -24,8 +24,8 @@ import torch
 
 from .dispatch import apply_max_dist, knn_search, radius2
 from .tilesweep import (TILE_KNN_MAX, assign_tiles, build_sub_blocks,
-                        gather_candidates, tile_knnk_from_candidates,
-                        tile_nn1_from_candidates)
+                        gather_candidates, live_columns,
+                        tile_knnk_from_candidates, tile_nn1_from_candidates)
 
 __all__ = ["knn_self_culled", "CULL_MIN_POINTS"]
 
@@ -61,14 +61,15 @@ def knn_self_culled(points, mask, k: int, max_dist: float = np.inf):
     dev = points.device
     t = lambda a: torch.as_tensor(a, device=dev)
     cand_t = gather_candidates(t(sub.units), t(ta.blocks))
+    ncols = t(live_columns(ta.blocks, len(sub.units) - 1))
     if k == 1:
         d1, i1 = tile_nn1_from_candidates(points, mask, t(ta.q_rows), cand_t,
-                                          sweep_r, t(ta.parent), t(ta.vrows))
+                                          sweep_r, None, t(ta.vrows), ncols)
         dk, ik = d1[:, None], i1[:, None]
     else:
         dk, ik = tile_knnk_from_candidates(points, mask, t(ta.q_rows), cand_t,
-                                           sweep_r, t(ta.parent),
-                                           t(ta.vrows), k)
+                                           sweep_r, None, t(ta.vrows), k,
+                                           ncols)
     if max_dist <= edge:
         return dk, ik                  # the sweep covered the whole radius
 

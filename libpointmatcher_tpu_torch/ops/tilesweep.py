@@ -15,15 +15,17 @@ port imports nothing of that package:
    their cells and grouped into tiles of TQ; each tile's candidates are the
    units of the 3^d cells around its queries' cells. A tile whose union
    exceeds ``block_cap`` rows is split into virtual tiles that share its
-   queries and are min-merged afterwards.
+   queries (the JAX package's bound on TPU VMEM); the card's kernels sweep
+   a parent's virtual tiles in one block and merge them there.
 
 On the device, :func:`gather_candidates` builds the loop-static candidate
-tables ``cand_t [T, 8, M]`` with one torch index, and each iteration makes
-one K7 (1-NN) or K8 (top-k) launch (:mod:`.tile_cuda`) over every tile of
-every scan, then merges the virtual tiles and applies ``maxDist``. Exact
-within ``maxDist`` as long as no query moves farther than the cell edge
-minus ``maxDist`` from where it was assigned (the matcher's
-``motionBound``).
+tables ``cand_t [T, 8, M]`` with one torch index, :func:`live_columns`
+gives each table's live prefix, and each iteration makes one K7 (1-NN) or
+K8 (top-k) launch (:mod:`.tile_cuda`, the parent form) over every parent
+tile of every scan, which merges the parent's virtual tiles and applies
+``maxDist`` and the mask in the kernel. Exact within ``maxDist`` as long
+as no query moves farther than the cell edge minus ``maxDist`` from where
+it was assigned (the matcher's ``motionBound``).
 """
 
 from __future__ import annotations
@@ -34,14 +36,14 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from .dispatch import apply_max_dist
-from .tile_cuda import (CID_ROW, DPAD, PEN_ROW, TILE_KNN_MAX, tile_sweep,
-                        tile_sweep_k)
+from .tile_cuda import (CID_ROW, DPAD, PEN_ROW, TILE_KNN_MAX,  # noqa: F401
+                        _by_parent, _combine_min, _merge_rows, _merge_sorted_k,
+                        tile_sweep_k_parents, tile_sweep_parents)
 
 __all__ = ["SubBlocks", "TileAssign", "build_sub_blocks", "assign_tiles",
-           "gather_candidates", "tile_nn1", "tile_nn1_from_candidates",
-           "tile_knnk_from_candidates", "bucket_size", "TILE_KNN_MAX",
-           "SB", "GATHER_G"]
+           "gather_candidates", "live_columns", "tile_nn1",
+           "tile_nn1_from_candidates", "tile_knnk_from_candidates",
+           "bucket_size", "TILE_KNN_MAX", "SB", "GATHER_G"]
 
 SB = 8        # sub-block rows
 #: sub-blocks per gather unit: a tile's slot list is almost a run of
@@ -316,141 +318,43 @@ def gather_candidates(units: torch.Tensor, blocks: torch.Tensor):
     return cand_t
 
 
-def _queries(points, q_rows, tiles):
-    """The loop's queries as ``[Bf, Tp, TQ, 8]`` → (queries, TQ). Without
-    ``q_rows`` the reading is already in tile order (``tiles`` parent
-    tiles per scan); with it (one scan), queries are gathered by row."""
-    n, d = points.shape[-2:]
-    if q_rows is None:
-        q = points.reshape(-1, tiles, n // tiles, d)
-    else:
-        if points.ndim != 2:
-            raise ValueError("q_rows serves a single scan")
-        q = points[q_rows.clamp(min=0).long()][None]
-    q8 = torch.zeros((*q.shape[:-1], DPAD), dtype=torch.float32,
-                     device=points.device)
-    q8[..., :d] = q
-    return q8, q.shape[2]
-
-
-def _by_parent(q, parent):
-    """Queries per virtual tile: ``[Bf, Tp, TQ, 8]`` → ``[Bf, Tv, TQ, 8]``."""
-    bf = q.shape[0]
-    par = parent.reshape(bf, -1).long()
-    return q[torch.arange(bf, device=q.device)[:, None], par]
-
-
-def _merge_rows(bd, bi, vrows, combine):
-    """Merge each parent's virtual tiles: ``bd``/``bi`` [Bf, Tv, ...] →
-    [Bf, Tp, ...], row j of ``vrows`` read at step j."""
-    bf = bd.shape[0]
-    vr = vrows.reshape(bf, -1, vrows.shape[-1]).long()
-    at = torch.arange(bf, device=bd.device)[:, None]
-    md, mi = bd[at, vr[:, 0]], bi[at, vr[:, 0]]
-    for j in range(1, vr.shape[1]):
-        md, mi = combine(md, mi, bd[at, vr[:, j]], bi[at, vr[:, j]])
-    return md, mi
-
-
-def _scatter_rows(vals, q_rows, n: int, fill):
-    """Results of the tiled queries back onto the reading's ``n`` rows
-    (query rows are unique; padding slots write to a dropped row n)."""
-    flat = q_rows.reshape(-1).long()
-    idx = torch.where(flat >= 0, flat, torch.full_like(flat, n))
-    out = torch.full((n + 1, *vals.shape[1:]), fill, dtype=vals.dtype,
-                     device=vals.device)
-    out[idx] = vals
-    return out[:n]
-
-
-def _combine_min(md, mi, dj, ij):
-    """Running (min distance, min row id on exact ties) combine."""
-    big = torch.iinfo(torch.int32).max
-    better = dj < md
-    key_m = torch.where(mi >= 0, mi, big)
-    key_j = torch.where(ij >= 0, ij, big)
-    tie_key = torch.minimum(key_m, key_j)
-    tied = torch.where(tie_key == big, -1, tie_key)
-    mi = torch.where(better, ij, torch.where(dj == md, tied, mi))
-    return torch.minimum(md, dj), mi
-
-
-def _merge_sorted_k(ad, ai, bd_, bi_):
-    """Merge two per-query sorted k-lists [..., k, TQ] → the k smallest.
-    Candidates are disjoint across virtual tiles, so nothing repeats."""
-    k = ad.shape[-2]
-    outs_d = [ad[..., s, :] for s in range(k)]
-    outs_i = [ai[..., s, :] for s in range(k)]
-    for t in range(k):
-        cd, ci = bd_[..., t, :], bi_[..., t, :]
-        for s in range(k):
-            take = cd < outs_d[s]
-            nd = torch.where(take, cd, outs_d[s])
-            ni = torch.where(take, ci, outs_i[s])
-            cd = torch.where(take, outs_d[s], cd)
-            ci = torch.where(take, outs_i[s], ci)
-            outs_d[s], outs_i[s] = nd, ni
-    return torch.stack(outs_d, dim=-2), torch.stack(outs_i, dim=-2)
+def live_columns(blocks: np.ndarray, pad_unit: int) -> np.ndarray:
+    """Each virtual tile's live prefix of its candidate table: 64 × the
+    entries of its row of ``blocks [..., Tv, B]`` that are not the all-pad
+    unit ``pad_unit`` (an assignment fills a row from the left, so they
+    come first) → int32 ``[..., Tv]``."""
+    blocks = np.asarray(blocks)
+    return (SB * GATHER_G * (blocks != pad_unit).sum(axis=-1)).astype(np.int32)
 
 
 def tile_nn1_from_candidates(points, qmask, q_rows, cand_t, max_dist: float,
-                             parent, vrows):
+                             parent, vrows, ncols=None):
     """Exact bounded-radius 1-NN through pre-gathered candidate tables →
     ``(dists2 [..., N], ids [..., N])``, (+inf, −1) beyond ``max_dist``,
     for rows absent from the assignment and for masked rows. Each parent
     tile's virtual tiles are merged by (min distance, min row id on ties).
 
     ``q_rows=None``: the reading is in tile order (the serving drivers
-    permute it once), row t·TQ + r being parent tile t's query r; the
-    query gather and the result scatter are reshapes, and ``points`` may
-    carry leading batch dimensions (``cand_t`` [..., Tv, 8, M], ``parent``
-    [..., Tv], ``vrows`` [..., K, Tp]): one K7 launch serves every scan.
-    With ``q_rows [Tp, TQ]`` (one scan), queries are gathered and results
-    scattered."""
-    lead, (n, d) = points.shape[:-2], points.shape[-2:]
-    q, tq = _queries(points, q_rows, vrows.shape[-1])
-    q = _by_parent(q, parent)
-    bf, tv = q.shape[:2]
-    bd, bi = tile_sweep(q.reshape(bf * tv, tq, DPAD),
-                        cand_t.reshape(bf * tv, DPAD, -1), d)
-    bd, bi = apply_max_dist(bd, bi, max_dist)
-    md, mi = _merge_rows(bd.reshape(bf, tv, tq), bi.reshape(bf, tv, tq),
-                         vrows, _combine_min)
-    if q_rows is None:
-        out_d, out_i = md.reshape(*lead, n), mi.reshape(*lead, n)
-    else:
-        out_d = _scatter_rows(md.reshape(-1), q_rows, n, float("inf"))
-        out_i = _scatter_rows(mi.reshape(-1), q_rows, n, -1)
-    out_d = torch.where(qmask, out_d, float("inf"))
-    out_i = torch.where(qmask, out_i, -1)
-    return out_d, out_i
+    permute it once), row t·TQ + r being parent tile t's query r, and
+    ``points`` may carry leading batch dimensions (``cand_t`` [..., Tv, 8,
+    M], ``vrows`` [..., K, Tp], ``ncols`` [..., Tv]): one K7 launch serves
+    every scan. With ``q_rows [Tp, TQ]`` (one scan), queries are read and
+    results written by row. ``ncols`` holds each table's live prefix
+    (:func:`live_columns`; None: every column). ``parent`` is the JAX
+    package's argument and is not read: the kernel reads each parent's
+    virtual tiles from ``vrows`` (it may be None)."""
+    return tile_sweep_parents(points, qmask, q_rows, cand_t, ncols, vrows,
+                              max_dist)
 
 
 def tile_knnk_from_candidates(points, qmask, q_rows, cand_t, max_dist: float,
-                              parent, vrows, k: int):
+                              parent, vrows, k: int, ncols=None):
     """Exact bounded-radius k-NN through pre-gathered candidate tables, the
-    k > 1 form of :func:`tile_nn1_from_candidates` (the parent structure is
-    required) → ``(dists2 [..., N, k], ids [..., N, k])`` ascending per
-    row, (+inf, −1) beyond the radius or missing. One K8 launch."""
-    lead, (n, d) = points.shape[:-2], points.shape[-2:]
-    q, tq = _queries(points, q_rows, vrows.shape[-1])
-    q = _by_parent(q, parent)
-    bf, tv = q.shape[:2]
-    bd, bi = tile_sweep_k(q.reshape(bf * tv, tq, DPAD),
-                          cand_t.reshape(bf * tv, DPAD, -1), d, k)
-    bd, bi = apply_max_dist(bd, bi, max_dist)
-    md, mi = _merge_rows(bd.reshape(bf, tv, k, tq), bi.reshape(bf, tv, k, tq),
-                         vrows, _merge_sorted_k)           # [Bf, Tp, k, TQ]
-    upd_d = md.transpose(-1, -2).reshape(-1, k)
-    upd_i = mi.transpose(-1, -2).reshape(-1, k)
-    if q_rows is None:
-        out_d, out_i = upd_d.reshape(*lead, n, k), upd_i.reshape(*lead, n, k)
-    else:
-        out_d = _scatter_rows(upd_d, q_rows, n, float("inf"))
-        out_i = _scatter_rows(upd_i, q_rows, n, -1)
-    out_d = torch.where(qmask[..., None], out_d, float("inf"))
-    out_i = torch.where(qmask[..., None], out_i, -1)
-    return out_d, out_i
+    k > 1 form of :func:`tile_nn1_from_candidates` → ``(dists2 [..., N, k],
+    ids [..., N, k])`` ascending per row, (+inf, −1) beyond the radius or
+    missing. One K8 launch."""
+    return tile_sweep_k_parents(points, qmask, q_rows, cand_t, ncols, vrows,
+                                max_dist, k)
 
 
 def tile_nn1(points, qmask, assign: TileAssign, units, max_dist: float):
@@ -459,6 +363,6 @@ def tile_nn1(points, qmask, assign: TileAssign, units, max_dist: float):
     on the way (the engine gathers them once per registration)."""
     t = lambda a: torch.as_tensor(a, device=units.device)
     cand_t = gather_candidates(units, t(assign.blocks))
+    ncols = live_columns(assign.blocks, units.shape[0] - 1)
     return tile_nn1_from_candidates(points, qmask, t(assign.q_rows), cand_t,
-                                    max_dist, t(assign.parent),
-                                    t(assign.vrows))
+                                    max_dist, None, t(assign.vrows), t(ncols))

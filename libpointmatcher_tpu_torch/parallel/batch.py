@@ -209,7 +209,8 @@ def _pad_tile_aux_np(pers, sentinel: int) -> dict:
     index refuses. Padded parent tiles carry −1 query rows; extra merge
     steps and padded ``vrows`` columns point at virtual tile
     ``max_tv − 1``, all-pad in every scan (``assign_tiles`` keeps at least
-    one trailing all-pad virtual tile), a no-op merge."""
+    one trailing all-pad virtual tile), a no-op merge. Padded virtual tiles
+    have no live column (``ncols`` 0)."""
     b = len(pers)
     tq = pers[0]["q_rows"].shape[1]
     max_tp = max(p["q_rows"].shape[0] for p in pers)
@@ -220,6 +221,7 @@ def _pad_tile_aux_np(pers, sentinel: int) -> dict:
     blocks = np.full((b, max_tv, max_b), sentinel, np.int32)
     parent = np.zeros((b, max_tv), np.int32)
     vrows = np.full((b, max_k, max_tp), max_tv - 1, np.int32)
+    ncols = np.zeros((b, max_tv), np.int32)
     for i, p in enumerate(pers):
         tp = p["q_rows"].shape[0]
         tv, bb = p["blocks"].shape
@@ -227,8 +229,9 @@ def _pad_tile_aux_np(pers, sentinel: int) -> dict:
         blocks[i, :tv, :bb] = p["blocks"]
         parent[i, :tv] = p["parent"]
         vrows[i, :p["vrows"].shape[0], :tp] = p["vrows"]
+        ncols[i, :tv] = p["ncols"]
     return {"q_rows": q_rows, "blocks": blocks, "parent": parent,
-            "vrows": vrows}
+            "vrows": vrows, "ncols": ncols}
 
 
 def _prep_tile_scans(seq, readings: Sequence[PointCloud], T_inits,

@@ -1,7 +1,10 @@
 """The port on the card: the K1, K9, K5, K2, K3, K4, K6, K7, K8, K10, K11,
 T1-T5 kernels against their plain versions on CUDA tensors (K1 and K5 with
 a pair axis, masked query tails and short references too, K5 at every k;
-T1 and T2 against K1 as well), the tile sweep against
+K7 and K8 in the per-tile form and in the parent form, K8 at every k, with
+several virtual tiles a parent, sentinel virtual tiles, masked warps and
+``q_rows``, one launch a step; T1 and T2 against K1 as well), the tile
+sweep against
 dense K1 within maxDist, JAX's threefry draws formed on the card against
 the same draws on the CPU, registrations, batch and queue serving (the
 tile route too) and pair-parallel one-shot ICP on the card against the same
@@ -18,6 +21,9 @@ and the draws their CPU counterparts (the same integer operations);
 K9 agrees within 2^-20·(q² + r²), its expansion form's rounding bound, and
 its excess over the exact neighbour distance stays below MXU_EPSILON_FLOOR.
 """
+
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -40,6 +46,9 @@ from libpointmatcher_tpu_torch.parallel import (register_batch,
                                                 register_queue_to_map)
 from libpointmatcher_tpu_torch.parallel.batch import _pad_tile_aux_np
 from libpointmatcher_tpu_torch.utils import prng
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools_torch"))
+import tile_micro  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -514,6 +523,78 @@ def test_k7_k8_equal_plain(cuda, T, tq, m, dim, k):
     assert torch.equal(d, dp) and torch.equal(i, ip)
 
 
+@pytest.fixture(scope="module")
+def parent_cases():
+    """The parent form's inputs of tools_torch/tile_micro.py's cases: the
+    ``q_rows`` form and the tile order (a batch of two scans, sentinel
+    virtual tiles, masked warps) at TQ 64 and 256, 2-D, and the tie case;
+    parents of up to eight virtual tiles, one without a candidate."""
+    cases = []
+    for dim, tq in ((3, 64), (3, 256), (2, 64)):
+        a, b = (tile_micro.make_case("random", dim, tq, seed=s) for s in (0, 1))
+        cases += [a["args"], tile_micro.tile_order([a, b])[0]]
+    cases.append(tile_micro.make_case("ties")["args"])
+    return cases
+
+
+@pytest.mark.parametrize("k", range(0, 33))
+def test_k7_k8_parents_equal_plain(cuda, parent_cases, k):
+    """The parent-form K7 (k 0) and K8 (k 1..32) equal their plain versions
+    bit for bit, maxDist finite and infinite, one launch a call."""
+    for args in parent_cases:
+        args = [None if x is None else x.to(cuda) for x in args]
+        for md in (float("inf"), 0.6):
+            tile_cuda.reset_launch_counts()
+            if k == 0:
+                d, i = tile_cuda.tile_sweep_parents(*args, md)
+                dp, ip = tile_cuda.tile_sweep_parents_plain(*args, md)
+            else:
+                d, i = tile_cuda.tile_sweep_k_parents(*args, md, k)
+                dp, ip = tile_cuda.tile_sweep_k_parents_plain(*args, md, k)
+            torch.cuda.synchronize()
+            assert torch.equal(d, dp) and torch.equal(i, ip)
+            assert (tile_cuda.tile_sweep.launches,
+                    tile_cuda.tile_sweep_k.launches) == ((1, 0) if k == 0 else (0, 1))
+
+
+@pytest.mark.parametrize("teams", [1, 2, 3])
+def test_k7_teams_equal_plain(cuda, parent_cases, teams, monkeypatch):
+    """K7 with each parent's virtual tiles dealt to 1-3 warps of a block
+    (the default is ``tile_cuda.TEAMS``) equals its plain version bit for
+    bit."""
+    monkeypatch.setattr(tile_cuda, "TEAMS", teams)
+    for args in parent_cases:
+        args = [None if x is None else x.to(cuda) for x in args]
+        d, i = tile_cuda.tile_sweep_parents(*args, 0.6)
+        dp, ip = tile_cuda.tile_sweep_parents_plain(*args, 0.6)
+        torch.cuda.synchronize()
+        assert torch.equal(d, dp) and torch.equal(i, ip)
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_tile_step_is_one_launch(cuda, parent_cases, k):
+    """``tile_nn1_from_candidates`` / ``tile_knnk_from_candidates`` make one
+    kernel launch, and without ``ncols`` (every column swept) give the
+    same result."""
+    pts, qm, q_rows, cand_t, ncols, vrows = (
+        None if x is None else x.to(cuda) for x in parent_cases[1])
+    tile_cuda.reset_launch_counts()
+    if k == 1:
+        out = tilesweep.tile_nn1_from_candidates(pts, qm, None, cand_t, 0.6,
+                                                 None, vrows, ncols)
+        full = tilesweep.tile_nn1_from_candidates(pts, qm, None, cand_t, 0.6,
+                                                  None, vrows)
+        assert tile_cuda.tile_sweep.launches == 2
+    else:
+        out = tilesweep.tile_knnk_from_candidates(pts, qm, None, cand_t, 0.6,
+                                                  None, vrows, k, ncols)
+        full = tilesweep.tile_knnk_from_candidates(pts, qm, None, cand_t, 0.6,
+                                                   None, vrows, k)
+        assert tile_cuda.tile_sweep_k.launches == 2
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, full))
+
+
 def _terrain(rng, n):
     side = float(np.sqrt(n / 120.0))
     xy = rng.uniform(0, side, (n, 2))
@@ -545,7 +626,7 @@ def test_tile_batch_matches_dense_k1(cuda):
     qm = q_rows >= 0
     tile_cuda.reset_launch_counts()
     d, i = tilesweep.tile_nn1_from_candidates(qs, qm, None, aux["cand_t"], 0.5,
-                                              aux["parent"], aux["vrows"])
+                                              None, aux["vrows"], aux["ncols"])
     assert tile_cuda.tile_sweep.launches == 1
     d1, i1 = kc.knn1(qs.reshape(-1, 3), qm.reshape(-1), ref, refm)
     d2, _ = kc.knnk(qs.reshape(-1, 3), qm.reshape(-1), ref, refm, 2)

@@ -86,6 +86,16 @@ def _d2(q, x, y, z):
     return (dx * dx + dy * dy) + dz * dz
 
 
+def _stable_merge(ld, li, d, i):
+    """Sorted lists ``(ld, li)`` [..., kk] with the entries ``(d, i)``
+    [..., G] inserted in order, each with a strict '<' (equal distances keep
+    their arrival order; the kernels' shift insertion): the stable merge,
+    cut to kk."""
+    kk = ld.shape[-1]
+    sd, order = torch.sort(torch.cat([ld, d], -1), dim=-1, stable=True)
+    return sd[..., :kk], torch.gather(torch.cat([li, i], -1), -1, order)[..., :kk]
+
+
 def _emulate_pair(q, qm, r, rm, k, splits, chunk):
     """One (query set, reference) pair → (d [N, k], i [N, k], taken,
     units): the kernels' partials per chunk, merged in chunk order."""
@@ -130,7 +140,6 @@ def _emulate_pair(q, qm, r, rm, k, splits, chunk):
         bd = torch.full((*gsz, kk), inf, device=dev)
         bi = torch.full((*gsz, kk), -1, dtype=torch.int64, device=dev)
         thr = torch.full(gsz, inf, device=dev)
-        slot = torch.arange(kk, device=dev)
     for g in range(int(groups.max()) if splits else 0):
         sl = slice(g * g_rows, (g + 1) * g_rows)
         d = _d2(q3, rows[:, sl, 0], rows[:, sl, 1], rows[:, sl, 2])
@@ -147,18 +156,12 @@ def _emulate_pair(q, qm, r, rm, k, splits, chunk):
         units += int(live.sum()) * int(on.sum())
         if not bool(hit.any()):
             continue
-        for e in range(g_rows):
-            de = d[..., e]
-            ins = on & (de < thr)
-            pos = (bd <= de[..., None]).sum(-1, keepdim=True)
-            sd = torch.cat([bd[..., :1], bd[..., :-1]], -1)
-            si = torch.cat([bi[..., :1], bi[..., :-1]], -1)
-            nd = torch.where(slot < pos, bd, torch.where(slot == pos, de[..., None], sd))
-            ni = torch.where(slot < pos, bi, torch.where(
-                slot == pos, torch.full_like(bi, 0) + (g * g_rows + e), si))
-            bd = torch.where(ins[..., None], nd, bd)
-            bi = torch.where(ins[..., None], ni, bi)
-            thr = bd[..., -1]
+        # the group's rows inserted in index order with a strict '<', every
+        # query at once: the list's stable merge with them, cut to kk
+        rows_g = torch.full(d.shape, g * g_rows, dtype=torch.int64, device=dev)
+        bd, bi = _stable_merge(bd, bi, torch.where(on[..., None], d, inf),
+                               rows_g + torch.arange(g_rows, device=dev))
+        thr = bd[..., -1]
     base = torch.arange(splits, device=dev)[:, None] * chunk
     if k == 1:
         # the first row of the best group whose d² equals the best
@@ -186,18 +189,7 @@ def _emulate_pair(q, qm, r, rm, k, splits, chunk):
         out_d = torch.full((n_pad, kk), inf, device=dev)
         out_i = torch.full((n_pad, kk), -1, dtype=torch.int64, device=dev)
         for c in range(splits):                            # the merge, in order
-            for s in range(kk):
-                de = bd[c, :, s]
-                ins = de < out_d[:, -1]
-                pos = (out_d <= de[:, None]).sum(-1, keepdim=True)
-                sd = torch.cat([out_d[:, :1], out_d[:, :-1]], -1)
-                si = torch.cat([out_i[:, :1], out_i[:, :-1]], -1)
-                nd = torch.where(slot < pos, out_d,
-                                 torch.where(slot == pos, de[:, None], sd))
-                ni = torch.where(slot < pos, out_i,
-                                 torch.where(slot == pos, pid[c, :, s, None], si))
-                out_d = torch.where(ins[:, None], nd, out_d)
-                out_i = torch.where(ins[:, None], ni, out_i)
+            out_d, out_i = _stable_merge(out_d, out_i, bd[c], pid[c])
         out_d, out_i = out_d[:, :k], out_i[:, :k]
     out_d, out_i = out_d[:n], out_i[:n]
     ok = torch.isfinite(out_d) & qm[:, None]

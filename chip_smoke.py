@@ -9,8 +9,9 @@ Phases, each fatal on failure:
 2. build: every kernel source of ``libpointmatcher_tpu_torch/csrc``
    (knn.cu, sweep.cu, tile.cu, skip.cu, knn_variants.cu), one nvcc each,
    all started together; ptxas's register and spill report, and no spill
-   in knn.cu (K1, K9 and every K5 list length) nor in tile.cu (K7, every
-   K8 list length, T4, T5);
+   in knn.cu (K1, K9 and every K5 list length), in sweep.cu (K2, K3/K4,
+   every K6 list length) nor in tile.cu (K7, every K8 list length, T4,
+   T5);
 3. dense kernels: K1, K9 and K5 against their plain torch versions on the
    card, at the serving shapes 20480 x 12459 and 25000 x 100000, timed with
    CUDA events beside the plain version and a ``torch.cdist`` yardstick;
@@ -28,7 +29,9 @@ Phases, each fatal on failure:
    of 8 scans of 25 000 points, flattened, against the scene's map of
    50 147 rows (K4) and the map of a 60 000-point scene (about 30 000
    rows, K3), cold and with a transported bound: K2's bounds and flags
-   equal, K3 and K4 equal to their plain versions and to each other, both
+   equal, and equal to its schedule emulated in torch
+   (tests/torch_survivor_emulation.py), whose shares of (warp, chunk)
+   pairs that the prefilter passes are logged; K3 and K4 equal to their plain versions and to each other, both
    at K2's own 256-query flags (the route's) and at their 1024-query fold,
    and the two folds equal on every valid query; the survivor route's d2
    equal to K1's bit for bit and its ids equal to K1's through the Morton
@@ -46,17 +49,23 @@ Phases, each fatal on failure:
    bit for bit, and the host time of each batch's prep (the scans'
    chains, draws included, order, compaction and stacking) is logged;
 8. K2, K3 and K4 once more at the inputs the serving runs gave them (the
-   second lockstep iteration), timed beside the plain versions and, for
-   K3 and K4, a ``torch.cdist`` yardstick; K3 is also timed at K4's inputs
+   second lockstep iteration), timed beside the plain versions (K2 over
+   200 calls) and, for K3 and K4, a ``torch.cdist`` yardstick; K2's bound
+   counts the work of these inputs: the pairs its emulated schedule
+   evaluates per query in each pass and its prefilter's test of every
+   (warp, chunk) pair (the bound over every (query, chunk) pair, the
+   unpruned work, is logged beside it); K3 is also timed at K4's inputs
    and K4 at K3's, each sweep also at the 1024-query fold and with only its
    longest list kept; the sweeps' bound counts the pairs the route sweeps
    (its 256-query tiles), and the pairs of the 1024-query fold and the bound
    over them, with the list statistics, are logged beside it;
 9. K6, the top-k survivor sweep, against its plain version for k = 2, 3
    and 4 on the 8 scans of phase 6 against the ~30 000-row map, cold and
-   with a transported bound: equal bit for bit, and the route's d² equal
-   to K5's dense top-k column for column, its ids equal to K5's through
-   the Morton order where the neighbour is unique;
+   with a transported bound, at K2's own 256-query flags (the route's):
+   equal bit for bit to its plain version there, and on every valid query
+   to the plain version at the 1024-query fold (the TPU's), and the
+   route's d² equal to K5's dense top-k column for column, its ids equal
+   to K5's through the Morton order where the neighbour is unique;
 10. K1's pair axis: 4 scans against 4 other scans in one launch, equal bit
    for bit to 4 single launches and to the plain version;
 11. queue serving: ``register_queue_to_map`` of 64 scans of 25 000 points
@@ -72,8 +81,10 @@ Phases, each fatal on failure:
    cap), and the route's kernels are held to their plain versions there:
    K2, K3, K4 and K1 as in phase 6, K6 as in phase 9, K1 on the dense map.
    K6 is then timed at the knn = 3 queue's inputs (its second lane
-   iteration) beside its plain version and a ``torch.cdist`` + ``topk``
-   yardstick;
+   iteration) at the route's flags beside its plain version and a
+   ``torch.cdist`` + ``topk`` yardstick, its bound over the pairs of the
+   256-query tiles it sweeps; the bound over the pairs of the 1024-query
+   fold is logged beside it;
 12. ``register_batch``: 4 one-shot pairs, each scan against the one before
    it, under the pose gates, with K1 launches equal to the lockstep
    iterations; every K1 call of that run (filtered readings against
@@ -309,8 +320,9 @@ KERNELS = {
     "K1 knn1": ("libpointmatcher_tpu/ops/knn_pallas.py:32", 9),
     "K9 knn1_mxu": ("libpointmatcher_tpu/ops/knn_pallas.py:93", 8),
     "K5 knnk": ("libpointmatcher_tpu/ops/knn_pallas.py:123", 9),
-    # per (query row, chunk column): 13 operations for the bound, 20 for
-    # the flag (csrc/sweep.cu)
+    # per (query row, chunk column) of the unpruned work: 13 operations for
+    # the bound, 20 for the flag; the bound counts the pruned work instead
+    # (K2_QUERY_OPS, K2_WARP_OPS), this only the figure logged beside it
     "K2 survivors_and_bounds": ("libpointmatcher_tpu/ops/knn_sweep2.py:132", 33),
     # per (valid query, valid row of a surviving chunk), as K1
     "K3 nn1_survivor_sweep": ("libpointmatcher_tpu/ops/knn_sweep2.py:242", 9),
@@ -334,6 +346,13 @@ KERNELS = {
     "T2 knn1_transposed": ("tools/knn_variants.py:122", 9),
     "T3 knn1_mxu": ("tools/knn_variants.py:195", 8),
 }
+# K2's work at its inputs (csrc/sweep.cu::survivors_bounds): fp32
+# operations per (query, chunk) pair that pass 1 (the bound) and pass 2 (the
+# flag) evaluate, and per (warp, chunk) pair of each pass's prefilter, which
+# tests every pair: the box's gaps, their squares' sum, the candidate or
+# the lhs, the compares
+K2_QUERY_OPS = (13, 20)
+K2_WARP_OPS = (22, 20)
 QUEUE_SCANS = 64
 QUEUE_LANES = 8
 COARSE = (4, 16, 1.0)
@@ -464,6 +483,7 @@ def check_survivor_step(torch, sc, sweep, kc, qs, qm, ub_t, tab, label):
         raise AssertionError(f"{label}: K2 differs from its plain version")
     if not (torch.equal(ub, ubf) and torch.equal(surv, survf)):
         raise AssertionError(f"{label}: K2 over the padding chunks differs")
+    _, shares = k2_work(torch, qp, ct, 1, nch, (ub, surv), label)
     surv4 = surv.reshape(-1, 4, surv.shape[1]).amax(dim=1)
     swept = {}
     for fold, flags in (("256", surv), ("1024", surv4)):
@@ -505,8 +525,28 @@ def check_survivor_step(torch, sc, sweep, kc, qs, qm, ub_t, tab, label):
     log(f"[survivor] {label}: {qp.shape[0]} query rows x {rt3.shape[0]} "
         f"chunks, survivor share {float(frac.mean()):.4f}, "
         f"{int(unique.sum())} unique neighbours compared; K2/K3/K4 equal at "
-        f"both flag folds; lists {json.dumps(list_stats(torch, qp, surv, ct, nch))}")
+        f"both flag folds; K2 prefilter {json.dumps(shares)}; lists "
+        f"{json.dumps(list_stats(torch, qp, surv, ct, nch))}")
     return d2
+
+
+def k2_work(torch, qp, ct, k, nch, want, label):
+    """K2's work at these inputs, from its schedule emulated in torch on
+    the card (tests/torch_survivor_emulation.py), whose bounds and flags are
+    held to the kernel's ``want`` → (fp32 operations, the shares of (warp, chunk)
+    pairs evaluated in pass 1, passing pass 2's test, evaluated in pass 2)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                    "tests"))
+    import torch_survivor_emulation as em
+
+    ub, surv, c = em.emulate_k2(qp, ct, k, nch=nch)
+    if not (torch.equal(ub, want[0]) and torch.equal(surv, want[1])):
+        raise AssertionError(f"{label}: K2 differs from its emulated schedule")
+    ops = (32 * (K2_QUERY_OPS[0] * c["pass1"] + K2_QUERY_OPS[1] * c["pass2"])
+           + (K2_WARP_OPS[0] + K2_WARP_OPS[1]) * c["pairs"])
+    pairs = max(c["pairs"], 1)
+    return ops, {"pairs": c["pairs"], "pass1": c["pass1"] / pairs,
+                 "pass2_box": c["pass2_box"] / pairs, "pass2": c["pass2"] / pairs}
 
 
 def survivor_tables(torch, morton, sweep, internal):
@@ -545,11 +585,16 @@ def record_survivor_kernels(torch, sc, sweep, qs, qm, ub_t, tab, names,
             run = lambda: sc.survivors_and_bounds(qp, ct, nch=nch)
             plain = lambda: sc.survivors_and_bounds_plain(qp, ct, nch=nch)
             lib = None
-            # every query row's bound over the map's chunks (the padding
-            # chunks are not visited); the flags of every column written
+            # the work these inputs need (the padding chunks are not
+            # visited); the query table read, the flags of every column
+            # written
             n_pad, nch_pad = qp.shape[0], ct.shape[1]
-            ops = KERNELS[name][1] * n_pad * nch
+            ops, sh = k2_work(torch, qp, ct, 1, nch, run(), name)
             nbytes = 36 * n_pad + 32 * nch + 4 * (n_pad // 256) * nch_pad
+            unpruned, _ = bound_of(KERNELS[name][1] * n_pad * nch, nbytes)
+            extra = (f", prefilter {json.dumps(sh)}, {ops:.6g} operations "
+                     f"(the bound over every (query, chunk) pair, the "
+                     f"unpruned work: {unpruned:.5f} ms)")
         else:
             fn = sweeps[name]
             run = lambda: fn(qp, rt3, surv)
@@ -582,7 +627,8 @@ def record_survivor_kernels(torch, sc, sweep, qs, qm, ub_t, tab, names,
         torch.cuda.synchronize()
         if not (torch.equal(d, dp) and torch.equal(i, ip)):
             raise AssertionError(f"{name}: kernel and plain version differ")
-        ms = cuda_ms(torch, run, 20)
+        # K2 takes tens of microseconds: a longer window
+        ms = cuda_ms(torch, run, 200 if name.startswith("K2") else 20)
         if name not in names:
             log(f"[kernel] {name} at the {label} route's inputs ({qp.shape[0]} "
                 f"query rows x {nch} chunks): {ms:.4f} ms{extra}")
@@ -681,18 +727,26 @@ def serving_queries(torch, morton, cell, stride=11):
 
 
 def check_topk_step(torch, sc, sweep, kc, qs, qm, ub_t, tab, k, label):
-    """K6 against its plain version, and the top-k survivor route against
-    K5 on the map in its own order, on one query batch → the route's d²."""
+    """K6 at K2's own 256-query flags (the route's) against its plain
+    version there and, on the valid queries, against the plain version at
+    the 1024-query fold (the TPU's flags), and the top-k survivor route
+    against K5 on the map in its own order, on one query batch → the
+    route's d²."""
     rt3, ct, _, _, rorder, ref, refm = tab
     nch = rt3.shape[0]
     qp = sweep.query_table(qs, qm, ub_t)
     _, surv = sc.survivors_and_bounds(qp, ct, k, nch=nch)
     surv4 = surv.reshape(-1, 4, surv.shape[1]).amax(dim=1)
-    d6, i6 = sc.nnk_survivor_sweep(qp, rt3, surv4, k)
-    dp, ip = sc.nnk_survivor_sweep_plain(qp, rt3, surv4, k)
+    d6, i6 = sc.nnk_survivor_sweep(qp, rt3, surv, k)
+    dp, ip = sc.nnk_survivor_sweep_plain(qp, rt3, surv, k)
+    d4, i4 = sc.nnk_survivor_sweep_plain(qp, rt3, surv4, k)
     torch.cuda.synchronize()
     if not (torch.equal(d6, dp) and torch.equal(i6, ip)):
         raise AssertionError(f"{label}: K6 differs from its plain version")
+    qv = qp[:, 3] == 0
+    if not (torch.equal(d6[qv], d4[qv]) and torch.equal(i6[qv], i4[qv])):
+        raise AssertionError(f"{label}: K6 at 256-query flags differs from "
+                             f"the 1024-query fold")
     dk, ik, frac = sweep.nnk_sorted_v2(qs, qm, ub_t, rt3, ct, k)
     flat_q, flat_m = qs.reshape(-1, 3), qm.reshape(-1)
     e, j = kc.knnk(flat_q, flat_m, ref, refm, k + 1)
@@ -706,26 +760,33 @@ def check_topk_step(torch, sc, sweep, kc, qs, qm, ub_t, tab, k, label):
         raise AssertionError(f"{label}: top-k route ids differ from K5's")
     log(f"[survivor] {label}: {qp.shape[0]} query rows x {nch} chunks, "
         f"survivor share {float(frac.mean()):.4f}, {int(unique.sum())} unique "
-        f"neighbours compared; K6 equals its plain version and K5")
+        f"neighbours compared; K6 equals its plain version at its flags and "
+        f"at the 1024-query fold, and K5")
     return dk
 
 
 def record_topk_kernel(torch, sc, sweep, qs, qm, ub_t, tab, k, launches):
-    """Time K6 at one serving iteration's inputs → its kernel record."""
+    """Time K6 at one serving iteration's inputs, at the route's flags (K2's
+    own 256-query rows) → its kernel record; its bound counts the pairs of
+    those tiles. The bound over the 1024-query fold's pairs is logged beside
+    it, and so is K2 (k) on these inputs."""
     rt3, ct, ref_s, refm_s = tab[:4]
     nch = rt3.shape[0]
     name = "K6 nnk_survivor_sweep"
     qp = sweep.query_table(qs, qm, ub_t)
-    _, surv = sc.survivors_and_bounds(qp, ct, k, nch=nch)
+    k2_out = sc.survivors_and_bounds(qp, ct, k, nch=nch)
+    surv = k2_out[1]
     surv4 = surv.reshape(-1, 4, surv.shape[1]).amax(dim=1)
-    run = lambda: sc.nnk_survivor_sweep(qp, rt3, surv4, k)
-    plain = lambda: sc.nnk_survivor_sweep_plain(qp, rt3, surv4, k)
+    run = lambda: sc.nnk_survivor_sweep(qp, rt3, surv, k)
+    plain = lambda: sc.nnk_survivor_sweep_plain(qp, rt3, surv, k)
     d, i = run()
     dp, ip = plain()
     torch.cuda.synchronize()
     if not (torch.equal(d, dp) and torch.equal(i, ip)):
         raise AssertionError(f"{name}: kernel and plain version differ")
     ms = cuda_ms(torch, run, 20)
+    ms_k2 = cuda_ms(torch, lambda: sc.survivors_and_bounds(qp, ct, k, nch=nch), 200)
+    _, shares = k2_work(torch, qp, ct, k, nch, k2_out, "K2 at K6's inputs")
     plain_ms = cuda_ms(torch, plain, 2)
     # the yardstick: one cdist + topk call per lane over its valid queries
     # (no one call takes the batch, as for K3)
@@ -734,9 +795,12 @@ def record_topk_kernel(torch, sc, sweep, qs, qm, ub_t, tab, k, launches):
                    .topk(k, dim=1, largest=False) for q, m in zip(qs, qm)]
     torch.cuda.empty_cache()
     lib_ms = cuda_ms(torch, lib, 1)
-    ops = KERNELS[name][1] * survivor_work(torch, qp, surv4, ct, nch)
-    nbytes = (32 + 8 * k) * qp.shape[0] + 4096 * nch + 4 * surv4.numel()
-    bms, by = bound_of(ops, nbytes)
+    nbytes = (32 + 8 * k) * qp.shape[0] + 4096 * nch + 4 * surv.numel()
+    pairs = survivor_work(torch, qp, surv, ct, nch)
+    pairs4 = survivor_work(torch, qp, surv4, ct, nch)
+    bms, by = bound_of(KERNELS[name][1] * pairs, nbytes)
+    b1024, _ = bound_of(KERNELS[name][1] * pairs4,
+                        nbytes - 4 * surv.numel() + 4 * surv4.numel())
     fin = torch.isfinite(dp)
     rec = {"name": name, "route": "cuda",
            "source": "libpointmatcher_tpu_torch/csrc/sweep.cu",
@@ -745,8 +809,11 @@ def record_topk_kernel(torch, sc, sweep, qs, qm, ub_t, tab, k, launches):
            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
            "library_ms": None}
     log(f"[kernel] main path {name} k={k} {qp.shape[0]} query rows x {nch} "
-        f"chunks, cdist+topk one call per lane x{qs.shape[0]}: {lib_ms:.2f} ms: "
-        + json.dumps(rec))
+        f"chunks, cdist+topk one call per lane x{qs.shape[0]}: {lib_ms:.2f} ms, "
+        f"{pairs:.6g} pairs at the 256-query tiles against {pairs4:.6g} at the "
+        f"1024-query fold (bound over those {b1024:.5f} ms); K2 (k={k}) here "
+        f"{ms_k2:.4f} ms, prefilter {json.dumps(shares)}; lists "
+        f"{json.dumps(list_stats(torch, qp, surv, ct, nch))}: " + json.dumps(rec))
     return rec
 
 
@@ -1725,8 +1792,9 @@ def main() -> int:
         for line in lib.build_log.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"[build] {lib.source.name}: {line.strip()}")
-    # the dense and tile kernels keep their lists and staging in registers
-    for lib in (kc.LIBRARY, tc.LIBRARY):
+    # the dense, survivor and tile kernels keep their lists and staging in
+    # registers
+    for lib in (kc.LIBRARY, sc.LIBRARY, tc.LIBRARY):
         spills = [ln.strip() for ln in lib.build_log.splitlines()
                   if any(int(x) for x in re.findall(r"(\d+) bytes spill", ln))]
         if spills:

@@ -11,9 +11,9 @@ iteration then runs two kernels (:mod:`.sweep_cuda`):
   per 256-query tile the chunks that may hold any query's neighbour;
 - K3 (map up to ``SKIP_MAX_MPAD`` rows) or K4 (larger maps; on the card
   the same schedule) sweeps, for each query, only the chunks flagged for
-  its own 256-query tile; for k = 2..4 neighbours K6 sweeps into a top-k
-  (resident maps only) the chunks of each 1024-query tile, whose flags are
-  the OR of its four bound tiles (the JAX package's ``sweep_tile_q``).
+  its own 256-query tile; for k = 2..4 neighbours K6 sweeps them into a
+  top-k (resident maps only). The JAX package sweeps the OR of four bound
+  tiles (its ``sweep_tile_q`` of 1024), with the same result.
 
 The result is exact: the chunk of a valid query's true neighbour always
 survives, both bounds being inflated outward by 4 ulp, and every winner
@@ -114,19 +114,19 @@ def query_table(qs: torch.Tensor, qm: torch.Tensor,
     return qp.reshape(b * n_pad, _ROWS)
 
 
-def _survivor_step(qs, qm, ub_t, rt3, ct, k, sweep, fold_flags):
+def _survivor_step(qs, qm, ub_t, rt3, ct, k, sweep):
     """Query table → K2 (bounding the k-th neighbour) → ``sweep(qp, rt3,
-    surv)`` on K2's flags, or on their OR per 1024 queries with
-    ``fold_flags``; masked ``(d2 [..., n, k'], ids [..., n, k'], frac
-    [...])``. ``frac`` is always taken over the 1024-query fold, the JAX
-    package's diagnostic at its default ``sweep_tile_q``."""
+    surv)`` on K2's own flags, one row per 256 queries; masked ``(d2 [...,
+    n, k'], ids [..., n, k'], frac [...])``. ``frac`` is taken over the
+    1024-query fold, the JAX package's diagnostic at its default
+    ``sweep_tile_q``."""
     *bshape, n, _ = qs.shape
     nch = rt3.shape[0]
     qp = query_table(qs, qm, ub_t)
     _, surv_b = sweep_cuda.survivors_and_bounds(qp, ct, k, nch=nch)
     fold = sweep_cuda.SWEEP_TILE // sweep_cuda.BOUND_TILE
     surv = surv_b.reshape(-1, fold, surv_b.shape[1]).amax(dim=1)
-    d2, ids = sweep(qp, rt3, surv if fold_flags else surv_b)
+    d2, ids = sweep(qp, rt3, surv_b)
     n_pad = qp.shape[0] // max(int(np.prod(bshape, dtype=np.int64)), 1)
     d2 = d2.reshape(*bshape, n_pad, -1)[..., :n, :]
     ids = ids.reshape(*bshape, n_pad, -1)[..., :n, :]
@@ -157,7 +157,7 @@ def nn1_sorted_v2(qs: torch.Tensor, qm: torch.Tensor, ub_t: torch.Tensor,
     pairs that survive, per scan."""
     sweep = (sweep_cuda.nn1_survivor_sweep_stream if stream
              else sweep_cuda.nn1_survivor_sweep)
-    d2, ids, frac = _survivor_step(qs, qm, ub_t, rt3, ct, 1, sweep, False)
+    d2, ids, frac = _survivor_step(qs, qm, ub_t, rt3, ct, 1, sweep)
     return d2[..., 0], ids[..., 0], frac
 
 
@@ -165,11 +165,14 @@ def nnk_sorted_v2(qs: torch.Tensor, qm: torch.Tensor, ub_t: torch.Tensor,
                   rt3: torch.Tensor, ct: torch.Tensor, k: int):
     """The top-k (k = 2..4) counterpart of :func:`nn1_sorted_v2` on a
     resident map: K2 bounds the k-th neighbour (only chunks holding k valid
-    rows may bind it), and K6 sweeps the survivors of each 1024-query tile.
-    ``ub_t`` transports the previous iteration's k-th distance. Returns
+    rows may bind it), and K6 sweeps, for each query, the chunks flagged for
+    its own 256-query tile: every chunk that holds any of a valid query's k
+    nearest rows survives for its tile, so the result is the JAX package's
+    at its 1024-query fold, ties included. ``ub_t`` transports the previous
+    iteration's k-th distance. Returns
     ``(d2 [..., n, k], ids [..., n, k], frac [...])``, ascending, (+inf,
     −1) at invalid queries and empty slots."""
     def sweep(qp, rt3_, surv):
         return sweep_cuda.nnk_survivor_sweep(qp, rt3_, surv, k)
 
-    return _survivor_step(qs, qm, ub_t, rt3, ct, k, sweep, True)
+    return _survivor_step(qs, qm, ub_t, rt3, ct, k, sweep)

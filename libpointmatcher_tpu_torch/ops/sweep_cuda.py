@@ -13,9 +13,9 @@ The kernels are CUDA C++ in ``csrc/sweep.cu`` (see its header for the
 design and for what bounds them), built at first use by :mod:`.cuda_build`.
 The tables are those of :mod:`.sweep`: ``qp [n_pad, 8]``, ``ct [8,
 nch_pad]``, ``rt3 [nch, 8, 128]``, ``surv [tiles, nch_pad]`` int32: K2
-writes one row per 256 queries, K3 and K4 take those rows or their OR per
-1024 queries (:func:`flag_tile`), K6 the OR. K6 returns ``[n_pad, k]`` for
-k = 2..4.
+writes one row per 256 queries, K3 and K4 take those rows or their OR
+per 1024 queries (:func:`flag_tile`), K6's kernel only K2's own rows (its
+plain version either). K6 returns ``[n_pad, k]`` for k = 2..4.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises. There is no fallback between the two. Each
@@ -35,16 +35,18 @@ from .knn import _tile_d2
 __all__ = ["survivors_and_bounds", "nn1_survivor_sweep",
            "nn1_survivor_sweep_stream", "nnk_survivor_sweep",
            "survivors_and_bounds_plain", "survivor_sweep_plain",
-           "nnk_survivor_sweep_plain", "build", "LIBRARY", "BOUND_TILE",
-           "SWEEP_TILE", "SWEEPK_MAX", "flag_tile",
+           "nnk_survivor_sweep_plain", "build", "LIBRARY",
+           "BOUND_TILE", "SWEEP_TILE", "SWEEPK_TILE", "SWEEPK_MAX", "flag_tile",
            "reset_launch_counts"]
 
 #: queries per K2 tile (one flag row each)
 BOUND_TILE = 256
-#: queries per K6 tile, and per flag row of the TPU's fold (four bound
-#: tiles), which K3/K4 also take
+#: queries per flag row of the TPU's fold (four bound tiles), which K3 and
+#: K4 also take
 SWEEP_TILE = 1024
-#: segments each K3/K4 survivor list is cut into (partials merged in order)
+#: queries per flag row that K6 takes: K2's own rows
+SWEEPK_TILE = BOUND_TILE
+#: segments each K3/K4/K6 survivor list is cut into (partials merged in order)
 SWEEP_SEGMENTS = 8
 #: most chunks a sweep's survivor list may hold (its shared memory)
 MAX_CHUNKS = 8192
@@ -62,11 +64,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pm_survivors_bounds.restype = i
     lib.pm_survivor_sweep.argtypes = [p, i, p, i, p, i, i, p, p, p, p, p]
     lib.pm_survivor_sweep.restype = i
-    lib.pm_survivor_sweep_k.argtypes = [p, i, p, i, p, i, i, p, p, p]
+    lib.pm_survivor_sweep_k.argtypes = [p, i, p, i, p, i, i, i, p, p, p, p, p]
     lib.pm_survivor_sweep_k.restype = i
-    for fn in ("pm_bound_tile", "pm_sweep_tile", "pm_sweep_segments"):
+    for fn in ("pm_bound_tile", "pm_fold_tile", "pm_sweep_segments"):
         getattr(lib, fn).restype = i
-    if ((lib.pm_bound_tile(), lib.pm_sweep_tile(), lib.pm_sweep_segments())
+    if ((lib.pm_bound_tile(), lib.pm_fold_tile(), lib.pm_sweep_segments())
             != (BOUND_TILE, SWEEP_TILE, SWEEP_SEGMENTS)):
         raise RuntimeError("csrc/sweep.cu tiles or segments differ from "
                            "ops/sweep_cuda.py")
@@ -295,13 +297,14 @@ def _check_k(k):
 
 
 def nnk_survivor_sweep_plain(qp, rt3, surv, k: int):
-    """Plain version of K6: per 1024-query tile, the exact top-k over the
-    rows of its surviving chunks (those of index < nch), ascending, with
-    d² formed as in :func:`survivor_sweep_plain`; a stable sort keeps the
-    lower sorted-map index first among equal distances. Slots that hold no
-    finite distance, and every slot of a tile with no survivor, give
-    (+inf, −1)."""
+    """Plain version of K6: per tile of ``flag_tile(qp, surv)`` queries, the
+    exact top-k over the rows of its surviving chunks (those of index <
+    nch), ascending, with d² formed as in :func:`survivor_sweep_plain`; a
+    stable sort keeps the lower sorted-map index first among equal
+    distances. Slots that hold no finite distance, and every slot of a tile
+    with no survivor, give (+inf, −1)."""
     k = _check_k(k)
+    tile = flag_tile(qp, surv)
     n_pad = qp.shape[0]
     nch = rt3.shape[0]
     out_d = torch.full((n_pad, k), float("inf"), dtype=torch.float32,
@@ -309,17 +312,16 @@ def nnk_survivor_sweep_plain(qp, rt3, surv, k: int):
     out_i = torch.full((n_pad, k), -1, dtype=torch.int32, device=qp.device)
     rows = rt3[:, :4, :].transpose(1, 2)                    # [nch, 128, 4]
     lane = torch.arange(128, device=qp.device)
-    for t in range(n_pad // SWEEP_TILE):
+    for t in range(n_pad // tile):
         lst = torch.nonzero(surv[t, :nch]).flatten()
         if lst.numel() == 0:
             continue
         r = rows[lst].reshape(-1, 4)
-        q = qp[t * SWEEP_TILE:(t + 1) * SWEEP_TILE, :3]
-        d2 = _tile_d2(q, r[:, :3], r[:, 3])
+        sl = slice(t * tile, (t + 1) * tile)
+        d2 = _tile_d2(qp[sl, :3], r[:, :3], r[:, 3])
         sd, pos = torch.sort(d2, dim=1, stable=True)
         sd, pos = sd[:, :k], pos[:, :k]
         ids = (lst[:, None] * 128 + lane[None, :]).reshape(-1)[pos]
-        sl = slice(t * SWEEP_TILE, (t + 1) * SWEEP_TILE)
         out_d[sl] = sd
         out_i[sl] = torch.where(torch.isfinite(sd), ids,
                                 torch.full_like(ids, -1)).to(torch.int32)
@@ -327,24 +329,40 @@ def nnk_survivor_sweep_plain(qp, rt3, surv, k: int):
 
 
 def nnk_survivor_sweep(qp, rt3, surv, k: int):
-    """K6: exact top-k (k = 2..4) over each 1024-query tile's surviving
-    chunks of a resident map → ``(d2 [n_pad, k], id [n_pad, k])``
-    ascending, ids into the sorted map, (+inf, −1) in empty slots."""
+    """K6: exact top-k (k = 2..4) of each query over its tile's surviving
+    chunks → ``(d2 [n_pad, k], id [n_pad, k])`` ascending, ids into the
+    sorted map, (+inf, −1) in empty slots. ``surv`` holds K2's flags, one
+    row per 256 queries (``SWEEPK_TILE``, the only rows the kernel takes),
+    or on the CPU also their OR per 1024 (:func:`flag_tile`); any other
+    row count raises. Two launches: the sweep over ``SWEEP_SEGMENTS``
+    segments of each list, then their merge; ``launches`` counts calls."""
     k = _check_k(k)
-    _check_tables(qp, rt3=rt3, surv=surv, tile=SWEEP_TILE)
+    tile = flag_tile(qp, surv)
+    _check_tables(qp, rt3=rt3, surv=surv, tile=tile)
     if qp.device.type == "cpu":
         return nnk_survivor_sweep_plain(qp, rt3, surv, k)
+    if tile != SWEEPK_TILE:
+        raise ValueError(f"surv must have n_pad/{SWEEPK_TILE} rows on the "
+                         f"card, got {tuple(surv.shape)}")
     lib = build()
     qp = qp.contiguous()
     rt3 = rt3.contiguous()
     surv = surv.contiguous()
+    if rt3.data_ptr() % 16:
+        raise ValueError("rt3 must be 16-byte aligned")
     n_pad = qp.shape[0]
+    part_d = torch.empty((SWEEP_SEGMENTS, n_pad, k), dtype=torch.float32,
+                         device=qp.device)
+    part_i = torch.empty((SWEEP_SEGMENTS, n_pad, k), dtype=torch.int32,
+                         device=qp.device)
     out_d = torch.empty((n_pad, k), dtype=torch.float32, device=qp.device)
     out_i = torch.empty((n_pad, k), dtype=torch.int32, device=qp.device)
     stream = torch.cuda.current_stream(qp.device).cuda_stream
     err = lib.pm_survivor_sweep_k(qp.data_ptr(), n_pad, rt3.data_ptr(),
-                                  rt3.shape[0], surv.data_ptr(), surv.shape[1],
-                                  k, out_d.data_ptr(), out_i.data_ptr(), stream)
+                                  rt3.shape[0], surv.data_ptr(), surv.shape[0],
+                                  surv.shape[1], k, part_d.data_ptr(),
+                                  part_i.data_ptr(), out_d.data_ptr(),
+                                  out_i.data_ptr(), stream)
     LIBRARY.check(err, "K6 top-k survivor sweep")
     nnk_survivor_sweep.launches += 1
     return out_d, out_i

@@ -49,6 +49,7 @@ from libpointmatcher_tpu_torch.utils import prng
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools_torch"))
 import tile_micro  # noqa: E402
+import torch_survivor_emulation as em  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -392,7 +393,6 @@ def test_k6_equals_plain(cuda, k):
     for _ in range(2):                      # cold, then a transported bound
         qp = sweep.query_table(qs, qm, ub_t)
         _, surv = sc.survivors_and_bounds(qp, ct, k, nch=rt3.shape[0])
-        surv = surv.reshape(-1, 4, surv.shape[1]).amax(dim=1)
         d6, i6 = sc.nnk_survivor_sweep(qp, rt3, surv, k)
         dp, ip = sc.nnk_survivor_sweep_plain(qp, rt3, surv, k)
         torch.cuda.synchronize()
@@ -404,6 +404,120 @@ def test_k6_equals_plain(cuda, k):
         fin = torch.isfinite(dk[..., -1])
         ub_t = torch.where(fin, (torch.sqrt(dk[..., -1]) + 0.01) * sweep.UP,
                            torch.full_like(dk[..., -1], float("inf")))
+
+
+def _warm_bound(qs, qm, rs, rsm, k):
+    """The k-th distance of each query, moved by 1 cm (+inf where masked)."""
+    d, _ = kc.knnk(qs.reshape(-1, 3), qm.reshape(-1), rs, rsm, k)
+    d = d[:, -1].reshape(qm.shape)
+    return torch.where(qm & torch.isfinite(d), (torch.sqrt(d) + 0.01) * sweep.UP,
+                       torch.full_like(d, float("inf")))
+
+
+@pytest.mark.parametrize("case", ["cold", "warm", "margin", "all_padding"])
+@pytest.mark.parametrize("k", [1, 3])
+def test_k2_cases_equal_plain(cuda, case, k):
+    """K2's pruned schedule against its plain version bit for bit: cold (no
+    bound, the ring order from the nearest chunk sets it), warm, with two
+    tiles placed exactly on the prefilter's boundary
+    (``torch_survivor_emulation.margin_rows``), and with warps made wholly
+    of padding and of masked rows with real coordinates; and equal to its
+    schedule's emulation (``emulate_k2``), which prunes pairs in both
+    passes."""
+    qs, qm, rs, rsm, rt3, ct = _survivor_inputs(40, 3000, 5000, cuda)
+    nch = rt3.shape[0]
+    ub_t = (torch.full(qm.shape, float("inf"), device=cuda) if case == "cold"
+            else _warm_bound(qs, qm, rs, rsm, k))
+    qp = sweep.query_table(qs, qm, ub_t)
+    c2 = None
+    if case == "margin":
+        qp, _, c2 = em.margin_rows(qp, ct, nch, np.random.default_rng(5))
+    if case == "all_padding":
+        pad = torch.zeros((1024, 8), device=cuda)
+        pad[:, 3] = sweep.FAR
+        pad[:, 4] = float("inf")
+        qp = torch.cat([qp, pad])
+        qp[:512, 3] = sweep.FAR                # masked rows, real coordinates
+    ub, surv = sc.survivors_and_bounds(qp, ct, k, nch=nch)
+    ubp, survp = sc.survivors_and_bounds_plain(qp, ct, k, nch=nch)
+    torch.cuda.synchronize()
+    assert torch.equal(ub, ubp) and torch.equal(surv, survp)
+    # on the card, where torch's square root is correctly rounded too
+    ube, surve, counts = em.emulate_k2(qp, ct, k, nch=nch)
+    assert torch.equal(ube, ub) and torch.equal(surve, surv)
+    assert 0 < counts["pass2"] <= counts["pass2_box"] <= counts["pairs"]
+    assert 0 < counts["pass1"] <= counts["pairs"]
+    if case == "margin" and k == 1:
+        assert int(surv[1, c2]) == 1
+    if case == "all_padding":
+        assert not bool(surv[:2].any()) and not bool(surv[-4:].any())
+
+
+def _k6_case(cuda, case, k):
+    """Query table, map table and flags of one K6 card case."""
+    if case == "long":                       # one list of > 8 x 32 chunks
+        rng = np.random.default_rng(41)
+        m = 300 * 128 + 57
+        r = rng.uniform(-8, 8, (m, 3)).astype(np.float32)
+        rm = np.ones(m, bool)
+        rm[::11] = False
+        rt3 = torch.as_tensor(sweep.chunked_ref_table(r, rm), device=cuda)
+        q = torch.as_tensor(rng.uniform(-8, 8, (1, 2048, 3)).astype(np.float32),
+                            device=cuda)
+        qm = torch.ones((1, 2048), dtype=torch.bool, device=cuda)
+        qp = sweep.query_table(q, qm, torch.full(qm.shape, float("inf"),
+                                                 device=cuda))
+        nch_pad = 128 * -(-rt3.shape[0] // 128)
+        surv = torch.zeros((8, nch_pad), dtype=torch.int32, device=cuda)
+        surv[3, :rt3.shape[0]] = 1
+        surv[5, ::3] = 1
+        surv[:, rt3.shape[0]:] = 0
+        return qp, rt3, surv
+    qs, qm, rs, rsm, rt3, ct = _survivor_inputs(42, 3000, 5000, cuda)
+    if case == "duplicated":
+        r = rs.cpu().numpy()
+        r[1::2] = r[::2][: len(r[1::2])]
+        rm = rsm.cpu().numpy()
+        rt3 = torch.as_tensor(sweep.chunked_ref_table(r, rm), device=cuda)
+        ct = torch.as_tensor(sweep.chunk_summaries(r, rm), device=cuda)
+        rs = torch.as_tensor(r, device=cuda)
+    qp = sweep.query_table(qs, qm, _warm_bound(qs, qm, rs, rsm, k))
+    _, surv = sc.survivors_and_bounds(qp, ct, k, nch=rt3.shape[0])
+    if case == "empty":
+        surv[[0, 3, 6]] = 0
+    return qp, rt3, surv
+
+
+@pytest.mark.parametrize("case", ["own", "fold", "duplicated", "empty", "long"])
+@pytest.mark.parametrize("k", [2, 3, 4])
+def test_k6_cases_equal_plain(cuda, case, k):
+    """K6 on K3/K4's schedule against its plain version bit for bit at
+    K2's own 256-query flags, and (``fold``) on the valid queries against
+    the plain version at the 1024-query fold (which the wrapper refuses
+    on the card); with duplicated map rows
+    (ties: the lower index first), with tiles whose list is empty ((+inf,
+    -1) throughout), and with a list longer than 8 segments of 32
+    chunks."""
+    qp, rt3, surv = _k6_case(cuda, case, k)
+    d6, i6 = sc.nnk_survivor_sweep(qp, rt3, surv, k)
+    dp, ip = sc.nnk_survivor_sweep_plain(qp, rt3, surv, k)
+    torch.cuda.synchronize()
+    assert torch.equal(d6, dp) and torch.equal(i6, ip)
+    if case == "fold":
+        fold = surv.reshape(-1, 4, surv.shape[1]).amax(dim=1)
+        with pytest.raises(ValueError, match="surv"):
+            sc.nnk_survivor_sweep(qp, rt3, fold, k)  # the kernel takes K2's rows
+        d4, i4 = sc.nnk_survivor_sweep_plain(qp, rt3, fold, k)
+        valid = qp[:, 3] == 0
+        assert torch.equal(d6[valid], d4[valid])
+        assert torch.equal(i6[valid], i4[valid])
+    empty = (surv.sum(dim=1) == 0).repeat_interleave(sc.SWEEPK_TILE)
+    assert bool(torch.isinf(d6[empty]).all()) and bool((i6[empty] == -1).all())
+    if case == "empty":
+        assert bool(empty[:256].all())
+    if case == "long":
+        assert int(surv[3].sum()) > 8 * 32
+        assert bool(torch.isfinite(d6[3 * 256:4 * 256]).all())
 
 
 @pytest.mark.parametrize("k", [1, 2, 10])

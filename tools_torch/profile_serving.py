@@ -1,7 +1,7 @@
 """Where scan-to-map serving of the port spends its time on the card.
 
     python3 tools_torch/profile_serving.py [--driver batch|queue]
-        [--coarse 4,16,1.0] [--batches 5] [--routes K4,K3,K1,tile]
+        [--coarse 4,16,1.0] [--batches 5] [--routes K4,K3,K1,K6,tile]
         [--out FILE.json]
 
 For each route of chip_smoke.py's serving phase (the 100 000-point scene's
@@ -9,7 +9,10 @@ For each route of chip_smoke.py's serving phase (the 100 000-point scene's
 25 000-point scene's map: dense K1) it serves, with ``--driver batch``, 8
 scans of 25 000 points per ``register_batch_to_map`` call, or with
 ``--driver queue`` a queue of 64 such scans through 8 lanes per
-``register_queue_to_map`` call (``--coarse`` adds the coarse pass). The
+``register_queue_to_map`` call (``--coarse`` adds the coarse pass). The K6
+route (not in the default ``--routes``) serves a map of another scene of
+the K3 route's size (60 000 points) with ``KDTreeMatcher({"knn": "3"})`` under
+``PMTPU_SERVE_SKIP=1``: K2 (k = 3) + K6, chip_smoke.py's top-k route. The
 tile route (K7) serves chip_smoke.py's large-map configuration: the
 10^5-point terrain map through ``BlockGridMatcher``, 8 scans of ~18 500
 points per batch, or a queue of those 8 scans three times (the tile route
@@ -63,6 +66,7 @@ def main(argv=None) -> int:
         return 1
     import chip_smoke as cs
     import libpointmatcher_tpu_torch as pt
+    from libpointmatcher_tpu_torch.matchers import KDTreeMatcher
     from libpointmatcher_tpu_torch.ops import knn_cuda as kc
     from libpointmatcher_tpu_torch.ops import skip_cuda as skc
     from libpointmatcher_tpu_torch.ops import sweep_cuda as sc
@@ -84,7 +88,9 @@ def main(argv=None) -> int:
            "lanes": cs.QUEUE_LANES if queue else None, "coarse": coarse,
            "switches": {k: os.environ[k] for k in cs.V1_KEYS if k in os.environ},
            "routes": {}}
-    for route in (*cs.SERVE_SCENES, "tile"):
+    for route in (*cs.SERVE_SCENES, "K6", "tile"):
+        if route == "K6" and route not in routes:
+            continue
         if route == "tile":
             if route not in routes:
                 continue
@@ -98,7 +104,9 @@ def main(argv=None) -> int:
             seq = cs.terrain_sequence(pt)
             seq.set_map(pt.PointCloud.from_numpy(terrain), seed=0)
         else:
-            world = cs.make_scene(rng, cs.SERVE_SCENES[route])
+            # the K6 route serves the K3 route's scene, as in chip_smoke.py
+            scene = cs.SERVE_SCENES["K3" if route == "K6" else route]
+            world = cs.make_scene(rng, scene)
             poses = cs.make_poses(
                 world, cs.QUEUE_SCANS if queue else cs.SERVE_BATCH, rng)
             clouds = [pt.PointCloud.from_numpy(cs.make_scan(world, P, rng))
@@ -108,8 +116,13 @@ def main(argv=None) -> int:
                 continue
             seq = pt.ICPSequence()
             seq.set_default()
+            if route == "K6":
+                seq.matcher = KDTreeMatcher({"knn": "3"})
             seq.set_map(pt.PointCloud.from_numpy(world), seed=0)
         scans = len(clouds)
+        env_skip = os.environ.get("PMTPU_SERVE_SKIP")
+        if route == "K6":
+            os.environ["PMTPU_SERVE_SKIP"] = "1"
         steps = [0]
         step = seq._step
 
@@ -166,6 +179,11 @@ def main(argv=None) -> int:
                 (k, ms / traced_iters, c / traced_iters)
                 for k, ms, c in kernels[:15]],
         }
+        if route == "K6":
+            if env_skip is None:
+                del os.environ["PMTPU_SERVE_SKIP"]
+            else:
+                os.environ["PMTPU_SERVE_SKIP"] = env_skip
         del seq, clouds
         torch.cuda.empty_cache()
     if args.out:

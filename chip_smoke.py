@@ -156,7 +156,24 @@ Phases, each fatal on failure:
    is unique beyond that bound; timed beside the plain versions and a
    yardstick (``torch.cdist`` + ``min``, the difference form for T1 and T2,
    the matrix-product form with TF32 off for T3); then the tool itself
-   runs once, its launches counted from 0.
+   runs once, its launches counted from 0;
+21. the loop modules (no kernel of their own: plain torch on the card):
+   every outlier filter (RobustOutlierFilter with each cost and scale
+   estimator), minimizer and transformation at the recorded first step of
+   a sequence on phase 4's map with knn = 1 (K1) and with knn = 3 (K5),
+   held to the same module on the CPU (tools_torch/loop_modules.py: weights
+   equal, Robust within 1e-6 relative, transforms within 1e-5, covariances
+   within 1e-4 of their largest entry) and timed with CUDA events; then
+   the YAML chains PointToPoint + TrimmedDist, PointToPlane + Robust
+   (cauchy, mad, ``nbIterationForScale: 2``), PointToPlaneWithCov +
+   MedianDist + SurfaceNormal (normals on the reading) and PointToPoint +
+   VarTrimmedDist, beside the default chain: ``ICPSequence.compute`` of 2
+   scans on phase 4's map (K1 launches equal the iterations),
+   ``register_batch_to_map`` of phase 7's 8 scans on the ~30 000-row map
+   (K2 and K3 launches equal the lockstep iterations) and, for the Robust
+   chain, ``register_queue_to_map`` of 16 of phase 11's scans through 8
+   lanes; every pose under the gates, ``get_covariance`` finite, symmetric
+   and positive semi-definite; ms per iteration and launches logged.
 
 The second-to-last line is the JSON of kernels, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
@@ -1733,6 +1750,118 @@ def knn_variants(torch, kc, kv, seq_k1_inputs):
             for name in names]
 
 
+def loop_chains(torch, pt, world, poses, scans, k3, launches, rng):
+    """Phase 21: the loop modules on the card (tools_torch/loop_modules.py)
+    at a recorded step of the K1 sequence and of a knn = 3 one (K5), held to
+    the same modules on the CPU, then the YAML chains of the new modules
+    beside the default chain: ``ICPSequence.compute`` of 2 scans on the
+    phase-4 map (dense K1), ``register_batch_to_map`` of the 8 scans of
+    phase 7 on the ~30 000-row map (K2 + K3), and the Robust chain through
+    ``register_queue_to_map`` (16 scans, 8 lanes) there; every pose under
+    the gates, the launches following each route, ``get_covariance``
+    finite, symmetric and positive semi-definite."""
+    from tools_torch import loop_modules as lm
+
+    from libpointmatcher_tpu_torch.parallel import (register_batch_to_map,
+                                                    register_queue_to_map)
+
+    # ---- 21a. every module at a recorded step, card against CPU
+    steps = {}
+    for knn in (1, 3):
+        seq = pt.ICPSequence()
+        seq.load_from_yaml(lm.chain_yaml("cov_median_normal", knn=knn))
+        seq.set_map(pt.PointCloud.from_numpy(world), seed=0)
+        reset_launch_counts()
+        T_init = perturb(rng) @ poses[1]
+        steps[knn] = lm.record_step(lambda: seq.compute(
+            pt.PointCloud.from_numpy(scans[1]), T_init=T_init, seed=1))
+        counts = launches()
+        if (knn == 1 and counts["K1"] == 0) or (knn == 3 and counts["K5"] == 0):
+            raise AssertionError(f"knn={knn} step: launches {counts}")
+        log(f"[modules] knn={knn} step recorded: {steps[knn][2].dists.shape[0]} "
+            f"reading rows against {steps[knn][1].num_points} map rows, "
+            f"launches {counts}")
+    for knn, step in steps.items():
+        lm.check_modules(*step, f"knn={knn}", log=log)
+    del steps
+    torch.cuda.empty_cache()
+
+    # ---- 21b. the chains: sequence on the dense map, batch and queue on K3
+    for name in lm.CHAINS:
+        text = lm.chain_yaml(name)
+        seq = pt.ICPSequence()
+        seq.load_from_yaml(text)
+        seq.set_map(pt.PointCloud.from_numpy(world), seed=0)
+        reset_launch_counts()
+        iters, ms = 0, 0.0
+        for i in (1, 2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            T = seq.compute(pt.PointCloud.from_numpy(scans[i]),
+                            T_init=perturb(rng) @ poses[i], seed=i).cpu().numpy()
+            ms += 1e3 * (time.perf_counter() - t)
+            iters += seq.last_iteration_count
+            gates([T], [poses[i]], f"{name} sequence")
+        counts = launches()
+        if counts["K1"] != iters:
+            raise AssertionError(f"{name} sequence: K1 launches {counts['K1']}, "
+                                 f"iterations {iters}")
+        row = {"sequence_iterations": iters,
+               "sequence_ms_per_iteration": round(ms / iters, 3),
+               "sequence_launches": {k: v for k, v in counts.items() if v}}
+        if seq.error_minimizer.PRODUCES_COVARIANCE:
+            cov = seq.get_covariance().astype(np.float64)
+            scale = np.abs(cov).max()
+            low = float(np.linalg.eigvalsh(0.5 * (cov + cov.T)).min())
+            asym = float(np.abs(cov - cov.T).max())
+            log(f"[chains] {name}: covariance diagonal "
+                f"{np.round(np.diag(cov), 10).tolist()}, asymmetry {asym:.3g}, "
+                f"lowest eigenvalue {low:.3g} (largest entry {scale:.3g})")
+            if not (np.isfinite(cov).all() and asym <= 1e-5 * scale
+                    and low >= -1e-5 * scale):
+                raise AssertionError(f"{name}: covariance not symmetric PSD")
+
+        b_seq = pt.ICPSequence()
+        b_seq.load_from_yaml(text)
+        b_seq.set_map(pt.PointCloud.from_numpy(k3["world"]), seed=0)
+        clouds = [pt.PointCloud.from_numpy(x) for x in k3["scans"]]
+        register_batch_to_map(b_seq, clouds, T_inits=k3["T_inits"], seed=1)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t = time.perf_counter()
+        T, info = register_batch_to_map(b_seq, clouds, T_inits=k3["T_inits"],
+                                        seed=1)
+        ms = 1e3 * (time.perf_counter() - t)
+        counts = launches()
+        it = int(info["iterations"].max())
+        gates(T, k3["poses"], f"{name} batch")
+        if (counts["K2"], counts["K3"], counts["K1"]) != (it, it, 0):
+            raise AssertionError(f"{name} batch: launches {counts}, lockstep "
+                                 f"iterations {it}")
+        row.update(batch_iterations=info["iterations"].tolist(),
+                   batch_ms=round(ms, 2), batch_ms_per_iteration=round(ms / it, 3),
+                   batch_launches={k: v for k, v in counts.items() if v})
+        if name == "p2plane_robust":
+            n_q = 2 * QUEUE_LANES
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            T, info = register_queue_to_map(
+                b_seq, k3["qclouds"][:n_q], T_inits=k3["qinits"][:n_q], seed=1,
+                lanes=QUEUE_LANES)
+            ms = 1e3 * (time.perf_counter() - t)
+            counts = launches()
+            gates(T, k3["qposes"][:n_q], f"{name} queue")
+            if counts["K2"] != counts["K3"] or counts["K2"] == 0 or counts["K1"]:
+                raise AssertionError(f"{name} queue: launches {counts}")
+            row.update(queue_scans=n_q, queue_ms=round(ms, 2),
+                       queue_ms_per_lane_iteration=round(ms / counts["K3"], 3),
+                       queue_launches={k: v for k, v in counts.items() if v})
+        log(f"[chains] {name}: " + json.dumps(row))
+        del seq, b_seq
+        torch.cuda.empty_cache()
+
+
 def kernel_inputs(torch, world, scan_world, n, m, rng, device="cuda"):
     """Queries from a scan placed in the world, references from the scene,
     every 11th query and every 7th reference masked."""
@@ -2149,6 +2278,9 @@ def main() -> int:
     # ---- 17.-18. the v1 skip routes on the ~30 000-row map
     records += v1_serving(torch, pt, kc, skc, skip, morton, serve["K3"],
                           launches, route_launches)
+    k3 = serve["K3"]
+    k3 = {k: k3[k] for k in ("world", "scans", "poses", "T_inits", "qclouds",
+                             "qinits", "qposes")}
     del serve
     torch.cuda.empty_cache()
 
@@ -2159,6 +2291,13 @@ def main() -> int:
 
     # ---- 20. the 1-NN lowerings T1, T2 and T3
     records += knn_variants(torch, kc, kv, seq_k1_inputs)
+    del seq_k1_inputs
+    torch.cuda.empty_cache()
+
+    # ---- 21. the loop modules and their chains
+    t = time.perf_counter()
+    loop_chains(torch, pt, world, poses, scans, k3, launches, rng)
+    log(f"[chains] phase 21 took {time.perf_counter() - t:.1f} s")
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

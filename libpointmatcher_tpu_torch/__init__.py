@@ -16,9 +16,28 @@ torch.backends.cudnn.allow_tf32 = False
 
 from .cloud import PointCloud  # noqa: E402
 from .device import resolve_device  # noqa: E402
-from .errors import (ConvergenceError, InvalidModuleType,  # noqa: E402
-                     InvalidParameter)
-from .icp import ICP, ICPSequence  # noqa: E402
+from .errors import (ConfigurationError, ConvergenceError,  # noqa: E402
+                     InvalidField, InvalidModuleType, InvalidParameter,
+                     PointMatcherError, TransformationError)
+from .matchers import Matcher, Matches, MatcherRegistrar  # noqa: E402
+from .minimizers import ErrorMinimizer, ErrorMinimizerRegistrar  # noqa: E402
+from .outlierfilters import OutlierFilter, OutlierFilterRegistrar  # noqa: E402
+from .checkers import (TransformationChecker,  # noqa: E402
+                       TransformationCheckerRegistrar)
+from .transformations import (PureTranslation,  # noqa: E402
+                              RigidTransformation, SimilarityTransformation,
+                              TransformationRegistrar)
+from .inspectors import Inspector, InspectorRegistrar  # noqa: E402
+from .filters import (DataPointsFilter,  # noqa: E402
+                      DataPointsFilterRegistrar, apply_filter_chain)
+from .icp import ICP, ICPChainBase, ICPSequence  # noqa: E402
 
-__all__ = ["PointCloud", "ICP", "ICPSequence", "ConvergenceError",
-           "InvalidModuleType", "InvalidParameter", "resolve_device"]
+__all__ = ["PointCloud", "ICP", "ICPSequence", "ICPChainBase", "Matches",
+           "DataPointsFilterRegistrar", "MatcherRegistrar",
+           "OutlierFilterRegistrar", "ErrorMinimizerRegistrar",
+           "TransformationCheckerRegistrar", "TransformationRegistrar",
+           "InspectorRegistrar", "RigidTransformation",
+           "SimilarityTransformation", "PureTranslation", "ConfigurationError",
+           "ConvergenceError", "InvalidField", "InvalidModuleType",
+           "InvalidParameter", "PointMatcherError", "TransformationError",
+           "resolve_device"]

@@ -17,7 +17,7 @@ from .inspectors import InspectorRegistrar, NullInspector
 from .matchers import MatcherRegistrar
 from .minimizers import ErrorMinimizerRegistrar
 from .outlierfilters import OutlierFilterRegistrar
-from .transformations import RigidTransformation
+from .transformations import RigidTransformation, SimilarityTransformation
 
 __all__ = ["configure_chain_from_yaml", "parse_module_spec", "VALID_SECTIONS"]
 
@@ -98,7 +98,11 @@ def configure_chain_from_yaml(chain, source) -> None:
                                          doc.get("outlierFilters"))
     chain.error_minimizer = (_create(ErrorMinimizerRegistrar, doc["errorMinimizer"])
                              if "errorMinimizer" in doc else None)
-    chain.transformations = [RigidTransformation()]
+    # the transformation follows the minimizer (reference: ICP.cpp:145-148)
+    name = (parse_module_spec(doc["errorMinimizer"])[0]
+            if "errorMinimizer" in doc else "")
+    chain.transformations = [SimilarityTransformation() if "Similarity" in name
+                             else RigidTransformation()]
     chain.checkers = _create_list(TransformationCheckerRegistrar,
                                   doc.get("transformationCheckers"))
     chain.inspector = (_create(InspectorRegistrar, doc["inspector"])

@@ -3,7 +3,8 @@
 The same names and meanings as ``libpointmatcher_tpu.errors``:
 ``ConvergenceError`` when ICP cannot proceed (empty cloud after filtering,
 no inliers, NaN differential, out-of-bound transform); the configuration
-errors when a module name or parameter is wrong."""
+errors when a module name or parameter is wrong; ``TransformationError``
+when a transformation matrix fails its validity check."""
 
 from __future__ import annotations
 
@@ -14,6 +15,11 @@ class PointMatcherError(RuntimeError):
 
 class ConvergenceError(PointMatcherError):
     """ICP could not converge / cannot proceed."""
+
+
+class TransformationError(PointMatcherError):
+    """A transformation matrix fails its validity check (a rotation block
+    that is not orthogonal)."""
 
 
 class InvalidField(PointMatcherError):

@@ -36,7 +36,7 @@ from .filters.base import apply_filter_chain
 from .inspectors import NullInspector
 from .loggers import log_info, log_warning
 from .minimizers import MinimizerStats
-from .outlierfilters import compute_outlier_weights
+from .outlierfilters import compute_outlier_weights, init_outlier_states
 from .transformations import RigidTransformation
 from .utils import prng, se3
 
@@ -127,6 +127,14 @@ class ICPChainBase:
 
     def get_nb_rejected_points(self) -> int:
         return int(self._stats().nb_rejected_points)
+
+    def get_covariance(self) -> np.ndarray:
+        """The transform's 6x6 covariance from a WithCov minimizer, one per
+        scan after a serving call (reference: PointToPlaneWithCov.cpp:157-162)."""
+        if self.last_stats is None or self.last_stats.covariance is None:
+            raise RuntimeError(
+                "no covariance available: run a *WithCov error minimizer first")
+        return self.last_stats.covariance.cpu().numpy()
 
     def _stats(self) -> MinimizerStats:
         if self.last_stats is None:
@@ -249,10 +257,11 @@ class ICP(ICPChainBase):
         # frame composition (reference: ICP.cpp:444-448)
         return T_refIn_refMean @ T_iter @ T_refMean_dataIn
 
-    def _step(self, reading, reference, T_iter, checker_states, iteration,
-              matcher_aux=None, matcher_state=None, checkers=None):
+    def _step(self, reading, reference, T_iter, checker_states, outlier_states,
+              iteration, matcher_aux=None, matcher_state=None, checkers=None):
         """One iteration (the JAX engine's ``_make_step``), for one scan or
-        a batch. With ``matcher_aux`` the matcher serves through its
+        a batch, with the checkers' and the outlier filters' loop states.
+        With ``matcher_aux`` the matcher serves through its
         stateful route, returning its new loop state, if it has one, or
         takes the tables as ``aux``. ``checkers`` replaces the chain's own
         (the coarse pass of the queue)."""
@@ -266,8 +275,8 @@ class ICP(ICPChainBase):
                                                     aux=matcher_aux)
         else:
             matches = self.matcher.find_closests_in(stepped, reference)
-        weights = compute_outlier_weights(self.outlier_filters, stepped,
-                                          reference, matches)
+        weights, outlier_states = compute_outlier_weights(
+            self.outlier_filters, stepped, reference, matches, outlier_states)
         usable = torch.isfinite(matches.dists) & (weights != 0.0)
         no_inliers = ~usable.flatten(-2).any(dim=-1)
         T_delta, stats = self.error_minimizer.compute(stepped, reference,
@@ -285,7 +294,8 @@ class ICP(ICPChainBase):
             code = torch.maximum(code, c)
         code = torch.where(no_inliers, CODE_NO_INLIERS, code).to(torch.int32)
         iterate = iterate & ~no_inliers
-        return T_new, new_states, iterate, code, stats, matcher_state
+        return T_new, new_states, outlier_states, iterate, code, stats, \
+            matcher_state
 
     def _stateful_matcher(self) -> bool:
         """True when the matcher carries loop state (the survivor route)."""
@@ -336,6 +346,7 @@ class ICP(ICPChainBase):
         d = reading.dim
         T_iter = se3.identity(d, dev).expand(*bshape, d + 1, d + 1).clone()
         states = [c.init_state(T_iter) for c in self.checkers]
+        ostates = init_outlier_states(self.outlier_filters, bshape, dev)
         mstate = (self.matcher.loop_state_init(reading, matcher_aux)
                   if matcher_aux is not None and self._stateful_matcher()
                   else None)
@@ -345,8 +356,8 @@ class ICP(ICPChainBase):
         if not bshape:
             code = 0
             while True:
-                T_iter, states, iterate, c, stats, mstate = self._step(
-                    reading, reference, T_iter, states, iteration,
+                T_iter, states, ostates, iterate, c, stats, mstate = self._step(
+                    reading, reference, T_iter, states, ostates, iteration,
                     matcher_aux, mstate)
                 if track is not None:
                     motion = torch.maximum(motion, track(T_iter))
@@ -362,14 +373,15 @@ class ICP(ICPChainBase):
         stats = None
         while True:
             live = reading.with_mask(active[..., None])
-            T_new, new_states, iterate, c, new_stats, new_mstate = self._step(
-                live, reference, T_iter, states, iteration, matcher_aux,
-                mstate)
+            (T_new, new_states, new_ostates, iterate, c, new_stats,
+             new_mstate) = self._step(live, reference, T_iter, states, ostates,
+                                      iteration, matcher_aux, mstate)
             if track is not None:
                 motion = torch.where(active, torch.maximum(motion, track(T_new)),
                                      motion)
             T_iter = _keep_active(active, T_new, T_iter)
             states = _keep_active(active, new_states, states)
+            ostates = _keep_active(active, new_ostates, ostates)
             mstate = _keep_active(active, new_mstate, mstate)
             stats = (new_stats if stats is None
                      else _keep_active(active, new_stats, stats))
@@ -396,10 +408,11 @@ class ICP(ICPChainBase):
         in lane order: the lanes' rows, and their rows of the per-scan
         matcher tables ``pool_aux`` (``[Q, ...]`` each, beside the shared
         ``matcher_aux``), are gathered from the pools again, and that
-        lane's pose is set to the scan's ``T0``, its checker states,
-        iteration count, code, matcher loop state and displacement bound
-        started afresh. A lane left without a scan is masked out of the
-        remaining steps."""
+        lane's pose is set to the scan's ``T0``, its checker and outlier
+        filter states, iteration count, code, matcher loop state and
+        displacement bound started afresh; each call, so each pass of the
+        coarse-to-fine queue, starts every lane so. A lane left without a
+        scan is masked out of the remaining steps."""
         checkers = list(self.checkers if checkers is None else checkers)
         q = pool.points.shape[0]
         dev = pool.device
@@ -411,6 +424,7 @@ class ICP(ICPChainBase):
         aux = _lane_aux(matcher_aux, pool_aux, lane_now)
         T_iter = T0[:n_lanes].clone()
         states = _lane_form([c.init_state(T_iter) for c in checkers], n_lanes, dev)
+        ostates = init_outlier_states(self.outlier_filters, (n_lanes,), dev)
         stateful = aux is not None and self._stateful_matcher()
         mstate = self.matcher.loop_state_init(reading, aux) if stateful else None
         track = self._motion_tracker(reading, aux)
@@ -423,8 +437,8 @@ class ICP(ICPChainBase):
         out_motion = torch.zeros(q, device=dev)
         out_stats = None
         while True:
-            T_iter, states, iterate, c, stats, mstate = self._step(
-                reading, reference, T_iter, states, iters, aux, mstate,
+            T_iter, states, ostates, iterate, c, stats, mstate = self._step(
+                reading, reference, T_iter, states, ostates, iters, aux, mstate,
                 checkers)
             if track is not None:
                 motion = torch.maximum(motion, track(T_iter))
@@ -468,6 +482,8 @@ class ICP(ICPChainBase):
                                  T_iter)
             states = _keep_active(fresh, _lane_form(
                 [c.init_state(T_iter) for c in checkers], n_lanes, dev), states)
+            ostates = _keep_active(fresh, init_outlier_states(
+                self.outlier_filters, (n_lanes,), dev), ostates)
             iters = torch.where(fresh, 0, iters)
             code = torch.where(fresh, 0, code)
             if mstate is not None:

@@ -22,18 +22,26 @@ from .registry import Param, Parametrizable, Registrar
 from .utils import se3
 
 __all__ = ["ErrorMinimizer", "ErrorMinimizerRegistrar", "MinimizerStats",
-           "Pairs", "gather_rows", "make_pairs", "build_stats", "rejection_counts",
-           "solve_possibly_underdetermined", "PointToPlaneErrorMinimizer"]
+           "Pairs", "gather_rows", "make_pairs", "gather_pair_descriptor",
+           "build_stats", "rejection_counts", "solve_possibly_underdetermined",
+           "IdentityErrorMinimizer", "PointToPointErrorMinimizer",
+           "PointToPointSimilarityErrorMinimizer", "PointToPlaneErrorMinimizer",
+           "PointToPointWithCovErrorMinimizer",
+           "PointToPlaneWithCovErrorMinimizer"]
 
 ErrorMinimizerRegistrar = Registrar("ErrorMinimizer")
 
 
 class MinimizerStats(NamedTuple):
+    """The JAX package's fields, in its order."""
+
     point_used_ratio: torch.Tensor
     weighted_point_used_ratio: torch.Tensor
     residual: torch.Tensor
-    nb_rejected_matches: torch.Tensor
-    nb_rejected_points: torch.Tensor
+    #: [..., 6, 6] for the WithCov minimizers, else None
+    covariance: Optional[torch.Tensor] = None
+    nb_rejected_matches: object = 0
+    nb_rejected_points: object = 0
     #: the engine's running bound on reading-point displacement, for a
     #: bounded-search matcher served with loop tables (else None)
     motion_max: Optional[torch.Tensor] = None
@@ -46,6 +54,7 @@ class Pairs(NamedTuple):
     read: torch.Tensor    # [..., P, d]
     ref: torch.Tensor     # [..., P, d]
     ids: torch.Tensor     # [..., P] reference row ids (0 where invalid)
+    valid: torch.Tensor   # [..., P] bool
 
 
 def _valid_pairs(weights, matches):
@@ -73,7 +82,18 @@ def make_pairs(reading, reference, weights, matches) -> Pairs:
         w=torch.where(valid, weights, torch.zeros_like(weights)).reshape(*b, -1),
         read=reading.points[..., None, :].expand(*b, n, k, d).reshape(*b, -1, d),
         ref=gather_rows(reference.points, ids),
-        ids=ids)
+        ids=ids,
+        valid=valid.reshape(*b, -1))
+
+
+def gather_pair_descriptor(cloud_desc: torch.Tensor, pairs: Pairs, side: str,
+                           knn: int) -> torch.Tensor:
+    """Descriptor values per pair: the reading's repeat over its ``knn``
+    matches, the reference's are gathered at the matched rows."""
+    if side == "reading":
+        *b, n, sp = cloud_desc.shape
+        return cloud_desc[..., None, :].expand(*b, n, knn, sp).reshape(*b, -1, sp)
+    return gather_rows(cloud_desc, pairs.ids)
 
 
 def _used_ratios(reading, weights, matches):
@@ -97,10 +117,11 @@ def rejection_counts(reading, weights, matches):
     return rejected_matches, rejected_points
 
 
-def build_stats(reading, weights, matches, residual) -> MinimizerStats:
+def build_stats(reading, weights, matches, residual,
+                covariance=None) -> MinimizerStats:
     pr, wr = _used_ratios(reading, weights, matches)
     rm, rp = rejection_counts(reading, weights, matches)
-    return MinimizerStats(pr, wr, residual, rm, rp)
+    return MinimizerStats(pr, wr, residual, covariance, rm, rp)
 
 
 def solve_possibly_underdetermined(A: torch.Tensor, b: torch.Tensor):
@@ -123,8 +144,93 @@ def solve_possibly_underdetermined(A: torch.Tensor, b: torch.Tensor):
 class ErrorMinimizer(Parametrizable):
     """Interface (reference: PointMatcher.h:527-577)."""
 
+    #: whether compute() fills MinimizerStats.covariance (the WithCov ones)
+    PRODUCES_COVARIANCE = False
+
     def compute(self, reading, reference, weights, matches):
         raise NotImplementedError
+
+    def residual_error(self, reading, reference, weights, matches):
+        pairs = make_pairs(reading, reference, weights, matches)
+        return self._residual(pairs, reading, reference)
+
+    def _residual(self, pairs: Pairs, reading, reference):
+        """Point-to-point residual Σ‖Δ‖ over the kept pairs, unweighted
+        (reference: PointToPoint.cpp:155-164)."""
+        norms = torch.linalg.norm(pairs.read - pairs.ref, dim=-1)
+        return torch.sum(torch.where(pairs.valid, norms, torch.zeros_like(norms)),
+                         dim=-1)
+
+
+@ErrorMinimizerRegistrar.register
+class IdentityErrorMinimizer(ErrorMinimizer):
+    """Returns the identity transform (reference: ErrorMinimizers/Identity.cpp)."""
+
+    def compute(self, reading, reference, weights, matches):
+        bshape = matches.dists.shape[:-2]
+        d = reading.dim
+        T = se3.identity(d, reading.device).expand(*bshape, d + 1, d + 1).clone()
+        residual = torch.zeros(bshape, dtype=torch.float32, device=reading.device)
+        return T, build_stats(reading, weights, matches, residual)
+
+
+def _kabsch(pairs: Pairs, d: int, with_scale: bool = False) -> torch.Tensor:
+    """Weighted Kabsch/Umeyama solve of the point-to-point family, one per
+    scan (reference: PointToPoint.cpp:62-101,
+    PointToPointSimilarity.cpp:60-97)."""
+    w = pairs.w
+    wsum = torch.clamp(torch.sum(w, dim=-1), min=1e-20)[..., None]
+    mean_read = torch.sum(w[..., None] * pairs.read, dim=-2) / wsum
+    mean_ref = torch.sum(w[..., None] * pairs.ref, dim=-2) / wsum
+    rc = pairs.read - mean_read[..., None, :]
+    fc = pairs.ref - mean_ref[..., None, :]
+    # cross-covariance m = referenceᵀ·diag(w)·reading → [..., d, d], summed
+    # by a reduction over the pairs (a GEMM with tens of thousands of terms
+    # in its inner dimension adds them in long runs: its rounding on the
+    # card and on the CPU drifts apart by ~1e-5 relative)
+    m = torch.sum((fc * w[..., None])[..., :, None] * rc[..., None, :], dim=-3)
+    U, S, Vh = torch.linalg.svd(m)
+    det = torch.linalg.det(U @ Vh)
+    # Sorkine's reflection fix: flip the last singular vector when a
+    # proper rotation needs it (reference: PointToPoint.cpp:86-94)
+    flip = torch.where(det < 0.0, -1.0, 1.0)
+    D = torch.ones_like(S)
+    D[..., -1] = flip
+    R = (U * D[..., None, :]) @ Vh
+    if with_scale:
+        sigma = torch.sum(w * torch.sum(rc * rc, dim=-1), dim=-1)
+        s_signed = S.clone()
+        s_signed[..., -1] = S[..., -1] * flip
+        scale = torch.sum(s_signed, dim=-1) / torch.clamp(sigma, min=1e-20)
+        scale = torch.where(sigma < 1e-4, torch.ones_like(scale), scale)
+        t = mean_ref - scale[..., None] * (R @ mean_read[..., None])[..., 0]
+        return se3.from_rt(scale[..., None, None] * R, t)
+    t = mean_ref - (R @ mean_read[..., None])[..., 0]
+    return se3.from_rt(R, t)
+
+
+@ErrorMinimizerRegistrar.register
+class PointToPointErrorMinimizer(ErrorMinimizer):
+    """Weighted Kabsch rigid solve (reference: ErrorMinimizers/PointToPoint.cpp,
+    \\cite{Besl1992Point2Point})."""
+
+    def compute(self, reading, reference, weights, matches):
+        pairs = make_pairs(reading, reference, weights, matches)
+        T = _kabsch(pairs, reading.dim)
+        return T, build_stats(reading, weights, matches,
+                              self._residual(pairs, reading, reference))
+
+
+@ErrorMinimizerRegistrar.register
+class PointToPointSimilarityErrorMinimizer(ErrorMinimizer):
+    """Umeyama similarity solve: rotation, translation and uniform scale
+    (reference: ErrorMinimizers/PointToPointSimilarity.cpp)."""
+
+    def compute(self, reading, reference, weights, matches):
+        pairs = make_pairs(reading, reference, weights, matches)
+        T = _kabsch(pairs, reading.dim, with_scale=True)
+        return T, build_stats(reading, weights, matches,
+                              self._residual(pairs, reading, reference))
 
 
 @ErrorMinimizerRegistrar.register
@@ -144,7 +250,8 @@ class PointToPlaneErrorMinimizer(ErrorMinimizer):
         if self.force2D and self.force4DOF:
             raise InvalidParameter("force2D and force4DOF are mutually exclusive")
 
-    def compute(self, reading, reference, weights, matches):
+    def _solve(self, reading, reference, weights, matches):
+        """→ ``(T, pairs, normals [..., P, d], dot [..., P])``."""
         d = reading.dim
         pairs = make_pairs(reading, reference, weights, matches)
         normals = gather_rows(reference.get_descriptor("normals"),
@@ -184,5 +291,108 @@ class PointToPlaneErrorMinimizer(ErrorMinimizer):
             T = se3.from_rt(se3.rodrigues(axis * x[..., :1]), x[..., 1:4])
         else:
             T = se3.from_rt(se3.rodrigues(x[..., :3]), x[..., 3:6])
-        residual = torch.sum(w * dot * dot, dim=-1)
+        return T, pairs, normals, dot
+
+    def compute(self, reading, reference, weights, matches):
+        T, pairs, _, dot = self._solve(reading, reference, weights, matches)
+        residual = torch.sum(pairs.w * dot * dot, dim=-1)
         return T, build_stats(reading, weights, matches, residual)
+
+    def residual_error(self, reading, reference, weights, matches):
+        pairs = make_pairs(reading, reference, weights, matches)
+        normals = gather_pair_descriptor(reference.get_descriptor("normals"),
+                                         pairs, "reference",
+                                         matches.dists.shape[-1])
+        dot = torch.sum((pairs.read - pairs.ref) * normals, dim=-1)
+        return torch.sum(pairs.w * dot * dot, dim=-1)
+
+
+#: the JAX package's pinv cutoff for a 6x6 matrix, 10·6·eps(float32),
+#: relative to the largest singular value (``jnp.linalg.pinv``'s default)
+_PINV_RTOL = 10.0 * 6 * 2.0 ** -23
+
+
+def _pinv(A: torch.Tensor) -> torch.Tensor:
+    """Pseudo-inverse as ``jnp.linalg.pinv`` forms it: singular values at
+    or below ``_PINV_RTOL`` times the largest are dropped."""
+    U, S, Vh = torch.linalg.svd(A, full_matrices=False)
+    S = torch.where(S > _PINV_RTOL * S[..., :1], S, torch.full_like(S, float("inf")))
+    return Vh.mT @ (U.mT / S[..., None])
+
+
+def _censi_covariance(pairs: Pairs, normals, T, sensor_std_dev: float):
+    """Censi's 6x6 covariance of the estimated transform, one per scan
+    (reference: PointToPlaneWithCov.cpp:73-162 and PointToPointWithCov.cpp:
+    62-150, \\cite{Censi2007ICPCovariance})."""
+    # Euler angles of each scan's transform (the reference's convention)
+    beta = -torch.asin(torch.clamp(T[..., 2, 0], -1.0, 1.0))
+    cosb = torch.cos(beta)
+    alpha = torch.atan2(T[..., 2, 1], T[..., 2, 2])
+    gamma = torch.atan2(T[..., 1, 0] / cosb, T[..., 0, 0] / cosb)
+    a, b, g = alpha[..., None], beta[..., None], gamma[..., None]
+    t = T[..., :3, 3, None]                     # [..., 3, 1]: over the pairs
+
+    p, q, n = pairs.read, pairs.ref, normals    # [..., P, 3]
+    m = pairs.valid.to(p.dtype)[..., None]
+
+    rr = torch.clamp(torch.linalg.norm(p, dim=-1), min=1e-20)
+    rd = p / rr[..., None]
+    fr = torch.clamp(torch.linalg.norm(q, dim=-1), min=1e-20)
+    fd = q / fr[..., None]
+    n0, n1, n2 = n[..., 0], n[..., 1], n[..., 2]
+    n_abg = torch.stack([n2 * rd[..., 1] - n1 * rd[..., 2],
+                         n0 * rd[..., 2] - n2 * rd[..., 0],
+                         n1 * rd[..., 0] - n0 * rd[..., 1]], dim=-1)
+    E = (n0 * (p[..., 0] - g * p[..., 1] + b * p[..., 2] + t[..., 0, :] - q[..., 0])
+         + n1 * (g * p[..., 0] + p[..., 1] - a * p[..., 2] + t[..., 1, :] - q[..., 1])
+         + n2 * (-b * p[..., 0] + a * p[..., 1] + p[..., 2] + t[..., 2, :] - q[..., 2]))
+    N_read = (n0 * (rd[..., 0] - g * rd[..., 1] + b * rd[..., 2])
+              + n1 * (g * rd[..., 0] + rd[..., 1] - a * rd[..., 2])
+              + n2 * (-b * rd[..., 0] + a * rd[..., 1] + rd[..., 2]))
+    N_ref = -torch.sum(n * fd, dim=-1)
+
+    v_h = torch.cat([n, rr[..., None] * n_abg], dim=-1)            # [..., P, 6]
+    J_hessian = (v_h * m).mT @ v_h
+    coef_read = E + rr * N_read
+    v_read = torch.cat([n * N_read[..., None], n_abg * coef_read[..., None]], dim=-1)
+    v_ref = torch.cat([n * N_ref[..., None], (fr * N_ref)[..., None] * n_abg], dim=-1)
+    d2 = (v_read * m).mT @ v_read + (v_ref * m).mT @ v_ref
+    inv_h = _pinv(J_hessian)
+    return (sensor_std_dev * sensor_std_dev) * (inv_h @ d2 @ inv_h)
+
+
+@ErrorMinimizerRegistrar.register
+class PointToPointWithCovErrorMinimizer(PointToPointErrorMinimizer):
+    """PointToPoint and the Censi covariance of its transform
+    (reference: ErrorMinimizers/PointToPointWithCov.cpp)."""
+
+    PRODUCES_COVARIANCE = True
+    PARAMS = (
+        Param("sensorStdDev", "sensor noise standard deviation", float, 0.01,
+              min=0.0),
+    )
+
+    def compute(self, reading, reference, weights, matches):
+        T, stats = super().compute(reading, reference, weights, matches)
+        pairs = make_pairs(reading, reference, weights, matches)
+        cov = _censi_covariance(pairs, torch.ones_like(pairs.read), T,
+                                self.sensorStdDev)
+        return T, stats._replace(covariance=cov)
+
+
+@ErrorMinimizerRegistrar.register
+class PointToPlaneWithCovErrorMinimizer(PointToPlaneErrorMinimizer):
+    """PointToPlane and the Censi covariance of its transform
+    (reference: ErrorMinimizers/PointToPlaneWithCov.cpp)."""
+
+    PRODUCES_COVARIANCE = True
+    PARAMS = PointToPlaneErrorMinimizer.PARAMS + (
+        Param("sensorStdDev", "sensor noise standard deviation", float, 0.01,
+              min=0.0),
+    )
+
+    def compute(self, reading, reference, weights, matches):
+        T, pairs, normals, dot = self._solve(reading, reference, weights, matches)
+        residual = torch.sum(pairs.w * dot * dot, dim=-1)
+        cov = _censi_covariance(pairs, normals, T, self.sensorStdDev)
+        return T, build_stats(reading, weights, matches, residual, cov)

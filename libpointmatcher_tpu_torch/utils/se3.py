@@ -7,7 +7,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["identity", "inverse", "from_rt", "apply", "rodrigues", "rot2d",
-           "rotation_angle_between"]
+           "rotation_angle_between", "orthogonalize"]
 
 
 def identity(dim: int, device=None) -> torch.Tensor:
@@ -99,3 +99,16 @@ def rotation_angle_between(Ra: torch.Tensor, Rb: torch.Tensor) -> torch.Tensor:
     diag = [_fma_dot3(Ra[..., i, :], Rb[..., i, :]) for i in range(3)]
     tr = (diag[0] + diag[1]) + diag[2]
     return torch.arccos(torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0))
+
+
+def orthogonalize(T: torch.Tensor) -> torch.Tensor:
+    """Project each rotation block onto SO(d) through its SVD (the polar
+    decomposition): the recovery of a drifted rotation
+    (reference: TransformationsImpl.cpp:109-151)."""
+    d = T.shape[-1] - 1
+    U, _, Vh = torch.linalg.svd(T[..., :d, :d])
+    D = torch.ones(T.shape[:-2] + (d,), dtype=T.dtype, device=T.device)
+    D[..., -1] = torch.linalg.det(U @ Vh)
+    out = T.clone()
+    out[..., :d, :d] = (U * D[..., None, :]) @ Vh
+    return out

@@ -8,8 +8,10 @@ sweep against
 dense K1 within maxDist, JAX's threefry draws formed on the card against
 the same draws on the CPU, registrations, batch and queue serving (the
 tile route too) and pair-parallel one-shot ICP on the card against the same
-calls on the CPU, and the v1 skip routes' batch against the survivor
-route's. Every test
+calls on the CPU, the v1 skip routes' batch against the survivor
+route's, and the loop modules (outlier filters, minimizers, transformations)
+and their YAML chains on the card against the CPU at the tolerances of
+tools_torch/loop_modules.py. Every test
 needs a CUDA device and skips without one. The file imports neither JAX
 nor the JAX package, so it runs on a machine with the card alone:
 
@@ -48,6 +50,7 @@ from libpointmatcher_tpu_torch.parallel.batch import _pad_tile_aux_np
 from libpointmatcher_tpu_torch.utils import prng
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools_torch"))
+import loop_modules  # noqa: E402
 import tile_micro  # noqa: E402
 import torch_survivor_emulation as em  # noqa: E402
 
@@ -956,3 +959,70 @@ def test_draws_on_card_equal_cpu(cuda, seed, n):
     u = prng.uniform((k0.to(cuda), k1.to(cuda)), n)
     assert u.device.type == "cuda"
     assert torch.equal(u.cpu(), prng.uniform((k0, k1), n, "cpu"))
+
+
+def _loop_scene(seed, scans=3, rows=4000):
+    rng = np.random.default_rng(seed)
+    world = _room(rng, 20000)
+    shift = np.float32([0.05, -0.03, 0.02])
+    return world, [world[rng.choice(len(world), rows, replace=False)] + shift
+                   for _ in range(scans)]
+
+
+@pytest.mark.parametrize("layout", ["one", "batch"])
+@pytest.mark.parametrize("knn", [1, 3])
+def test_loop_modules_on_card_match_cpu(cuda, knn, layout):
+    """Every outlier filter, minimizer and transformation at a recorded
+    step (one scan through ICPSequence.compute, or three through
+    register_batch_to_map) on the card against the same modules on the
+    CPU (tools_torch/loop_modules.py: weights equal, Robust within 1e-6
+    relative, transforms within 1e-5, covariances within 1e-4)."""
+    world, scans = _loop_scene(9)
+    seq = pt.ICPSequence(device=cuda)
+    seq.load_from_yaml(loop_modules.chain_yaml("cov_median_normal", knn=knn))
+    seq.set_map(pt.PointCloud.from_numpy(world, device=cuda))
+    clouds = [pt.PointCloud.from_numpy(s, device=cuda) for s in scans]
+    run = ((lambda: seq.compute(clouds[0])) if layout == "one"
+           else (lambda: register_batch_to_map(seq, clouds)))
+    step = loop_modules.record_step(run)
+    assert step[2].dists.shape[-1] == knn
+    assert step[2].dists.ndim == (2 if layout == "one" else 3)
+    records = loop_modules.check_modules(*step, f"knn={knn}", reps=1,
+                                         log=lambda msg: None)
+    assert len(records) == (len(loop_modules.FILTERS) + len(loop_modules.ROBUST)
+                            + len(loop_modules.MINIMIZERS)
+                            + len(loop_modules.TRANSFORMATIONS))
+
+
+@pytest.mark.parametrize("chain", [c for c in loop_modules.CHAINS if c != "default"])
+def test_loop_chains_on_card_match_cpu(cuda, chain):
+    """Each chain of tools_torch/loop_modules.py at a fixed budget of 6
+    iterations (Counter alone, so that no stop threshold meets float32
+    noise) through register_batch_to_map of three scans, and the Robust
+    chain through register_queue_to_map (2 lanes, so that each lane takes a
+    second scan and restarts its Robust state): the card's poses within
+    1e-4 of the CPU's (the module-parity rule: six iterations of float32
+    noise, each of which may move a pair across the trimming limit), the
+    covariances within 1e-4 of their largest entry."""
+    world, scans = _loop_scene(10)
+    text = loop_modules.chain_yaml(chain, stop=(6, None))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        seq = pt.ICPSequence(device=dev)
+        seq.load_from_yaml(text)
+        seq.set_map(pt.PointCloud.from_numpy(world, device=dev))
+        clouds = [pt.PointCloud.from_numpy(s, device=dev) for s in scans]
+        T, info = register_batch_to_map(seq, clouds, seed=2)
+        cov = (seq.get_covariance() if seq.error_minimizer.PRODUCES_COVARIANCE
+               else None)
+        Tq = (register_queue_to_map(seq, clouds, seed=2, lanes=2)[0]
+              if chain == "p2plane_robust" else None)
+        out[dev] = T, info, cov, Tq
+    (Tc, ic, cc, qc), (Tg, ig, cg, qg) = out["cpu"], out["cuda"]
+    np.testing.assert_array_equal(ig["iterations"], ic["iterations"])
+    np.testing.assert_allclose(Tg, Tc, atol=1e-4)
+    if cc is not None:
+        assert np.abs(cg - cc).max() <= 1e-4 * np.abs(cc).max()
+    if qc is not None:
+        np.testing.assert_allclose(qg, qc, atol=1e-4)
+        np.testing.assert_allclose(qc, Tc, atol=1e-5)

@@ -157,7 +157,7 @@ def test_trimmed_dist_weights():
     wj = np.asarray(JTrim({"ratio": "0.85"}).compute(
         None, None, JMatches(jnp.asarray(d), jnp.asarray(ids)), ())[0])
     wt = TrimmedDistOutlierFilter({"ratio": "0.85"}).compute(
-        None, None, Matches(torch.from_numpy(d), torch.from_numpy(ids))).numpy()
+        None, None, Matches(torch.from_numpy(d), torch.from_numpy(ids)), ())[0].numpy()
     np.testing.assert_array_equal(wt, wj)
 
 

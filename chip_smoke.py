@@ -173,7 +173,30 @@ Phases, each fatal on failure:
    (K2 and K3 launches equal the lockstep iterations) and, for the Robust
    chain, ``register_queue_to_map`` of 16 of phase 11's scans through 8
    lanes; every pose under the gates, ``get_covariance`` finite, symmetric
-   and positive semi-definite; ms per iteration and launches logged.
+   and positive semi-definite; ms per iteration and launches logged;
+22. the engine features (no kernel of their own; each run through K1, K2 +
+   K3 or K7): a FixStepSampling step filter (startStep 4, endStep 1,
+   stepMult 0.5) on a sequence of 2 scans on phase 4's map, in the loop and
+   forced through the stepped driver (the same iterations, poses within
+   1e-5), a RandomSampling step filter (prob 0.5, the stepped driver), and
+   FixStep on the batch of phase 7's 8 scans on the ~30 000-row map and a
+   queue of 16 of phase 11's scans through 8 lanes (the queue gives the
+   batch's iterations and poses within 1e-5); Anderson acceleration on the
+   sequence and the batch beside the plain loop, summed iterations logged,
+   the card's Anderson pose at a fixed budget of 10 iterations within 1e-5
+   of the CPU's on the same inputs (a 4000-point scan, a 12 000-point
+   scene), and the accelerated queue served as a batch and equal to it;
+   one ``ICP`` with ``PerformanceInspector`` (the ten statistics, touched
+   pairs = iterations × valid reading × valid map), a tile-route batch on
+   phase 13's terrain reporting its per-scan tile pairs, ``VTKFileInspector``
+   (binary, reading and links: one file of each an iteration) and a
+   ``FileLogger`` holding the engine's line; ``SimpleSensorNoise`` on the
+   reading: ``get_overlap()`` equal to ``estimate_overlap`` on the CPU at
+   the same final matches (one pair of slack for the mean's sum order);
+   every pose under the gates, the launches following each route, ms per
+   iteration logged beside the card's name and power limit (each sequence
+   chain, batch, queue and one-shot after one untimed call, beside a
+   one-shot with the null inspector).
 
 The second-to-last line is the JSON of kernels, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
@@ -1862,6 +1885,284 @@ def loop_chains(torch, pt, world, poses, scans, k3, launches, rng):
         torch.cuda.empty_cache()
 
 
+ENGINE_STATS = ("ReferencePreprocessingDuration", "ReferenceInPointCount",
+                "ReferencePointCount", "ReadingPreprocessingDuration",
+                "ReadingInPointCount", "ReadingPointCount", "IterationsCount",
+                "PointCountTouched", "OverlapRatio", "ConvergenceDuration")
+FIXSTEP = {"startStep": "4", "endStep": "1", "stepMult": "0.5"}
+
+
+def engine_features(torch, pt, world, poses, scans, k3, launches, smi, rng):
+    """Phase 22: the reading step filters and the stepped driver, Anderson
+    acceleration, the inspectors with the engine's statistics and visit
+    counts, the loggers and the overlap estimate, on scenes of phases 4, 7,
+    11 and 13 (see the module docstring)."""
+    import tempfile
+
+    from libpointmatcher_tpu_torch import icp as icp_mod
+    from libpointmatcher_tpu_torch import loggers
+    from libpointmatcher_tpu_torch.checkers import CounterTransformationChecker
+    from libpointmatcher_tpu_torch.filters import (
+        FixStepSamplingDataPointsFilter, RandomSamplingDataPointsFilter,
+        SimpleSensorNoiseDataPointsFilter)
+    from libpointmatcher_tpu_torch.inspectors import (PerformanceInspector,
+                                                      VTKFileInspector)
+    from libpointmatcher_tpu_torch.matchers import Matches
+    from libpointmatcher_tpu_torch.minimizers import estimate_overlap
+    from libpointmatcher_tpu_torch.ops import tile_cuda as tc
+    from libpointmatcher_tpu_torch.parallel import (register_batch_to_map,
+                                                    register_queue_to_map)
+    from libpointmatcher_tpu_torch.parallel.stream import queue_eligible
+
+    rows = {}
+
+    def record(label, ms, iters, **extra):
+        rows[label] = dict(ms=round(ms, 2), iterations=iters,
+                           ms_per_iteration=round(ms / max(iters, 1), 3), **extra)
+        log(f"[engine] {label}: " + json.dumps(rows[label]))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t)
+
+    # ---- 22a. step filters on the sequence (K1, phase 4's map)
+    seq = pt.ICPSequence()
+    seq.set_default()
+    seq.set_map(pt.PointCloud.from_numpy(world), seed=0)
+    inits = {i: perturb(rng) @ poses[i] for i in (1, 2)}
+
+    def run_sequence(label):
+        # one untimed registration first: a chain's first call on the card
+        # loads the kernels of operations it has not run before
+        seq.compute(pt.PointCloud.from_numpy(scans[1]), T_init=inits[1], seed=1)
+        reset_launch_counts()
+        out, iters, ms = [], [], 0.0
+        for i in (1, 2):
+            T, t_ms = timed(lambda: seq.compute(pt.PointCloud.from_numpy(scans[i]),
+                                                T_init=inits[i], seed=i))
+            out.append(T.cpu().numpy())
+            iters.append(seq.last_iteration_count)
+            ms += t_ms
+        counts = launches()
+        if counts["K1"] != sum(iters) or counts["K2"] or counts["K5"]:
+            raise AssertionError(f"{label}: launches {counts}, iterations {iters}")
+        gates(out, [poses[1], poses[2]], label)
+        record(label, ms, sum(iters), per_scan=iters)
+        return np.stack(out), iters
+
+    _, it_plain_seq = run_sequence("sequence plain")
+    seq.reading_step_filters = [FixStepSamplingDataPointsFilter(FIXSTEP)]
+    T_fix, it_fix = run_sequence("sequence FixStep in the loop")
+    seq._step_chain_traced = lambda: False
+    try:
+        T_st, it_st = run_sequence("sequence FixStep, stepped driver")
+    finally:
+        del seq._step_chain_traced
+    if it_st != it_fix or not np.allclose(T_st, T_fix, atol=1e-5, rtol=0):
+        raise AssertionError(f"stepped FixStep: iterations {it_st} vs {it_fix}, "
+                             f"pose difference {np.abs(T_st - T_fix).max()}")
+    log(f"[engine] FixStep stepped vs in the loop: iterations {it_st}, pose "
+        f"difference {float(np.abs(T_st - T_fix).max()):.3g}")
+    seq.reading_step_filters = [RandomSamplingDataPointsFilter({"prob": "0.5"})]
+    run_sequence("sequence RandomSampling step, stepped driver")
+
+    # ---- 22b. Anderson on the sequence
+    seq.reading_step_filters = []
+    seq.acceleration = "anderson"
+    _, it_aa_seq = run_sequence("sequence Anderson")
+    seq.acceleration = None
+    log(f"[engine] sequence iterations: plain {sum(it_plain_seq)}, Anderson "
+        f"{sum(it_aa_seq)}")
+
+    # ---- 22a/b. the batch (K2 + K3, phase 7's scans) and the queue (16 scans)
+    b_seq = pt.ICPSequence()
+    b_seq.set_default()
+    b_seq.set_map(pt.PointCloud.from_numpy(k3["world"]), seed=0)
+    clouds = [pt.PointCloud.from_numpy(x) for x in k3["scans"]]
+    n_q = 2 * QUEUE_LANES
+    qclouds, qinits, qposes = (k3["qclouds"][:n_q], k3["qinits"][:n_q],
+                               k3["qposes"][:n_q])
+
+    def run_batch(label, cl, ini, ps, queue=False):
+        fn = register_queue_to_map if queue else register_batch_to_map
+        kw = {"lanes": QUEUE_LANES} if queue else {}
+        fn(b_seq, cl, T_inits=ini, seed=1, **kw)          # untimed, as above
+        reset_launch_counts()
+        (T, info), ms = timed(lambda: fn(b_seq, cl, T_inits=ini, seed=1, **kw))
+        counts = launches()
+        it = int(info["iterations"].max())
+        gates(T, ps, label)
+        # one K2 and one K3 launch a lockstep iteration, or a lane iteration
+        # of a queue that serves the chain itself
+        want = (counts["K3"],) * 2 if queue and queue_eligible(b_seq) else (it, it)
+        if (counts["K2"], counts["K3"]) != want or counts["K3"] == 0 or counts["K1"]:
+            raise AssertionError(f"{label}: launches {counts}, lockstep "
+                                 f"iterations {it}")
+        record(label, ms, int(counts["K3"]), per_scan=info["iterations"].tolist())
+        return T, info
+
+    T_b8, i_b8 = run_batch("batch plain", clouds, k3["T_inits"], k3["poses"])
+    b_seq.reading_step_filters = [FixStepSamplingDataPointsFilter(FIXSTEP)]
+    run_batch("batch FixStep", clouds, k3["T_inits"], k3["poses"])
+    Tb, ib = run_batch("batch of 16 FixStep", qclouds, qinits, qposes)
+    if not queue_eligible(b_seq):
+        raise AssertionError("a FixStep chain must stay in the queue")
+    Tq, iq = run_batch("queue of 16 FixStep", qclouds, qinits, qposes, queue=True)
+    if not (np.array_equal(iq["iterations"], ib["iterations"])
+            and np.allclose(Tq, Tb, atol=1e-5, rtol=0)):
+        raise AssertionError(f"FixStep queue {iq['iterations']} vs batch "
+                             f"{ib['iterations']}, pose difference "
+                             f"{np.abs(Tq - Tb).max()}")
+    log(f"[engine] FixStep queue vs batch of 16: iterations equal, pose "
+        f"difference {float(np.abs(Tq - Tb).max()):.3g}")
+    b_seq.reading_step_filters = []
+    b_seq.acceleration = "anderson"
+    _, i_aa8 = run_batch("batch Anderson", clouds, k3["T_inits"], k3["poses"])
+    log(f"[engine] batch iterations summed over scans: plain "
+        f"{int(i_b8['iterations'].sum())}, Anderson {int(i_aa8['iterations'].sum())}")
+    if queue_eligible(b_seq):
+        raise AssertionError("an accelerated chain must not enter the queue")
+    Tb, ib = run_batch("batch of 16 Anderson", qclouds, qinits, qposes)
+    Tq, iq = run_batch("queue of 16 Anderson (as a batch)", qclouds, qinits,
+                       qposes, queue=True)
+    if not (np.array_equal(Tq, Tb) and np.array_equal(iq["iterations"],
+                                                      ib["iterations"])):
+        raise AssertionError("the accelerated queue differs from the batch")
+    del b_seq, clouds
+    torch.cuda.empty_cache()
+
+    # ---- 22b. Anderson at a fixed budget, card against CPU
+    sub_map = world[rng.choice(len(world), min(12000, len(world)), replace=False)]
+    sub_scan = scans[1][rng.choice(len(scans[1]), min(4000, len(scans[1])),
+                                   replace=False)]
+    T0 = perturb(rng) @ poses[1]
+    fixed = {}
+    for dev in ("cuda", "cpu"):
+        s = pt.ICPSequence(device=dev)
+        s.set_default()
+        s.acceleration = "anderson"
+        s.checkers = [CounterTransformationChecker({"maxIterationCount": "10"})]
+        s.set_map(pt.PointCloud.from_numpy(sub_map, device=dev), seed=0)
+        fixed[dev] = s.compute(pt.PointCloud.from_numpy(sub_scan, device=dev),
+                               T_init=T0, seed=1).cpu().numpy()
+    err = float(np.abs(fixed["cuda"] - fixed["cpu"]).max())
+    log(f"[engine] Anderson at 10 iterations, card against CPU: pose "
+        f"difference {err:.3g}")
+    if not err <= 1e-5:
+        raise AssertionError(f"Anderson card pose differs from the CPU's by {err}")
+
+    # ---- 22c. inspectors, statistics, loggers (K1, one-shot)
+    gT = np.linalg.inv(poses[0]) @ poses[1]
+    T_pair = perturb(rng) @ gT
+    icp = pt.ICP()
+    icp.set_default()
+
+    def one_shot():
+        return icp.compute(pt.PointCloud.from_numpy(scans[1]),
+                           pt.PointCloud.from_numpy(scans[0]), T_init=T_pair,
+                           seed=1).cpu().numpy()
+
+    one_shot()                                    # untimed, as above
+    _, ms = timed(one_shot)
+    record("one-shot NullInspector", ms, icp.last_iteration_count)
+    icp.inspector = PerformanceInspector()
+    tmp = tempfile.mkdtemp(prefix="pm_engine_")
+    info_path = os.path.join(tmp, "info.txt")
+    saved = loggers.get_logger()
+    file_logger = loggers.FileLogger({"infoFileName": info_path})
+    loggers.set_logger(file_logger)
+    try:
+        reset_launch_counts()
+        T, ms = timed(one_shot)
+    finally:
+        loggers.set_logger(saved)
+        file_logger.close()
+    iters = icp.last_iteration_count
+    gates([T], [gT], "one-shot PerformanceInspector")
+    stats = icp.inspector.histograms
+    touched = stats["PointCountTouched"].values
+    want = [iters * icp.prefiltered_reading_pts_count
+            * icp.prefiltered_reference_pts_count]
+    if tuple(stats) != ENGINE_STATS or touched != want:
+        raise AssertionError(f"statistics {list(stats)}, touched {touched} vs {want}")
+    if launches()["K1"] != iters:
+        raise AssertionError(f"PerformanceInspector run: launches {launches()}")
+    with open(info_path) as f:
+        text = f.read()
+    if f"PointMatcher::icp - {iters} iterations took" not in text:
+        raise AssertionError(f"FileLogger holds no engine line: {text!r}")
+    record("one-shot PerformanceInspector", ms, iters,
+           stats={k: stats[k].values[0] for k in ENGINE_STATS})
+
+    icp.inspector = VTKFileInspector({
+        "baseFileName": os.path.join(tmp, "run"), "dumpReading": "1",
+        "dumpDataLinks": "1", "writeBinary": "1"})
+    reset_launch_counts()
+    _, ms = timed(one_shot)
+    iters = icp.last_iteration_count
+    files = {role: [f for f in os.listdir(tmp) if f.startswith(f"run-{role}-")]
+             for role in ("reading", "link")}
+    if (any(len(v) != iters for v in files.values())
+            or launches()["K1"] != iters):
+        raise AssertionError(f"VTKFileInspector: {iters} iterations, files "
+                             f"{ {k: len(v) for k, v in files.items()} }, "
+                             f"launches {launches()}")
+    record("one-shot VTKFileInspector (stepped driver, binary dumps)", ms, iters,
+           bytes_per_iteration=sum(os.path.getsize(os.path.join(tmp, f))
+                                   for v in files.values() for f in v) // iters)
+
+    # ---- 22c. the tile route's touched pairs (K7, phase 13's terrain)
+    t_rng = np.random.default_rng(7)
+    map_pts, side = make_terrain(TERRAIN_MAPS[0], t_rng)
+    t_scans, t_poses = make_terrain_scans(map_pts, side, t_rng)
+    tseq = terrain_sequence(pt)
+    tseq.set_map(pt.PointCloud.from_numpy(map_pts), seed=0)
+    t_clouds = [pt.PointCloud.from_numpy(x) for x in t_scans]
+    reset_launch_counts()
+    (T, info), ms = timed(lambda: register_batch_to_map(tseq, t_clouds, seed=1))
+    it = int(info["iterations"].max())
+    gates(T, t_poses, "tile batch")
+    per_scan = tseq.matcher.touched_per_scan
+    dense = (sum(c.num_points for c in t_clouds)
+             * tseq.prefiltered_reference_pts_count)
+    if (tc.tile_sweep.launches != it or len(per_scan) != len(t_clouds)
+            or tseq.matcher.touched_per_iteration(None, None) != sum(per_scan)
+            or not 0 < sum(per_scan) < dense):
+        raise AssertionError(f"tile batch: K7 {tc.tile_sweep.launches} "
+                             f"(iterations {it}), touched {per_scan}")
+    record("tile batch", ms, it, touched_per_scan=per_scan,
+           dense_pairs=dense)
+    del tseq, t_clouds
+    torch.cuda.empty_cache()
+
+    # ---- 22d. the overlap estimate at the final matches, card against CPU
+    icp.inspector = PerformanceInspector()
+    icp.reading_filters = [RandomSamplingDataPointsFilter(),
+                           SimpleSensorNoiseDataPointsFilter({"sensorType": "0"})]
+    calls = []
+    orig = icp_mod.estimate_overlap
+    icp_mod.estimate_overlap = lambda *a: calls.append(a) or orig(*a)
+    try:
+        T = one_shot()
+    finally:
+        icp_mod.estimate_overlap = orig
+    gates([T], [gT], "one-shot SimpleSensorNoise")
+    rd, rf, w, m, wr = calls[0]
+    cpu = float(estimate_overlap(rd.to("cpu"), rf.to("cpu"), w.cpu(),
+                                 Matches(m.dists.cpu(), m.ids.cpu()), wr.cpu()))
+    n_pairs = int((torch.isfinite(m.dists) & (w != 0)).sum())
+    card = icp.get_overlap()
+    log(f"[engine] overlap: card {card!r}, CPU {cpu!r} over {n_pairs} pairs")
+    if not abs(card - cpu) <= 1.0 / n_pairs or icp.inspector.histograms[
+            "OverlapRatio"].values != [card]:
+        raise AssertionError(f"overlap on the card {card}, on the CPU {cpu}")
+    log(f"[engine] {smi}: " + json.dumps(
+        {k: v["ms_per_iteration"] for k, v in rows.items()}))
+
+
 def kernel_inputs(torch, world, scan_world, n, m, rng, device="cuda"):
     """Queries from a scan placed in the world, references from the scene,
     every 11th query and every 7th reference masked."""
@@ -2298,6 +2599,11 @@ def main() -> int:
     t = time.perf_counter()
     loop_chains(torch, pt, world, poses, scans, k3, launches, rng)
     log(f"[chains] phase 21 took {time.perf_counter() - t:.1f} s")
+
+    # ---- 22. the engine features
+    t = time.perf_counter()
+    engine_features(torch, pt, world, poses, scans, k3, launches, smi, rng)
+    log(f"[engine] phase 22 took {time.perf_counter() - t:.1f} s")
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -28,6 +28,7 @@ from .transformations import (PureTranslation,  # noqa: E402
                               RigidTransformation, SimilarityTransformation,
                               TransformationRegistrar)
 from .inspectors import Inspector, InspectorRegistrar  # noqa: E402
+from .loggers import Logger, LoggerRegistrar, set_logger  # noqa: E402
 from .filters import (DataPointsFilter,  # noqa: E402
                       DataPointsFilterRegistrar, apply_filter_chain)
 from .icp import ICP, ICPChainBase, ICPSequence  # noqa: E402
@@ -36,7 +37,8 @@ __all__ = ["PointCloud", "ICP", "ICPSequence", "ICPChainBase", "Matches",
            "DataPointsFilterRegistrar", "MatcherRegistrar",
            "OutlierFilterRegistrar", "ErrorMinimizerRegistrar",
            "TransformationCheckerRegistrar", "TransformationRegistrar",
-           "InspectorRegistrar", "RigidTransformation",
+           "InspectorRegistrar", "LoggerRegistrar", "Logger", "set_logger",
+           "RigidTransformation",
            "SimilarityTransformation", "PureTranslation", "ConfigurationError",
            "ConvergenceError", "InvalidField", "InvalidModuleType",
            "InvalidParameter", "PointMatcherError", "TransformationError",

@@ -2,7 +2,9 @@
 reference: ICP.cpp:117-236): the reference's section names and module
 syntax, resolved through the port's registries. An unknown section or
 module raises ``InvalidModuleType``; a bad parameter ``InvalidParameter``.
-Modules the port does not have yet are unknown modules here."""
+Modules the port does not have yet are unknown modules here. The
+``logger`` section installs the process's logger first, as the reference
+does (ICP.cpp:131-135)."""
 
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from .checkers import TransformationCheckerRegistrar
 from .errors import ConfigurationError, InvalidModuleType
 from .filters.base import DataPointsFilterRegistrar
 from .inspectors import InspectorRegistrar, NullInspector
+from .loggers import LoggerRegistrar, set_logger
 from .matchers import MatcherRegistrar
 from .minimizers import ErrorMinimizerRegistrar
 from .outlierfilters import OutlierFilterRegistrar
@@ -82,14 +85,12 @@ def configure_chain_from_yaml(chain, source) -> None:
             raise InvalidModuleType(
                 f"unknown section '{section}'; valid sections: "
                 f"{list(VALID_SECTIONS)}")
-    if doc.get("readingStepDataPointsFilters"):
-        raise InvalidModuleType(
-            "readingStepDataPointsFilters: no step filter is ported yet")
-    if doc.get("logger") not in (None, "NullLogger"):
-        raise InvalidModuleType("logger: only NullLogger is ported; the port "
-                                "logs through Python's logging module")
+    if "logger" in doc:
+        set_logger(_create(LoggerRegistrar, doc["logger"]))
     chain.reading_filters = _create_list(
         DataPointsFilterRegistrar, doc.get("readingDataPointsFilters"))
+    chain.reading_step_filters = _create_list(
+        DataPointsFilterRegistrar, doc.get("readingStepDataPointsFilters"))
     chain.reference_filters = _create_list(
         DataPointsFilterRegistrar, doc.get("referenceDataPointsFilters"))
     chain.matcher = (_create(MatcherRegistrar, doc["matcher"])

@@ -87,10 +87,27 @@ class DataPointsFilter(Parametrizable):
     #: (see ``parallel.stream.queue_eligible``)
     TRACEABLE = False
 
+    #: True when the filter's effect at each ICP iteration, as a reading
+    #: step filter, is a function of the cloud and the iteration alone
+    #: (:meth:`mask_at_iteration`): the engine's loop then applies it in
+    #: each step; a step chain with any other filter takes the stepped
+    #: driver (the JAX package's ``SCHEDULE_TRACEABLE``)
+    SCHEDULE_TRACEABLE = False
+
     def __init__(self, params=None):
         super().__init__(params)
         #: optional precomputed draw, one value per row of the next input
         self.uniform: Optional[torch.Tensor] = None
+
+    def init(self) -> None:
+        """Reset the per-registration state (reference:
+        DataPointsFilter::init; only FixStepSampling's schedule has one)."""
+
+    def mask_at_iteration(self, cloud: PointCloud, iteration) -> PointCloud:
+        """The cloud this filter passes to iteration ``iteration`` (an int,
+        or one per scan of a batch), as a mask shrink (see
+        ``SCHEDULE_TRACEABLE``)."""
+        raise NotImplementedError
 
     def filter(self, cloud: PointCloud, key: Optional[ChainKey] = None,
                scan: Optional[int] = None) -> PointCloud:

@@ -6,8 +6,8 @@ The call structure mirrors ICP::compute:
 1. reference filters → centre the reference at its mean (conditioning,
    ICP.cpp:291-299) → matcher init;
 2. reading filters → pre-transform by T_refMean_dataIn;
-3. the fixed-point loop: transform → match → outlier weights → minimize →
-   checkers;
+3. the fixed-point loop: step filters → transform → match → outlier
+   weights → minimize → checkers;
 4. frame composition T_refIn_refMean · T_iter · T_refMean_dataIn.
 
 The loop is driven from the host, one iteration at a time, and runs a whole
@@ -18,6 +18,15 @@ own iteration count and stop code, and a scan that has stopped is frozen by
 engine's ``while_loop`` under ``vmap``). The host reads the ``active``
 flags once per iteration; everything else stays on the engine's device.
 Iteration counts and stop codes are those of the JAX engine's fused loop.
+Reading step filters with a schedule (``SCHEDULE_TRACEABLE``, as
+FixStepSampling) run inside that loop, and so does Anderson acceleration
+(``acceleration = "anderson"``).
+
+A second driver, the stepped one (:meth:`ICP._run_stepped`), serves a step
+chain with a filter that has no such schedule (it draws or keeps host
+state), or an inspector that dumps iterations: each iteration applies the
+step chain on its own key, without compaction, and hands the inspector
+host copies. It runs the matcher without loop tables.
 """
 
 from __future__ import annotations
@@ -35,7 +44,8 @@ from .errors import ConvergenceError
 from .filters.base import apply_filter_chain
 from .inspectors import NullInspector
 from .loggers import log_info, log_warning
-from .minimizers import MinimizerStats
+from .matchers import Matches
+from .minimizers import MinimizerStats, estimate_overlap
 from .outlierfilters import compute_outlier_weights, init_outlier_states
 from .transformations import RigidTransformation
 from .utils import prng, se3
@@ -48,6 +58,9 @@ CODE_NO_INLIERS = 4
 #: key and the reading chain's, as the JAX engine does (its icp.py)
 REFERENCE_STREAM = 1
 READING_STREAM = 2
+#: the stepped driver's step chain draws from ``fold_in(fold_in(PRNGKey(seed),
+#: STEP_STREAM), iteration)``
+STEP_STREAM = 3
 
 
 def chain_key(seed: int, stream: int) -> prng.Key:
@@ -62,6 +75,7 @@ class ICPChainBase:
     def __init__(self, device=None):
         self.device = resolve_device(device)
         self.reading_filters: List = []
+        self.reading_step_filters: List = []
         self.reference_filters: List = []
         self.matcher = None
         self.outlier_filters: List = []
@@ -69,9 +83,19 @@ class ICPChainBase:
         self.checkers: List = []
         self.inspector = NullInspector()
         self.transformations: List = [RigidTransformation()]
-        self.prefiltered_reading_pts_count = 0
-        self.prefiltered_reference_pts_count = 0
+        #: the filtered clouds (or counts), counted on the host when read
+        self._prefiltered_reading = 0
+        self._prefiltered_reference = 0
         self.max_num_iterations_reached = False
+        #: convergence acceleration: None or "anderson" (AA-ICP,
+        #: \cite{Pavlov2017AAICP}: Anderson acceleration of the fixed point
+        #: over the last ``acceleration_window`` poses, with a restart when
+        #: the residual grows and a trust region around the plain step)
+        self.acceleration: Optional[str] = None
+        self.acceleration_window: int = 3
+        #: the noise-aware overlap of the last registration (None without
+        #: ``simpleSensorNoise`` descriptors on the reading)
+        self.last_overlap: Optional[float] = None
         #: True when the last registration's displacement bound passed the
         #: matcher's motionBound (BlockGridMatcher): matches beyond the
         #: cells assigned at loop start may have been missed
@@ -91,6 +115,7 @@ class ICPChainBase:
         from .outlierfilters import TrimmedDistOutlierFilter
 
         self.reading_filters = [RandomSamplingDataPointsFilter()]
+        self.reading_step_filters = []
         self.reference_filters = [SamplingSurfaceNormalDataPointsFilter()]
         self.matcher = KDTreeMatcher()
         self.outlier_filters = [TrimmedDistOutlierFilter()]
@@ -112,12 +137,56 @@ class ICPChainBase:
             raise RuntimeError("You must setup a matcher before running ICP")
         if self.error_minimizer is None:
             raise RuntimeError("You must setup an error minimizer before running ICP")
+        if self.inspector is None:
+            raise RuntimeError("You must setup an inspector before running ICP")
+
+    def _step_chain_traced(self) -> bool:
+        """True when every reading step filter has a schedule the loop can
+        apply itself (``SCHEDULE_TRACEABLE``); else the stepped driver
+        runs the chain."""
+        return all(getattr(type(f), "SCHEDULE_TRACEABLE", False)
+                   for f in self.reading_step_filters)
+
+    @property
+    def prefiltered_reading_pts_count(self) -> int:
+        v = self._prefiltered_reading
+        return v.count_host() if isinstance(v, PointCloud) else int(v)
+
+    @prefiltered_reading_pts_count.setter
+    def prefiltered_reading_pts_count(self, v):
+        self._prefiltered_reading = v
+
+    @property
+    def prefiltered_reference_pts_count(self) -> int:
+        v = self._prefiltered_reference
+        return v.count_host() if isinstance(v, PointCloud) else int(v)
+
+    @prefiltered_reference_pts_count.setter
+    def prefiltered_reference_pts_count(self, v):
+        self._prefiltered_reference = v
+
+    def get_prefiltered_reading_pts_count(self) -> int:
+        return self.prefiltered_reading_pts_count
+
+    def get_prefiltered_reference_pts_count(self) -> int:
+        return self.prefiltered_reference_pts_count
+
+    def get_max_num_iterations_reached(self) -> bool:
+        return self.max_num_iterations_reached
 
     def get_point_used_ratio(self) -> float:
         return float(self._stats().point_used_ratio)
 
     def get_weighted_point_used_ratio(self) -> float:
         return float(self._stats().weighted_point_used_ratio)
+
+    def get_overlap(self) -> float:
+        """The last registration's overlap estimate: noise-aware when the
+        reading had ``simpleSensorNoise`` descriptors (reference:
+        PointToPoint.cpp:119-152), else the weighted point-used ratio."""
+        if self.last_overlap is not None:
+            return float(self.last_overlap)
+        return self.get_weighted_point_used_ratio()
 
     def get_residual_error(self) -> float:
         return float(self._stats().residual)
@@ -140,6 +209,119 @@ class ICPChainBase:
         if self.last_stats is None:
             raise RuntimeError("error minimizer needs to run at least once")
         return self.last_stats
+
+
+def _small_solve(A: torch.Tensor, b: torch.Tensor):
+    """Solve the Anderson window's system ``A [..., m, m] x = b [..., m]``
+    per scan → ``(x [..., m], ok [...])``, in closed form for m ≤ 3 (the
+    JAX engine's ``_small_solve``: Cramer's rule by the adjugate) and by
+    an LU solve above. ``ok`` is False where the cofactor
+    determinant is within cancellation noise of the matrix's scale,
+    |det| ≤ 1e-5·scale^m: the residual history is then close to collinear,
+    the solution noise, and the caller takes the plain step."""
+    m = A.shape[-1]
+    true = torch.ones(A.shape[:-2], dtype=torch.bool, device=A.device)
+    if m == 1:
+        return b / A[..., 0, :1], true
+    if m > 3:
+        # a singular system gives inf or NaN (a rejected extrapolation), as
+        # the JAX engine's LU does, instead of raising
+        return torch.linalg.solve_ex(A, b)[0], true
+    a = lambda i, j: A[..., i, j]
+    scale = torch.clamp(torch.amax(torch.abs(A), dim=(-2, -1)), min=1e-30)
+    if m == 2:
+        det = a(0, 0) * a(1, 1) - a(0, 1) * a(1, 0)
+        ok = torch.abs(det) > 1e-5 * scale * scale
+        safe = torch.where(ok, det, 1.0)
+        x0 = (a(1, 1) * b[..., 0] - a(0, 1) * b[..., 1]) / safe
+        x1 = (a(0, 0) * b[..., 1] - a(1, 0) * b[..., 0]) / safe
+        return torch.stack([x0, x1], dim=-1), ok
+    c00 = a(1, 1) * a(2, 2) - a(1, 2) * a(2, 1)
+    c01 = a(1, 2) * a(2, 0) - a(1, 0) * a(2, 2)
+    c02 = a(1, 0) * a(2, 1) - a(1, 1) * a(2, 0)
+    det = a(0, 0) * c00 + a(0, 1) * c01 + a(0, 2) * c02
+    c10 = a(0, 2) * a(2, 1) - a(0, 1) * a(2, 2)
+    c11 = a(0, 0) * a(2, 2) - a(0, 2) * a(2, 0)
+    c12 = a(0, 1) * a(2, 0) - a(0, 0) * a(2, 1)
+    c20 = a(0, 1) * a(1, 2) - a(0, 2) * a(1, 1)
+    c21 = a(0, 2) * a(1, 0) - a(0, 0) * a(1, 2)
+    c22 = a(0, 0) * a(1, 1) - a(0, 1) * a(1, 0)
+    ok = torch.abs(det) > 1e-5 * scale * scale * scale
+    safe = torch.where(ok, det, 1.0)
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    x0 = (c00 * b0 + c10 * b1 + c20 * b2) / safe
+    x1 = (c01 * b0 + c11 * b1 + c21 * b2) / safe
+    x2 = (c02 * b0 + c12 * b1 + c22 * b2) / safe
+    return torch.stack([x0, x1, x2], dim=-1), ok
+
+
+def _norm(x: torch.Tensor) -> torch.Tensor:
+    """Euclidean norm over the last axis (``vector_norm`` rounds as
+    ``jnp.linalg.norm`` does on the CPU, where sqrt(Σ x²) does not)."""
+    return torch.linalg.vector_norm(x, dim=-1)
+
+
+def _anderson_init(bshape, d: int, m: int, device):
+    """The Anderson window, empty: ``(G, F [..., m, d(d+1)], hist_len [...],
+    prev_fnorm [...])``."""
+    zeros = torch.zeros(*bshape, m, d * (d + 1), device=device)
+    return (zeros, zeros.clone(),
+            torch.zeros(bshape, dtype=torch.int32, device=device),
+            torch.full(bshape, float("inf"), device=device))
+
+
+def _anderson_step(T_iter: torch.Tensor, T_plain: torch.Tensor, window):
+    """One Anderson step per scan (the JAX engine's
+    ``_make_anderson_runner`` body) → ``(T_next, window)``.
+
+    The fixed-point map g is one plain iteration; x = T[:d, :] flattened.
+    The newest (g, f = g − x) enters the window of the last m; the window
+    restarts when ‖f‖ grew. The weights α (Σα = 1) minimise ‖Σ α_j f_j‖
+    through the m x m system of the valid slots (identity rows elsewhere);
+    a noise-level determinant gives the plain step. The extrapolated
+    rotation block is projected back towards SO(d) by three Newton–Schulz
+    steps, and the extrapolation is kept only inside the trust region:
+    ‖x_acc − g‖ ≤ 10‖f‖, ‖RᵀR − I‖ < 0.3 before the projection, det R > 0.5
+    after it, and at least two slots in the window. The checkers have seen
+    only the plain step, as in the JAX engine."""
+    G, F, hist_len, prev_fnorm = window
+    m = G.shape[-2]
+    d = T_plain.shape[-1] - 1
+    lead = T_plain.shape[:-2]
+    dev = T_plain.device
+    g = T_plain[..., :d, :].reshape(*lead, -1)
+    f = g - T_iter[..., :d, :].reshape(*lead, -1)
+    fnorm = _norm(f)
+    hist_len = torch.where((hist_len > 0) & (fnorm > prev_fnorm), 0, hist_len)
+    G = torch.cat([G[..., 1:, :], g[..., None, :]], dim=-2)
+    F = torch.cat([F[..., 1:, :], f[..., None, :]], dim=-2)
+    hist_len = torch.clamp(hist_len + 1, max=m).to(torch.int32)
+    slot = torch.arange(m, device=dev)
+    valid = (slot >= (m - hist_len)[..., None]).to(F.dtype)
+    Fv = F * valid[..., None]
+    eye_m = torch.eye(m, device=dev)
+    A = Fv @ Fv.mT + 1e-10 * eye_m
+    both = (valid[..., :, None] > 0) & (valid[..., None, :] > 0)
+    A = torch.where(both, A, eye_m)
+    alpha, ok = _small_solve(A, valid)
+    alpha = torch.where(ok[..., None], alpha, (slot == m - 1).to(F.dtype))
+    alpha = alpha * valid / torch.clamp(torch.sum(alpha * valid, dim=-1,
+                                                  keepdim=True), min=1e-20)
+    x_acc = (alpha[..., None, :] @ G)[..., 0, :]
+    M = x_acc.reshape(*lead, d, d + 1)
+    R = M[..., :d]
+    eye_d = torch.eye(d, device=dev)
+    drift = _norm((R.mT @ R - eye_d).reshape(*lead, -1))
+    for _ in range(3):
+        R = 0.5 * R @ (3.0 * eye_d - R.mT @ R)
+    T_acc = se3.identity(d, dev).expand(*lead, d + 1, d + 1).clone()
+    T_acc[..., :d, :d] = R
+    T_acc[..., :d, d] = M[..., d]
+    trust = ((_norm(x_acc - g) <= 10.0 * fnorm) & (drift < 0.3)
+             & (torch.linalg.det(R) > 0.5))
+    use = (hist_len > 1) & trust
+    T_next = torch.where(use[..., None, None], T_acc, T_plain)
+    return T_next, (G, F, hist_len, fnorm)
 
 
 def _apply_transform(transformations, cloud, T):
@@ -193,36 +375,69 @@ class ICP(ICPChainBase):
         """Register ``reading`` to ``reference`` → T [d+1, d+1] on the
         engine's device. ``seed`` seeds the filters' draws."""
         self._require_modules()
+        self.inspector.init()
+        t0 = time.perf_counter()
         if reading.dim != reference.dim:
             raise RuntimeError(
                 f"reading is {reading.dim}D but reference is {reference.dim}D; "
                 "clouds must share the same dimensionality")
         T_init = self._as_pose(T_init, reading.dim)
-        reference = apply_filter_chain(self.reference_filters,
-                                       reference.to(self.device),
+        wants_stats = self.inspector.wants_stats
+        reference = reference.to(self.device)
+        ref_in_count = reference.count_host() if wants_stats else 0
+        reference = apply_filter_chain(self.reference_filters, reference,
                                        chain_key(seed, REFERENCE_STREAM))
         reference, T_refIn_refMean = _center_cloud(reference)
         self.matcher.init(reference)
-        self.prefiltered_reference_pts_count = reference.count_host()
+        if wants_stats:
+            self.inspector.add_stat("ReferencePreprocessingDuration",
+                                    time.perf_counter() - t0)
+            self.inspector.add_stat("ReferenceInPointCount", ref_in_count)
+            self.inspector.add_stat("ReferencePointCount", reference.count_host())
+        self.prefiltered_reference_pts_count = reference     # counted lazily
         return self.compute_with_transformed_reference(
             reading, reference, T_refIn_refMean, T_init, seed)
+
+    def _fused(self) -> bool:
+        """True when the loop of :meth:`_run_loop` serves the chain: no
+        step filter without a schedule and no inspector that dumps
+        iterations (else :meth:`_run_stepped`)."""
+        return (self._step_chain_traced()
+                and not self.inspector.needs_iteration_data)
 
     def compute_with_transformed_reference(self, reading_in, reference,
                                            T_refIn_refMean, T_init, seed=0):
         """Loop half of the pipeline (reference: ICP.cpp:316-452);
-        ``reference`` is already filtered and centred."""
-        self.inspector.init()
+        ``reference`` is already filtered and centred. With an inspector
+        that wants statistics, the reading's counts and durations, the
+        iteration count, the touched pairs, the overlap and the loop's
+        duration are recorded, at the JAX engine's points and in its
+        order."""
         t0 = time.perf_counter()
+        wants_stats = self.inspector.wants_stats
         T_refMean_dataIn = se3.inverse(T_refIn_refMean) @ T_init
-        reading = apply_filter_chain(self.reading_filters,
-                                     reading_in.to(self.device),
+        reading_in = reading_in.to(self.device)
+        read_in_count = reading_in.count_host() if wants_stats else 0
+        reading = apply_filter_chain(self.reading_filters, reading_in,
                                      chain_key(seed, READING_STREAM))
-        self.prefiltered_reading_pts_count = reading.count_host()
         reading = _apply_transform(self.transformations, reading, T_refMean_dataIn)
+        if wants_stats:
+            self.inspector.add_stat("ReadingPreprocessingDuration",
+                                    time.perf_counter() - t0)
+            self.inspector.add_stat("ReadingInPointCount", read_in_count)
+            self.inspector.add_stat("ReadingPointCount", reading.count_host())
+        self.prefiltered_reading_pts_count = reading         # counted lazily
+        t_loop = time.perf_counter()
 
-        # per-registration matcher tables (BlockGridMatcher's tiling)
-        aux = self.matcher.prepare_loop(reading)
-        T_iter, iters, code, stats = self._run_loop(reading, reference, aux)
+        fused = self._fused()
+        if fused:
+            # per-registration matcher tables (BlockGridMatcher's tiling)
+            aux = self.matcher.prepare_loop(reading)
+            T_iter, iters, code, stats = self._run_loop(reading, reference, aux)
+        else:
+            self.matcher.invalidate_loop_state()
+            T_iter, iters, code, stats = self._run_stepped(
+                reading, reference, chain_key(seed, STEP_STREAM))
         iters, code = int(iters), int(code)
 
         self.max_num_iterations_reached = code == CODE_MAX_ITER
@@ -242,6 +457,10 @@ class ICP(ICPChainBase):
                     f"assigned at loop start may have been missed; raise "
                     f"motionBound (cell edge = maxDist + motionBound) or "
                     f"tighten the prior")
+        if fused and wants_stats:
+            # the stepped driver adds each iteration's pairs itself
+            self.matcher.visit_count += iters * self.matcher.touched_per_iteration(
+                reading, reference)
         if code == CODE_NAN_ERROR:
             raise ConvergenceError("abs rotation/translation norm not a number")
         if code == CODE_BOUND_ERROR:
@@ -250,22 +469,46 @@ class ICP(ICPChainBase):
         if code == CODE_NO_INLIERS:
             raise ConvergenceError("ErrorMinimizer: no point to minimize")
         self.inspector.add_stat("IterationsCount", iters)
-        self.inspector.add_stat("ConvergenceDuration", time.perf_counter() - t0)
+        self.inspector.add_stat("PointCountTouched", self.matcher.get_visit_count())
+        self.matcher.reset_visit_count()
+        self.last_overlap = None
+        if reading.has_descriptor("simpleSensorNoise"):
+            # one more match at the final pose (reference: PointToPoint.cpp:119-152)
+            stepped = _apply_transform(self.transformations, reading, T_iter)
+            matches = self.matcher.find_closests_in(stepped, reference)
+            weights, _ = compute_outlier_weights(
+                self.outlier_filters, stepped, reference, matches,
+                init_outlier_states(self.outlier_filters, (), stepped.device))
+            self.last_overlap = float(estimate_overlap(
+                stepped, reference, weights, matches,
+                stats.weighted_point_used_ratio))
+        self.inspector.add_stat("OverlapRatio", self.get_overlap())
+        self.inspector.add_stat("ConvergenceDuration", time.perf_counter() - t_loop)
         self.inspector.finish(iters)
         log_info(f"PointMatcher::icp - {iters} iterations took "
-                 f"{time.perf_counter() - t0:.4f} s")
+                 f"{time.perf_counter() - t_loop:.4f} s")
         # frame composition (reference: ICP.cpp:444-448)
         return T_refIn_refMean @ T_iter @ T_refMean_dataIn
 
     def _step(self, reading, reference, T_iter, checker_states, outlier_states,
-              iteration, matcher_aux=None, matcher_state=None, checkers=None):
+              iteration, matcher_aux=None, matcher_state=None, checkers=None,
+              step_filters=True):
         """One iteration (the JAX engine's ``_make_step``), for one scan or
-        a batch, with the checkers' and the outlier filters' loop states.
+        a batch, with the checkers' and the outlier filters' loop states →
+        ``(T_new, checker states, outlier states, iterate, code, stats,
+        matches, weights, matcher state)``.
+        The reading step filters with a schedule apply first, at
+        ``iteration`` (an int, or one per scan or lane), when every step
+        filter has one; ``step_filters=False`` (the stepped driver, which
+        applies the chain itself) leaves them out.
         With ``matcher_aux`` the matcher serves through its
         stateful route, returning its new loop state, if it has one, or
         takes the tables as ``aux``. ``checkers`` replaces the chain's own
         (the coarse pass of the queue)."""
         checkers = self.checkers if checkers is None else checkers
+        if step_filters and self._step_chain_traced():
+            for f in self.reading_step_filters:
+                reading = f.mask_at_iteration(reading, iteration)
         stepped = _apply_transform(self.transformations, reading, T_iter)
         if matcher_aux is not None and self._stateful_matcher():
             matches, matcher_state = self.matcher.find_closests_in_stateful(
@@ -294,8 +537,8 @@ class ICP(ICPChainBase):
             code = torch.maximum(code, c)
         code = torch.where(no_inliers, CODE_NO_INLIERS, code).to(torch.int32)
         iterate = iterate & ~no_inliers
-        return T_new, new_states, outlier_states, iterate, code, stats, \
-            matcher_state
+        return (T_new, new_states, outlier_states, iterate, code, stats,
+                matches, weights, matcher_state)
 
     def _stateful_matcher(self) -> bool:
         """True when the matcher carries loop state (the survivor route)."""
@@ -340,7 +583,9 @@ class ICP(ICPChainBase):
         iteration. A single scan (no batch dimension) is active for as long
         as the loop runs, so it skips the masking and the merges. For a
         bounded-search matcher ``stats.motion_max`` holds each scan's
-        running displacement bound (:meth:`_motion_tracker`)."""
+        running displacement bound (:meth:`_motion_tracker`). With
+        ``acceleration = "anderson"`` each step's pose goes through
+        :func:`_anderson_step`, whose window a stopped scan keeps frozen."""
         bshape = reading.points.shape[:-2]
         dev = reading.device
         d = reading.dim
@@ -350,15 +595,20 @@ class ICP(ICPChainBase):
         mstate = (self.matcher.loop_state_init(reading, matcher_aux)
                   if matcher_aux is not None and self._stateful_matcher()
                   else None)
+        window = (_anderson_init(bshape, d, int(self.acceleration_window), dev)
+                  if self.acceleration == "anderson" else None)
         track = self._motion_tracker(reading, matcher_aux)
         motion = torch.zeros(bshape, device=dev)
         iteration = 0
         if not bshape:
             code = 0
             while True:
-                T_iter, states, ostates, iterate, c, stats, mstate = self._step(
+                T_new, states, ostates, iterate, c, stats, _, _, mstate = self._step(
                     reading, reference, T_iter, states, ostates, iteration,
                     matcher_aux, mstate)
+                if window is not None:
+                    T_new, window = _anderson_step(T_iter, T_new, window)
+                T_iter = T_new
                 if track is not None:
                     motion = torch.maximum(motion, track(T_iter))
                 go, c = torch.stack([iterate.to(torch.int32), c]).tolist()
@@ -373,9 +623,12 @@ class ICP(ICPChainBase):
         stats = None
         while True:
             live = reading.with_mask(active[..., None])
-            (T_new, new_states, new_ostates, iterate, c, new_stats,
+            (T_new, new_states, new_ostates, iterate, c, new_stats, _, _,
              new_mstate) = self._step(live, reference, T_iter, states, ostates,
                                       iteration, matcher_aux, mstate)
+            if window is not None:
+                T_new, new_window = _anderson_step(T_iter, T_new, window)
+                window = _keep_active(active, new_window, window)
             if track is not None:
                 motion = torch.where(active, torch.maximum(motion, track(T_new)),
                                      motion)
@@ -392,6 +645,52 @@ class ICP(ICPChainBase):
             if not bool(active.any()):
                 return T_iter, iters, code, _with_motion(stats, motion, track)
 
+    def _run_stepped(self, reading, reference, key):
+        """The stepped driver (the JAX engine's ``_run_stepped``), one scan
+        → ``(T_iter, iterations, code, stats)``.
+
+        The step filters' ``init()`` runs once; each iteration then applies
+        the step chain to the reading on the key ``fold_in(key,
+        iteration)`` without compacting (a filter that empties the reading
+        raises ``ConvergenceError``), runs one step without loop tables,
+        adds the step's touched pairs to the matcher's ``visit_count`` and,
+        for an inspector that dumps iterations, hands it host copies of the
+        new pose, the reference, the moved reading, the matches and the
+        weights. Two host reads an iteration, more with the dumps."""
+        d = reading.dim
+        dev = reading.device
+        T_iter = se3.identity(d, dev)
+        states = [c.init_state(T_iter) for c in self.checkers]
+        ostates = init_outlier_states(self.outlier_filters, (), dev)
+        for f in self.reading_step_filters:
+            f.init()
+        dumps = self.inspector.needs_iteration_data
+        reference_host = reference.to("cpu") if dumps else None
+        iteration = code = 0
+        while True:
+            step_reading = reading
+            if self.reading_step_filters:
+                step_reading = apply_filter_chain(
+                    self.reading_step_filters, reading,
+                    prng.fold_in(key, iteration), compact=False)
+            T_new, states, ostates, iterate, c, stats, matches, weights, _ = \
+                self._step(step_reading, reference, T_iter, states, ostates,
+                           iteration, step_filters=False)
+            self.matcher.visit_count += self.matcher.touched_per_iteration(
+                step_reading, reference)
+            if dumps:
+                moved = _apply_transform(self.transformations, step_reading, T_iter)
+                self.inspector.dump_iteration(
+                    iteration, T_new.cpu(), reference_host, moved.to("cpu"),
+                    Matches(matches.dists.cpu(), matches.ids.cpu()),
+                    weights.cpu(), self.checkers)
+            T_iter = T_new
+            go, c = torch.stack([iterate.to(torch.int32), c]).tolist()
+            code = max(code, c)
+            iteration += 1
+            if not go or code >= CODE_NAN_ERROR:
+                return T_iter, iteration, code, stats
+
 
     def _run_queue(self, pool, reference, T0, lanes: int, checkers=None,
                    matcher_aux=None, pool_aux=None):
@@ -401,7 +700,8 @@ class ICP(ICPChainBase):
         one of each per scan, on the engine's device.
 
         ``lanes`` lanes step in lockstep through :meth:`_step`, lane l
-        starting on scan l from ``T0[l]``. After each iteration the host
+        starting on scan l from ``T0[l]``; a step filter's schedule reads
+        each lane's own iteration count. After each iteration the host
         reads the ``[L]`` flags once. A lane whose checkers stopped writes
         its scan's pose, iteration count, code and statistics to the scan's
         output slot and takes the next queued scan, simultaneous finishers
@@ -437,7 +737,7 @@ class ICP(ICPChainBase):
         out_motion = torch.zeros(q, device=dev)
         out_stats = None
         while True:
-            T_iter, states, ostates, iterate, c, stats, mstate = self._step(
+            T_iter, states, ostates, iterate, c, stats, _, _, mstate = self._step(
                 reading, reference, T_iter, states, ostates, iters, aux, mstate,
                 checkers)
             if track is not None:
@@ -622,6 +922,7 @@ class ICPSequence(ICP):
                 "set_map(cloud) instead of passing a reference; use ICP for "
                 "one-shot pairs")
         self._require_modules()
+        self.inspector.init()
         T_init = self._as_pose(T_init, reading.dim)
         if self._map is None:
             log_warning("ICPSequence: no map, returning identity")

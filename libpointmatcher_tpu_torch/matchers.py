@@ -62,10 +62,31 @@ class Matcher(Parametrizable):
     def __init__(self, params=None):
         super().__init__(params)
         self._reference: Optional[PointCloud] = None
+        #: (query, candidate) pairs inspected, summed by the engine over
+        #: the iterations it reports (the PointCountTouched statistic)
+        self.visit_count = 0
 
     def init(self, reference: PointCloud) -> None:
         """Called by the engine with the filtered, centred reference."""
         self._reference = reference
+
+    def touched_per_iteration(self, reading: PointCloud,
+                              reference: PointCloud) -> int:
+        """The (query, candidate) pairs one search inspects (reference:
+        MatchersImpl.cpp:86-101 counts its kd-tree visits): every valid
+        reading row against every valid reference row for the dense
+        search. Two host reads."""
+        return reading.count_host() * reference.count_host()
+
+    def get_visit_count(self) -> int:
+        return self.visit_count
+
+    def reset_visit_count(self) -> None:
+        self.visit_count = 0
+
+    def invalidate_loop_state(self) -> None:
+        """Drop the per-registration tables of an earlier registration
+        (the stepped driver searches without them). Default: none."""
 
     def find_closests_in(self, reading: PointCloud,
                          reference: PointCloud) -> Matches:
@@ -117,6 +138,9 @@ class NullMatcher(Matcher):
         return Matches(
             torch.full((n, 1), float("inf"), device=reading.device),
             torch.full((n, 1), -1, dtype=torch.int32, device=reading.device))
+
+    def touched_per_iteration(self, reading, reference) -> int:
+        return 0
 
 
 @MatcherRegistrar.register
@@ -362,6 +386,12 @@ class BlockGridMatcher(Matcher):
         #: the map's sub-block units on its device (None before init)
         self.units: Optional[torch.Tensor] = None
         self._ref_shape = None
+        #: the pairs the last tile assignment sweeps per iteration (one
+        #: scan's, or the sum over a serving batch's scans); None when the
+        #: search runs dense
+        self._loop_touched: Optional[int] = None
+        #: the serving batch's per-scan tile pairs, in scan order
+        self.touched_per_scan: list = []
 
     @property
     def cell_size(self) -> float:
@@ -377,24 +407,39 @@ class BlockGridMatcher(Matcher):
 
     def prepare_loop(self, reading: PointCloud):
         """The reading's tile assignment and candidate tables (one scan)."""
+        self._loop_touched = None
         if self._blocks is None:
             return None
         pts, mask = reading.host_rows()
-        return tile_aux_to_device(self.prepare_loop_host(pts, mask), self.units)
+        per_scan = self.prepare_loop_host(pts, mask)
+        self._loop_touched = per_scan["touched"]
+        return tile_aux_to_device(per_scan, self.units)
+
+    def invalidate_loop_state(self) -> None:
+        self._loop_touched = None
+
+    def touched_per_iteration(self, reading, reference) -> int:
+        """The tile assignment's pairs (its candidates per query, summed)
+        when the search runs through one, else the dense count."""
+        if self._loop_touched is not None:
+            return self._loop_touched
+        return super().touched_per_iteration(reading, reference)
 
     def prepare_loop_host(self, pts, mask, pad_tiles_to: int = 0,
                           pad_blocks_to: int = 0) -> dict:
         """The tile assignment of host rows ``pts`` [N, d] in host form
         (numpy ``q_rows``, ``blocks``, ``parent``, ``vrows`` and each
-        virtual tile's live columns ``ncols``): the serving drivers build
-        one per scan, stack them and make one copy."""
+        virtual tile's live columns ``ncols``, and the int ``touched``,
+        its (query, candidate) pairs): the serving drivers build one per
+        scan, stack them and make one copy."""
         ta = assign_tiles(pts, mask, self._blocks, tile_q=int(self.tileQueries),
                           pad_tiles_to=pad_tiles_to,
                           pad_blocks_to=pad_blocks_to,
                           block_cap=int(self.blockCap))
         return {"q_rows": ta.q_rows, "blocks": ta.blocks,
                 "parent": ta.parent, "vrows": ta.vrows,
-                "ncols": live_columns(ta.blocks, len(self._blocks.units) - 1)}
+                "ncols": live_columns(ta.blocks, len(self._blocks.units) - 1),
+                "touched": ta.touched}
 
     def find_closests_in(self, reading, reference, aux=None) -> Matches:
         """Through the tile sweep with ``aux`` (:meth:`prepare_loop`'s, or

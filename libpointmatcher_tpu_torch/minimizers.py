@@ -24,6 +24,7 @@ from .utils import se3
 __all__ = ["ErrorMinimizer", "ErrorMinimizerRegistrar", "MinimizerStats",
            "Pairs", "gather_rows", "make_pairs", "gather_pair_descriptor",
            "build_stats", "rejection_counts", "solve_possibly_underdetermined",
+           "estimate_overlap",
            "IdentityErrorMinimizer", "PointToPointErrorMinimizer",
            "PointToPointSimilarityErrorMinimizer", "PointToPlaneErrorMinimizer",
            "PointToPointWithCovErrorMinimizer",
@@ -122,6 +123,25 @@ def build_stats(reading, weights, matches, residual,
     pr, wr = _used_ratios(reading, weights, matches)
     rm, rp = rejection_counts(reading, weights, matches)
     return MinimizerStats(pr, wr, residual, covariance, rm, rp)
+
+
+def estimate_overlap(reading, reference, weights, matches, weighted_ratio):
+    """The overlap estimate of PointToPoint::getOverlap (reference:
+    PointToPoint.cpp:119-152), per scan: the share of valid pairs whose
+    distance is under the mean pair distance plus the reading point's
+    ``simpleSensorNoise``; ``weighted_ratio`` when the reading has no such
+    descriptor."""
+    if not reading.has_descriptor("simpleSensorNoise"):
+        return weighted_ratio
+    pairs = make_pairs(reading, reference, weights, matches)
+    knn = matches.dists.shape[-1]
+    noises = gather_pair_descriptor(reading.get_descriptor("simpleSensorNoise"),
+                                    pairs, "reading", knn)[..., 0]
+    dists = torch.linalg.vector_norm(pairs.read - pairs.ref, dim=-1)
+    nvalid = torch.clamp(pairs.valid.sum(dim=-1), min=1)
+    mean = torch.where(pairs.valid, dists, 0.0).sum(dim=-1) / nvalid
+    hit = pairs.valid & (dists < mean[..., None] + noises)
+    return hit.sum(dim=-1) / nvalid
 
 
 def solve_possibly_underdetermined(A: torch.Tensor, b: torch.Tensor):

@@ -261,6 +261,9 @@ def _prep_tile_scans(seq, readings: Sequence[PointCloud], T_inits,
 
     with ThreadPoolExecutor(max_workers=min(len(readings), 8)) as ex:
         pers = list(ex.map(assign, range(len(readings))))
+    # the pairs each iteration sweeps: per scan, and summed for the batch
+    matcher.touched_per_scan = [int(p["touched"]) for p in pers]
+    matcher._loop_touched = sum(matcher.touched_per_scan)
     aux = tile_aux_to_device(
         _pad_tile_aux_np(pers, int(matcher.units.shape[0]) - 1), matcher.units)
     q_rows = aux.pop("q_rows").reshape(len(readings), -1)
@@ -331,7 +334,16 @@ def register_batch_to_map(seq, readings: Sequence[PointCloud],
     keeps each scan's raw rows) and, on the tile route,
     ``motion_bound_exceeded``. A scan that its filters empty stops with the
     no-inliers code (4) instead of raising. ``seed`` seeds each scan's
-    reading filters."""
+    reading filters. On the tile route the matcher's ``touched_per_scan``
+    holds each scan's swept pairs per iteration.
+
+    A chain whose loop the JAX package's serving program cannot hold (a
+    step filter without a schedule, or an inspector that dumps
+    iterations) takes the JAX package's host path: the scans' chains
+    compacted without a cap, and the lockstep loop against the map
+    without loop tables (the dense search). As in the JAX package, that
+    loop drops such step filters and makes no dumps, where a one-shot
+    ``compute`` applies both."""
     if not seq.has_map():
         raise RuntimeError("set_map first")
     seq._require_modules()
@@ -339,7 +351,11 @@ def register_batch_to_map(seq, readings: Sequence[PointCloud],
     Trm = seq._T_refIn_refMean
     T_rmd = se3.inverse(Trm) @ _initial_poses(T_inits, len(readings),
                                               readings[0].dim, seq.device)
-    if _tile_route(seq):
+    if not seq._fused():
+        batch, overflow, _ = _prep_scans(seq, readings, T_rmd, seed, None,
+                                         permute=False)
+        T_iter, iters, codes, stats = seq._run_loop(batch, reference)
+    elif _tile_route(seq):
         batch, aux = _prep_tile_scans(seq, readings, T_inits, T_rmd, seed)
         overflow = np.zeros(len(readings), bool)
         T_iter, iters, codes, stats = seq._run_loop(batch, reference, aux)

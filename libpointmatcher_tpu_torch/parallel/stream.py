@@ -49,10 +49,16 @@ def _queue_mode(seq) -> str:
     per-scan tile tables, pooled and swapped with the lanes), ``"skip"``
     (the matcher's survivor-sweep loop state, built by ``serving_loop_aux``
     for the current map), ``"dense"`` (no matcher loop state), or ``""``
-    when the reading chain holds a filter that is not ``TRACEABLE`` (it
-    runs a host step per scan, as SamplingSurfaceNormal's median split
-    does): such a chain serves through :func:`register_batch_to_map`, as in
-    the JAX package, whose queue program cannot run a host step."""
+    when the chain asks for what the JAX package's queue program does not
+    hold: a reading filter that is not ``TRACEABLE`` (it runs a host step
+    per scan, as SamplingSurfaceNormal's median split does), an
+    ``acceleration``, a step filter without a schedule, or an inspector
+    that dumps iterations. Such a chain serves through
+    :func:`register_batch_to_map`, as in the JAX package. A step filter
+    with a schedule (FixStepSampling) stays in the queue, each lane at its
+    own iteration."""
+    if seq.acceleration is not None or not seq._fused():
+        return ""
     if not _traceable(seq):
         return ""
     if _tile_route(seq):

@@ -9,9 +9,12 @@ dense K1 within maxDist, JAX's threefry draws formed on the card against
 the same draws on the CPU, registrations, batch and queue serving (the
 tile route too) and pair-parallel one-shot ICP on the card against the same
 calls on the CPU, the v1 skip routes' batch against the survivor
-route's, and the loop modules (outlier filters, minimizers, transformations)
+route's, the loop modules (outlier filters, minimizers, transformations)
 and their YAML chains on the card against the CPU at the tolerances of
-tools_torch/loop_modules.py. Every test
+tools_torch/loop_modules.py, and the engine features: Anderson acceleration
+at a fixed budget (poses within 1e-5), FixStepSampling's masks (equal), the
+stepped driver's rows (equal), matches and pose, and ``estimate_overlap``,
+each on the card against the CPU on the same inputs. Every test
 needs a CUDA device and skips without one. The file imports neither JAX
 nor the JAX package, so it runs on a machine with the card alone:
 
@@ -1026,3 +1029,128 @@ def test_loop_chains_on_card_match_cpu(cuda, chain):
     if qc is not None:
         np.testing.assert_allclose(qg, qc, atol=1e-4)
         np.testing.assert_allclose(qc, Tc, atol=1e-5)
+
+
+def test_anderson_on_card_matches_cpu(cuda):
+    """Anderson acceleration at a fixed budget of 10 iterations (Counter
+    alone, so that no stop threshold meets float32 noise): one scan through
+    ICPSequence.compute and three through register_batch_to_map, the card's
+    poses within 1e-5 of the CPU's."""
+    world, scans = _loop_scene(11)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        seq = pt.ICPSequence(device=dev)
+        seq.set_default()
+        seq.acceleration = "anderson"
+        seq.checkers = [CounterTransformationChecker({"maxIterationCount": "10"})]
+        seq.set_map(pt.PointCloud.from_numpy(world, device=dev))
+        clouds = [pt.PointCloud.from_numpy(s, device=dev) for s in scans]
+        T1 = seq.compute(clouds[0], seed=2).cpu().numpy()
+        out[dev] = (T1,) + register_batch_to_map(seq, clouds, seed=2)
+    (T1c, Tc, ic), (T1g, Tg, ig) = out["cpu"], out["cuda"]
+    np.testing.assert_array_equal(ig["iterations"], ic["iterations"])
+    np.testing.assert_allclose(T1g, T1c, atol=1e-5)
+    np.testing.assert_allclose(Tg, Tc, atol=1e-5)
+
+
+@pytest.mark.parametrize("sched", [(4, 1, 0.5), (25, 1, 1.4)])
+def test_fixstep_masks_on_card_match_cpu(cuda, sched):
+    """FixStepSampling's ``mask_at_iteration`` on a masked cloud: one scan
+    at iterations 0..5 and 700, and a batch at per-scan iterations."""
+    from libpointmatcher_tpu_torch.filters import FixStepSamplingDataPointsFilter
+
+    f = FixStepSamplingDataPointsFilter({"startStep": str(sched[0]),
+                                         "endStep": str(sched[1]),
+                                         "stepMult": str(sched[2])})
+    rng = np.random.default_rng(3)
+    pts = rng.uniform(-5, 5, (3, 5000, 3)).astype(np.float32)
+    mask = rng.uniform(size=(3, 5000)) < 0.8
+    iters = np.array([0, 3, 700])
+    masks = {}
+    for dev in ("cpu", "cuda"):
+        c = pt.PointCloud(torch.as_tensor(pts, device=dev),
+                          torch.as_tensor(mask, device=dev))
+        one = [f.mask_at_iteration(pt.PointCloud(c.points[0], c.mask[0]), i).mask
+               for i in list(range(6)) + [700]]
+        batch = f.mask_at_iteration(c, torch.as_tensor(iters, device=dev)).mask
+        masks[dev] = [m.cpu() for m in one + [batch]]
+    for a, b in zip(masks["cuda"], masks["cpu"]):
+        assert torch.equal(a, b)
+
+
+def test_stepped_driver_on_card_matches_cpu(cuda):
+    """A RandomSampling step filter (the stepped driver) and an inspector
+    that keeps each iteration's host copies: on the card the same rows at
+    every iteration (the same draws), the first iteration's matches equal
+    to the CPU's where the neighbour is clear (the reading is moved by the
+    reference's mean, summed in another order on each device), the same
+    iteration count, and the pose within 1e-5."""
+    from libpointmatcher_tpu_torch.filters import RandomSamplingDataPointsFilter
+    from libpointmatcher_tpu_torch.inspectors import Inspector
+
+    class Keep(Inspector):
+        needs_iteration_data = True
+        wants_stats = False
+
+        def __init__(self):
+            super().__init__()
+            self.calls = []
+
+        def dump_iteration(self, iteration, T_iter, reference, reading, matches,
+                           outlier_weights, checkers):
+            self.calls.append((reading.mask, matches))
+
+    world, scans = _loop_scene(12, scans=1)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        seq = pt.ICPSequence(device=dev)
+        seq.set_default()
+        seq.reading_step_filters = [RandomSamplingDataPointsFilter({"prob": "0.5"})]
+        seq.inspector = Keep()
+        seq.set_map(pt.PointCloud.from_numpy(world, device=dev))
+        kc.reset_launch_counts()
+        T = seq.compute(pt.PointCloud.from_numpy(scans[0], device=dev),
+                        seed=4).cpu().numpy()
+        out[dev] = T, seq.last_iteration_count, seq.inspector.calls
+        if dev == "cuda":
+            assert kc.knn1.launches == seq.last_iteration_count
+    (Tc, nc, cc), (Tg, ng, cg) = out["cpu"], out["cuda"]
+    assert ng == nc == len(cg)
+    for (mg, _), (mc, _) in zip(cg, cc):
+        assert torch.equal(mg, mc)
+    (dg, ig), (dc, ic) = cg[0][1], cc[0][1]
+    ok = torch.isfinite(dc)
+    assert torch.equal(torch.isfinite(dg), ok)
+    np.testing.assert_allclose(dg[ok].numpy(), dc[ok].numpy(), rtol=1e-4, atol=1e-9)
+    assert (ig == ic).float().mean() > 0.999
+    np.testing.assert_allclose(Tg, Tc, atol=1e-5)
+
+
+def test_estimate_overlap_on_card_matches_cpu(cuda):
+    """The overlap estimate with ``simpleSensorNoise`` for one scan and a
+    batch of three: equal on the card and the CPU, or one pair apart
+    where a pair lies at the mean distance plus its noise (the mean is
+    summed in another order)."""
+    from libpointmatcher_tpu_torch.matchers import Matches
+    from libpointmatcher_tpu_torch.minimizers import estimate_overlap
+
+    rng = np.random.default_rng(5)
+    ref = rng.uniform(-1, 1, (2000, 3)).astype(np.float32)
+    for shape in ((3000,), (3, 3000)):
+        pts = (ref[rng.integers(0, 2000, shape)]
+               + 0.02 * rng.standard_normal(shape + (3,))).astype(np.float32)
+        noise = (0.01 + 0.02 * rng.uniform(size=shape + (1,))).astype(np.float32)
+        w = (rng.uniform(size=shape + (1,)) > 0.1).astype(np.float32)
+        vals = {}
+        for dev in ("cpu", "cuda"):
+            t = lambda a: torch.as_tensor(a, device=dev)
+            reading = pt.PointCloud(t(pts), None, {"simpleSensorNoise": t(noise)})
+            reference = pt.PointCloud(t(ref))
+            d, i = knn_brute_force(reading.points.reshape(-1, 3),
+                                   reading.mask.reshape(-1), reference.points,
+                                   reference.mask, k=1)
+            m = Matches(d.reshape(shape + (1,)), i.reshape(shape + (1,)))
+            vals[dev] = estimate_overlap(reading, reference, t(w), m,
+                                         t(np.zeros(shape[:-1], np.float32))).cpu()
+        assert torch.allclose(vals["cuda"], vals["cpu"], rtol=0,
+                              atol=1.0 / shape[-1] + 1e-7)

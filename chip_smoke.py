@@ -196,7 +196,27 @@ Phases, each fatal on failure:
    every pose under the gates, the launches following each route, ms per
    iteration logged beside the card's name and power limit (each sequence
    chain, batch, queue and one-shot after one untimed call, beside a
-   one-shot with the null inspector).
+   one-shot with the null inspector);
+23. the data filters (no kernel of their own; their chains run K8 + K5,
+   K1 and K2 + K3): the map maintenance of the reference's align_sequence
+   (SurfaceNormal(knn 10, epsilon 5, densities) + MaxDensity(30), then
+   MaxPointCount at half of what MaxDensity leaves) as the map chain of a
+   sequence of 2 scans on the 100 000-point scene; a sensor's reading chain
+   (BoundingBox around the sensor, MaxDist 12 m, MinDist 0.3 m,
+   RandomSampling 0.5) in a batch of 8 and a queue of 16 (8 lanes) on the
+   ~30 000-row map, the queue taking it and giving the batch's iterations
+   and poses (within 1e-5); the descriptor chain (VoxelGrid 5 cm,
+   SurfaceNormal, ObservationDirection, OrientNormals, IncidenceAngle,
+   Shadow, Sphericality, CutAtDescriptorThreshold) as the map chain of the
+   60 000-point scene in the frame of a sensor inside it, and an
+   Elipsoids(samplingMethod 1) map, each with a sequence of 2 scans; every
+   pose under the gates, each set_map's and run's launches and the ms per
+   iteration logged. Then each new filter once at 100 000 rows (the
+   scene with a time channel, or its SurfaceNormal output), its card time
+   after one untimed call and its output held to the CPU's on the same
+   input (tools_torch/filter_checks.py: masks, kept rows and times equal,
+   OctreeGrid's medoid and CovarianceSampling sharing at least 99.9% and
+   99% of their rows, values within the stated tolerances).
 
 The second-to-last line is the JSON of kernels, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
@@ -2163,6 +2183,283 @@ def engine_features(torch, pt, world, poses, scans, k3, launches, smi, rng):
         {k: v["ms_per_iteration"] for k, v in rows.items()}))
 
 
+# ------------------------------------------------------------ data filters
+#: the sensor's reading chain of phase 23 (BoundingBox around the sensor's
+#: own body, range gates, then the draw)
+SENSOR_CHAIN = [
+    ("BoundingBoxDataPointsFilter", {"xMin": "-0.5", "xMax": "0.5", "yMin": "-0.5",
+                                     "yMax": "0.5", "zMin": "-0.5", "zMax": "0.5",
+                                     "removeInside": "1"}),
+    ("MaxDistDataPointsFilter", {"dim": "-1", "maxDist": "12"}),
+    ("MinDistDataPointsFilter", {"dim": "-1", "minDist": "0.3"}),
+    ("RandomSamplingDataPointsFilter", {"prob": "0.5"}),
+]
+#: align_sequence.cpp:140-144's map maintenance
+MAINTENANCE = [
+    ("SurfaceNormalDataPointsFilter", {"knn": "10", "epsilon": "5",
+                                       "keepDensities": "1"}),
+    ("MaxDensityDataPointsFilter", {"maxDensity": "30"}),
+]
+OCTREE_NODE = "32"
+
+
+def chain_yaml(reading=None, reference=None):
+    """The default chain's YAML with other reading or reference filters,
+    each a list of (name, parameters)."""
+    def section(name, filters):
+        lines = [f"{name}:"]
+        for f, params in filters:
+            lines.append(f"  - {f}:" if params else f"  - {f}")
+            lines += [f"      {k}: {v}" for k, v in params.items()]
+        return "\n".join(lines)
+
+    reading = reading or [("RandomSamplingDataPointsFilter", {})]
+    reference = reference or [("SamplingSurfaceNormalDataPointsFilter", {})]
+    return "\n".join([section("readingDataPointsFilters", reading),
+                      section("referenceDataPointsFilters", reference),
+                      "matcher: KDTreeMatcher",
+                      "outlierFilters:\n  - TrimmedDistOutlierFilter",
+                      "errorMinimizer: PointToPlaneErrorMinimizer",
+                      "transformationCheckers:\n  - CounterTransformationChecker"
+                      "\n  - DifferentialTransformationChecker", ""])
+
+
+def sensor_at(world):
+    """A sensor 1.3 m above the floor of a room scene, off its centre so
+    that it lies in none of its walls' planes (Shadow removes a wall seen
+    edge-on)."""
+    lo, hi = world.min(0), world.max(0)
+    return np.r_[lo[:2] + np.array([0.3, 0.45]) * (hi[:2] - lo[:2]), lo[2] + 1.3]
+
+
+def descriptor_chain(center):
+    """The reference descriptor chain of phase 23, the sensor at ``center``."""
+    x, y, z = (f"{float(v):.3f}" for v in center)
+    return [("VoxelGridDataPointsFilter", {"vSizeX": "0.05", "vSizeY": "0.05",
+                                           "vSizeZ": "0.05"}),
+            ("SurfaceNormalDataPointsFilter", {"knn": "10", "keepEigenValues": "1"}),
+            ("ObservationDirectionDataPointsFilter", {"x": x, "y": y, "z": z}),
+            ("OrientNormalsDataPointsFilter", {}),
+            ("IncidenceAngleDataPointsFilter", {}),
+            ("ShadowDataPointsFilter", {"eps": "0.1"}),
+            ("SphericalityDataPointsFilter", {}),
+            ("CutAtDescriptorThresholdDataPointsFilter",
+             {"descName": "sphericality", "threshold": "0.9"})]
+
+
+def filter_chains(torch, pt, world, poses, scans, k3, launches, smi, rng):
+    """Phase 23: the data filters on the card (see the module docstring):
+    the map maintenance, the sensor chain's batch and queue, the descriptor
+    chain and an Elipsoids map, each through the engines and under the
+    gates, then every new filter once at 100 000 rows, timed and held to
+    the CPU on the same input (tools_torch/filter_checks.py)."""
+    from tools_torch import filter_checks as fc
+
+    from libpointmatcher_tpu_torch.filters import apply_filter_chain
+    from libpointmatcher_tpu_torch.filters.base import DataPointsFilterRegistrar
+    from libpointmatcher_tpu_torch.icp import REFERENCE_STREAM, chain_key
+    from libpointmatcher_tpu_torch.ops import tile_cuda as tc
+    from libpointmatcher_tpu_torch.parallel import (register_batch_to_map,
+                                                    register_queue_to_map)
+    from libpointmatcher_tpu_torch.parallel.stream import queue_eligible
+    from libpointmatcher_tpu_torch.utils import prng
+
+    create = DataPointsFilterRegistrar.create
+
+    def counts():
+        c = dict(launches(), K8=tc.tile_sweep_k.launches)
+        return {k: v for k, v in c.items() if v}
+
+    def set_map(seq, cloud, label):
+        """``set_map`` with the chain's launches logged."""
+        reset_launch_counts()
+        seq.set_map(cloud, seed=0)
+        log(f"[filters] {label}: set_map {cloud.num_points} -> "
+            f"{seq.prefiltered_reference_pts_count} rows, launches {counts()}")
+
+    def sequence(seq, idx, scene_scans, scene_poses, label):
+        """``compute`` of the scans ``idx`` after one untimed call, under
+        the gates, one K1 launch an iteration."""
+        inits = {i: perturb(rng) @ scene_poses[i] for i in idx}
+        seq.compute(pt.PointCloud.from_numpy(scene_scans[idx[0]]),
+                    T_init=inits[idx[0]], seed=idx[0])
+        reset_launch_counts()
+        out, iters, ms = [], 0, 0.0
+        for i in idx:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            T = seq.compute(pt.PointCloud.from_numpy(scene_scans[i]),
+                            T_init=inits[i], seed=i).cpu().numpy()
+            ms += 1e3 * (time.perf_counter() - t)
+            out.append(T)
+            iters += seq.last_iteration_count
+        c = counts()
+        gates(out, [scene_poses[i] for i in idx], label)
+        if c.get("K1", 0) != iters:
+            raise AssertionError(f"{label}: launches {c}, iterations {iters}")
+        log(f"[filters] {label}: " + json.dumps(
+            {"map_rows": seq.prefiltered_reference_pts_count, "iterations": iters,
+             "ms_per_iteration": round(ms / iters, 3), "launches": c}))
+
+    # ---- 23a. map maintenance (align_sequence.cpp:140-144), K8 + K5 then K1
+    world_cloud = pt.PointCloud.from_numpy(world)
+    reset_launch_counts()
+    thinned = apply_filter_chain([create(n, p) for n, p in MAINTENANCE],
+                                 world_cloud, chain_key(0, REFERENCE_STREAM))
+    c = counts()
+    if not c.get("K8"):
+        raise AssertionError(f"SurfaceNormal at {len(world)} rows: launches {c}")
+    max_count = thinned.count_host() // 2
+    log(f"[filters] maintenance: {len(world)} rows, MaxDensity(30) leaves "
+        f"{thinned.count_host()}, MaxPointCount keeps {max_count}; "
+        f"SurfaceNormal launches {c}")
+    seq = pt.ICPSequence()
+    seq.load_from_yaml(chain_yaml(reference=MAINTENANCE + [
+        ("MaxPointCountDataPointsFilter", {"seed": "0", "maxCount": str(max_count)})]))
+    set_map(seq, world_cloud, "maintenance chain")
+    if seq.prefiltered_reference_pts_count != max_count:
+        raise AssertionError(f"maintained map has {seq.prefiltered_reference_pts_count}"
+                             f" rows, expected {max_count}")
+    sequence(seq, (1, 2), scans, poses, "maintained map, sequence")
+    del seq, thinned
+    torch.cuda.empty_cache()
+
+    # ---- 23b. the sensor chain: batch of 8 and queue of 16 on K2 + K3
+    b_seq = pt.ICPSequence()
+    b_seq.load_from_yaml(chain_yaml(reading=SENSOR_CHAIN))
+    set_map(b_seq, pt.PointCloud.from_numpy(k3["world"]), "sensor chain's map")
+    if not queue_eligible(b_seq):
+        raise AssertionError("the sensor chain is not served by the queue")
+    clouds = [pt.PointCloud.from_numpy(x) for x in k3["scans"]]
+    n_q = 2 * QUEUE_LANES
+    q_clouds, q_inits, q_poses = (k3["qclouds"][:n_q], k3["qinits"][:n_q],
+                                  k3["qposes"][:n_q])
+    for label, fn, cl, ini, ps, kw in (
+            ("sensor chain, batch of 8", register_batch_to_map, clouds,
+             k3["T_inits"], k3["poses"], {}),
+            ("sensor chain, queue of 16", register_queue_to_map, q_clouds, q_inits,
+             q_poses, {"lanes": QUEUE_LANES})):
+        fn(b_seq, cl, T_inits=ini, seed=1, **kw)              # untimed
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        T, info = fn(b_seq, cl, T_inits=ini, seed=1, **kw)
+        ms = 1e3 * (time.perf_counter() - t)
+        c = counts()
+        gates(T, ps, label)
+        it = int(info["iterations"].max())
+        queue = fn is register_queue_to_map
+        # one K2 and one K3 launch a lockstep iteration, or a lane iteration
+        if (not c.get("K3") or c.get("K2") != c.get("K3") or c.get("K1")
+                or (not queue and c["K3"] != it)):
+            raise AssertionError(f"{label}: launches {c}, iterations {it}")
+        log(f"[filters] {label}: " + json.dumps(
+            {"ms": round(ms, 2), "iterations": info["iterations"].tolist(),
+             "ms_per_iteration": round(ms / c["K3"], 3), "launches": c}))
+        if queue:
+            Tb, ib = register_batch_to_map(b_seq, cl, T_inits=ini, seed=1)
+            diff = float(np.abs(Tb - T).max())
+            if (not np.array_equal(ib["iterations"], info["iterations"])
+                    or not np.array_equal(ib["codes"], info["codes"])
+                    or diff > 1e-5):
+                raise AssertionError(f"sensor queue against its batch: iterations "
+                                     f"{info['iterations']} / {ib['iterations']}, "
+                                     f"pose difference {diff}")
+            log(f"[filters] sensor chain: the queue gives the batch's iterations, "
+                f"pose difference {diff:.3g}")
+    del b_seq
+    torch.cuda.empty_cache()
+
+    # ---- 23c. the descriptor chain as a map's chain (K5 below 60 000 rows)
+    # the map in the frame of a sensor that saw it: Shadow reads the view
+    # ray from the origin
+    shift = np.eye(4)
+    shift[:3, 3] = -sensor_at(k3["world"])
+    d_seq = pt.ICPSequence()
+    d_seq.load_from_yaml(chain_yaml(reference=descriptor_chain(np.zeros(3))))
+    set_map(d_seq, pt.PointCloud.from_numpy(k3["world"] + shift[:3, 3]),
+            "descriptor chain")
+    sequence(d_seq, (0, 1), k3["scans"], [shift @ P for P in k3["poses"]],
+             "descriptor chain map, sequence")
+    del d_seq
+
+    # ---- 23d. an Elipsoids map
+    e_seq = pt.ICPSequence()
+    e_seq.load_from_yaml(chain_yaml(reference=[(
+        "ElipsoidsDataPointsFilter", {"samplingMethod": "1"})]))
+    set_map(e_seq, world_cloud, "Elipsoids chain")
+    sequence(e_seq, (1, 2), scans, poses, "Elipsoids map, sequence")
+    del e_seq
+    torch.cuda.empty_cache()
+
+    # ---- 23e. every new filter at 100 000 rows, card against CPU
+    stamps = {"stamps": 1_700_000_000_000_000_000 + np.arange(len(world)) * 1000}
+    base = pt.PointCloud.from_numpy(world, times=stamps)
+    center = sensor_at(world)
+    key = prng.fold_in(prng.prng_key(23), 1)
+    table = {}
+
+    def check(name, params, cloud, label=None, **tol):
+        f = create(name, params)
+        out, ms = fc.timed(torch, lambda: f.filter(cloud, key=key))
+        ref = create(name, params).filter(cloud.to("cpu"), key=key)
+        res = fc.compare(out, ref, **tol)
+        table[label or name] = dict(card_ms=round(ms, 3), rows_in=cloud.count_host(),
+                                    rows_out=out.count_host(), **res)
+        log(f"[filters] {label or name}: " + json.dumps(table[label or name]))
+        return out
+
+    reset_launch_counts()
+    sn, ms = fc.timed(torch, lambda: create(
+        "SurfaceNormalDataPointsFilter", {"knn": "10", "epsilon": "5",
+                                          "keepDensities": "1",
+                                          "keepEigenValues": "1"}).filter(base))
+    log(f"[filters] SurfaceNormal(knn 10) at {len(world)} rows: {ms:.3f} ms card, "
+        f"launches over two calls {counts()}")
+    for name, params in SENSOR_CHAIN[:3] + [
+            ("IdentityDataPointsFilter", {}), ("RemoveNaNDataPointsFilter", {}),
+            ("DistanceLimitDataPointsFilter", {"dim": "0", "dist": "7.0"}),
+            ("MaxQuantileOnAxisDataPointsFilter", {"dim": "2", "ratio": "0.9"})]:
+        check(name, params, base)
+    md = check("MaxDensityDataPointsFilter", {"maxDensity": "30"}, sn)
+    check("MaxPointCountDataPointsFilter",
+          {"seed": "0", "maxCount": str(md.count_host() // 2)}, md)
+    od = check("ObservationDirectionDataPointsFilter",
+               dict(zip("xyz", (f"{v:.3f}" for v in center))), sn)
+    check("OrientNormalsDataPointsFilter", {}, od)
+    check("IncidenceAngleDataPointsFilter", {}, od)
+    check("ShadowDataPointsFilter", {"eps": "0.1"}, od)
+    sph = check("SphericalityDataPointsFilter",
+                {"keepUnstructureness": "1", "keepStructureness": "1"}, sn)
+    check("CutAtDescriptorThresholdDataPointsFilter",
+          {"descName": "sphericality", "threshold": "0.9"}, sph)
+    check("VoxelGridDataPointsFilter", {"vSizeX": "0.05", "vSizeY": "0.05",
+                                        "vSizeZ": "0.05"}, sn)
+    for method in range(4):
+        check("OctreeGridDataPointsFilter",
+              {"maxPointByNode": OCTREE_NODE, "samplingMethod": str(method)}, sn,
+              f"OctreeGrid({OCTREE_NODE}, method {method})",
+              kept_share=0.999 if method == 3 else 1.0)
+    check("NormalSpaceDataPointsFilter", {"nbSample": "5000"}, sn)
+    check("CovarianceSamplingDataPointsFilter", {"nbSample": "5000"}, sn,
+          kept_share=0.99)
+    for method in (0, 1):
+        check("ElipsoidsDataPointsFilter",
+              {"samplingMethod": str(method), "keepEigenValues": "1",
+               "keepDensities": "1", "keepShapes": "1", "keepMeans": "1"}, base,
+              f"Elipsoids(method {method})")
+    check("GestaltDataPointsFilter", {"ratio": "0.1", "radius": "1",
+                                      "keepEigenValues": "1"}, base)
+    chain = apply_filter_chain([create(n, p) for n, p in descriptor_chain(center)],
+                               base, key)
+    check("RemoveSensorBiasDataPointsFilter", {}, chain,
+          "RemoveSensorBias (descriptor chain's output)")
+    log(f"[filters] card: {smi}")
+    del base, sn, md, od, sph, chain
+    torch.cuda.empty_cache()
+    return table
+
+
 def kernel_inputs(torch, world, scan_world, n, m, rng, device="cuda"):
     """Queries from a scan placed in the world, references from the scene,
     every 11th query and every 7th reference masked."""
@@ -2604,6 +2901,11 @@ def main() -> int:
     t = time.perf_counter()
     engine_features(torch, pt, world, poses, scans, k3, launches, smi, rng)
     log(f"[engine] phase 22 took {time.perf_counter() - t:.1f} s")
+
+    # ---- 23. the data filters and their chains
+    t = time.perf_counter()
+    filter_chains(torch, pt, world, poses, scans, k3, launches, smi, rng)
+    log(f"[filters] phase 23 took {time.perf_counter() - t:.1f} s")
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -6,10 +6,14 @@ The counterpart of ``libpointmatcher_tpu.cloud.PointCloud``:
 - ``mask``        [N] bool valid-row mask; a filter "removes" a point by
   clearing its bit;
 - ``descriptors`` {name: [N, span] float32} in insertion order
-  ("normals" has span d).
+  ("normals" has span d);
+- ``times``       {name: [N, span] int64} time channels (nanosecond
+  stamps). The JAX package splits them into int32 pairs because it runs
+  without 64-bit types; torch keeps int64 on the card.
 
 A batch of scans is the same layout with a leading batch dimension
-(``points [B, N, d]``, ``mask [B, N]``), the counterpart of the JAX
+(``points [B, N, d]``, ``mask [B, N]``, each channel ``[B, N, span]``), the
+counterpart of the JAX
 package's clouds stacked for ``vmap``: the loop modules take either.
 
 ``compact()`` packs the valid rows to the front in their original order, so
@@ -35,10 +39,11 @@ __all__ = ["PointCloud"]
 class PointCloud:
     """Masked point cloud (see module docstring)."""
 
-    __slots__ = ("points", "mask", "descriptors", "_count_cache")
+    __slots__ = ("points", "mask", "descriptors", "times", "_count_cache")
 
     def __init__(self, points: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                 descriptors: Optional[Mapping[str, torch.Tensor]] = None):
+                 descriptors: Optional[Mapping[str, torch.Tensor]] = None,
+                 times: Optional[Mapping[str, torch.Tensor]] = None):
         if points.ndim < 2:
             raise InvalidField(f"points must be [..., N, d], got {tuple(points.shape)}")
         self.points = points.to(torch.float32)
@@ -47,6 +52,8 @@ class PointCloud:
                               device=points.device)
         self.mask = mask.to(torch.bool)
         self.descriptors: Dict[str, torch.Tensor] = dict(descriptors or {})
+        self.times: Dict[str, torch.Tensor] = {
+            k: v.to(torch.int64) for k, v in (times or {}).items()}
         self._count_cache: Optional[int] = None
 
     # ------------------------------------------------------------ properties
@@ -86,11 +93,45 @@ class PointCloud:
                 f"Missing descriptor '{name}'; have {list(self.descriptors)}"
             ) from None
 
+    def with_descriptor(self, name: str, value: torch.Tensor) -> "PointCloud":
+        """New cloud with descriptor ``name`` set to ``value`` ([..., N] or
+        [..., N, span]); an existing one keeps its place in the order."""
+        if value.shape == self.mask.shape:
+            value = value[..., None]
+        if value.shape[:-1] != self.mask.shape:
+            raise InvalidField(f"descriptor '{name}' of shape {tuple(value.shape)} "
+                               f"for {self.num_points} rows")
+        return self.replace(descriptors={**self.descriptors, name: value})
+
+    # ----------------------------------------------------------------- times
+    def has_time(self, name: str) -> bool:
+        return name in self.times
+
+    def get_time(self, name: str) -> torch.Tensor:
+        """Time channel ``name``, int64 on the cloud's device."""
+        try:
+            return self.times[name]
+        except KeyError:
+            raise InvalidField(
+                f"Missing time '{name}'; have {list(self.times)}") from None
+
+    def with_time(self, name: str, value) -> "PointCloud":
+        """New cloud with time channel ``name`` set to ``value`` (int64,
+        [..., N] or [..., N, span]; a tensor or numpy)."""
+        value = torch.as_tensor(value, dtype=torch.int64, device=self.device)
+        if value.shape == self.mask.shape:
+            value = value[..., None]
+        if value.shape[:-1] != self.mask.shape:
+            raise InvalidField(f"time '{name}' of shape {tuple(value.shape)} "
+                               f"for {self.num_points} rows")
+        return self.replace(times={**self.times, name: value})
+
     # ------------------------------------------------------------- structure
     def replace(self, **kw) -> "PointCloud":
         out = PointCloud(kw.get("points", self.points),
                          kw.get("mask", self.mask),
-                         kw.get("descriptors", self.descriptors))
+                         kw.get("descriptors", self.descriptors),
+                         kw.get("times", self.times))
         if "mask" not in kw:
             out._count_cache = self._count_cache
         return out
@@ -105,7 +146,8 @@ class PointCloud:
         if self.device == device:
             return self
         out = PointCloud(self.points.to(device), self.mask.to(device),
-                         {k: v.to(device) for k, v in self.descriptors.items()})
+                         {k: v.to(device) for k, v in self.descriptors.items()},
+                         {k: v.to(device) for k, v in self.times.items()})
         out._count_cache = self._count_cache
         return out
 
@@ -113,7 +155,8 @@ class PointCloud:
         """The rows in the order ``perm`` (every row-aligned field
         follows)."""
         out = PointCloud(self.points[perm], self.mask[perm],
-                         {k: v[perm] for k, v in self.descriptors.items()})
+                         {k: v[perm] for k, v in self.descriptors.items()},
+                         {k: v[perm] for k, v in self.times.items()})
         out._count_cache = self._count_cache
         return out
 
@@ -121,11 +164,17 @@ class PointCloud:
         """Valid rows packed to the front in their original order, at the
         exact valid count (one host sync)."""
         keep = torch.nonzero(self.mask, as_tuple=True)[0]
-        out = PointCloud(self.points[keep],
-                         torch.ones(keep.shape[0], dtype=torch.bool,
+        return self.take_rows(keep)
+
+    def take_rows(self, rows: torch.Tensor) -> "PointCloud":
+        """All-valid cloud of the rows ``rows`` (int64 on the cloud's
+        device), in that order, every channel following."""
+        out = PointCloud(self.points[rows],
+                         torch.ones(rows.shape[0], dtype=torch.bool,
                                     device=self.device),
-                         {k: v[keep] for k, v in self.descriptors.items()})
-        out._count_cache = keep.shape[0]
+                         {k: v[rows] for k, v in self.descriptors.items()},
+                         {k: v[rows] for k, v in self.times.items()})
+        out._count_cache = rows.shape[0]
         return out
 
     # -------------------------------------------------------------- numpy IO
@@ -134,17 +183,22 @@ class PointCloud:
         match the tensor layout (``to_numpy`` keeps valid rows only)."""
         return self.points.cpu().numpy(), self.mask.cpu().numpy()
 
-    def to_numpy(self):
-        """``(points[N_valid, d], {name: [N_valid, span]})`` as numpy."""
+    def to_numpy(self, with_times: bool = False):
+        """``(points[N_valid, d], {name: [N_valid, span]})`` as numpy, and
+        the time channels (int64) as a third item when ``with_times``, as
+        the JAX package's ``to_numpy`` returns them."""
         m = self.mask.cpu().numpy()
         pts = self.points.cpu().numpy()[m]
         descs = {k: v.cpu().numpy()[m] for k, v in self.descriptors.items()}
+        if with_times:
+            return pts, descs, {k: v.cpu().numpy()[m] for k, v in self.times.items()}
         return pts, descs
 
     @staticmethod
-    def from_numpy(points, descriptors=None, device=None) -> "PointCloud":
+    def from_numpy(points, descriptors=None, device=None, *,
+                   times=None) -> "PointCloud":
         """Cloud of all-valid rows on ``device`` (the card unless
-        ``device="cpu"``)."""
+        ``device="cpu"``); ``times`` {name: int [N] or [N, span]}."""
         dev = resolve_device(device)
         pts = torch.as_tensor(np.asarray(points, np.float32), device=dev)
         descs = {}
@@ -152,11 +206,16 @@ class PointCloud:
             v = np.asarray(v, np.float32)
             descs[k] = torch.as_tensor(v[:, None] if v.ndim == 1 else v,
                                        device=dev)
-        out = PointCloud(pts, None, descs)
+        tms = {}
+        for k, v in (times or {}).items():
+            v = np.asarray(v, np.int64)
+            tms[k] = torch.as_tensor(v[:, None] if v.ndim == 1 else v, device=dev)
+        out = PointCloud(pts, None, descs, tms)
         out._count_cache = pts.shape[0]
         return out
 
     def __repr__(self):
-        labels = tuple((k, v.shape[1]) for k, v in self.descriptors.items())
+        labels = tuple((k, v.shape[-1]) for k, v in self.descriptors.items())
+        times = tuple((k, v.shape[-1]) for k, v in self.times.items())
         return (f"PointCloud(N={self.num_points}, dim={self.dim}, "
-                f"device={self.device}, descriptors={labels})")
+                f"device={self.device}, descriptors={labels}, times={times})")

@@ -32,7 +32,7 @@ from ..registry import Parametrizable, Registrar
 from ..utils import prng
 
 __all__ = ["DataPointsFilter", "DataPointsFilterRegistrar",
-           "apply_filter_chain", "ScanKeys"]
+           "apply_filter_chain", "chain_is_traceable", "ScanKeys", "key_word"]
 
 DataPointsFilterRegistrar = Registrar("DataPointsFilter")
 
@@ -79,6 +79,17 @@ class ScanKeys:
 ChainKey = Union[prng.Key, ScanKeys]
 
 
+def key_word(key: Optional[ChainKey], scan: Optional[int] = None) -> int:
+    """The key's second word (scan ``scan``'s of a :class:`ScanKeys`;
+    ``PRNGKey(0)``'s, 0, with no key): the seed of the JAX filters that
+    draw with numpy, ``key_data(key)[-1]`` (OctreeGrid, Gestalt)."""
+    if key is None:
+        key = prng.prng_key(0)
+    elif isinstance(key, ScanKeys):
+        key = key.keys[scan]
+    return int(key[1])
+
+
 class DataPointsFilter(Parametrizable):
     """Interface (reference: PointMatcher.h:437-450)."""
 
@@ -86,6 +97,11 @@ class DataPointsFilter(Parametrizable):
     #: JAX package's ``TRACEABLE`` filters, the ones its queue serves
     #: (see ``parallel.stream.queue_eligible``)
     TRACEABLE = False
+
+    #: True for a filter whose JAX counterpart splits into a host structure
+    #: step and a traced tail (its ``HOST_PREP``, SamplingSurfaceNormal's):
+    #: the JAX one-shot runs a reference chain headed by one in one program
+    HOST_PREP = False
 
     #: True when the filter's effect at each ICP iteration, as a reading
     #: step filter, is a function of the cloud and the iteration alone
@@ -137,15 +153,24 @@ class DataPointsFilter(Parametrizable):
                             cloud.device)
 
 
+def chain_is_traceable(filters: Sequence[DataPointsFilter]) -> bool:
+    return all(f.TRACEABLE for f in filters)
+
+
 def apply_filter_chain(filters: Sequence[DataPointsFilter], cloud: PointCloud,
                        key: Optional[ChainKey] = None,
                        scan: Optional[int] = None,
                        allow_empty: bool = False,
-                       compact: bool = True) -> PointCloud:
+                       compact: bool = True,
+                       traced: bool = False) -> PointCloud:
     """Apply ``filters`` in order, filter i drawing from ``fold_in(key,
     i)`` (scan ``scan``'s of :class:`ScanKeys`), compacting after each unless
     ``compact`` is False (the tile route keeps the raw rows, which its
-    assignment addresses). A filter that leaves no point raises
+    assignment addresses). With ``traced``, the rows are compacted once,
+    after the last filter: the JAX package's one-program engines apply a
+    ``TRACEABLE`` chain so (``apply_filter_chain_traced``), and a draw then
+    falls on the rows the chain was given, not on the survivors of the
+    filters before it. A filter that leaves no point raises
     ``ConvergenceError``, unless ``allow_empty``: in serving, the emptied
     scan goes on to the loop and stops there with the no-inliers code, as
     in the JAX package's serving functions."""
@@ -157,7 +182,7 @@ def apply_filter_chain(filters: Sequence[DataPointsFilter], cloud: PointCloud,
         elif key is not None:
             sub = prng.fold_in(key, i)
         cloud = f.filter(cloud, key=sub, scan=scan)
-        if compact:
+        if compact and (not traced or i == len(filters) - 1):
             cloud = cloud.compact()
         after = cloud.count_host()
         log_info(f"Applied {type(f).__name__} - {after} points remaining"

@@ -24,17 +24,28 @@ import numpy as np
 import torch
 
 from ..cloud import PointCloud
+from ..errors import InvalidField
 from ..ops import knn_self
 from ..ops.dispatch import apply_max_dist, knn_search
 from ..registry import Param
 from .base import DataPointsFilter, DataPointsFilterRegistrar
 
 __all__ = ["SurfaceNormalDataPointsFilter",
-           "SamplingSurfaceNormalDataPointsFilter", "median_split_boxes",
-           "neighborhood_eigens", "density_from_neighborhood"]
+           "SamplingSurfaceNormalDataPointsFilter",
+           "SphericalityDataPointsFilter", "median_split_boxes",
+           "neighborhood_eigens", "density_from_neighborhood", "batched_eigh"]
 
 #: most 3x3 matrices per batched eigh call
 EIGH_SLICE = 16384
+
+
+def batched_eigh(C: torch.Tensor):
+    """``torch.linalg.eigh`` of ``C [n, d, d]`` in slices of
+    :data:`EIGH_SLICE` matrices: cuSOLVER's batched eigh refuses batches of
+    10^5 matrices (CUSOLVER_STATUS_INVALID_VALUE on an H100)."""
+    eigva, eigve = (torch.cat(x) for x in zip(*(
+        torch.linalg.eigh(c) for c in torch.split(C, EIGH_SLICE))))
+    return eigva, eigve
 
 
 def neighborhood_eigens(points, mask, ids, dists):
@@ -49,10 +60,7 @@ def neighborhood_eigens(points, mask, ids, dists):
     mean = (nb * w).sum(dim=1) / count[:, None]
     centered = (nb - mean[:, None, :]) * w
     C = torch.einsum("nkd,nke->nde", centered, centered)
-    # cuSOLVER's batched eigh refuses batches of 10^5 matrices
-    # (CUSOLVER_STATUS_INVALID_VALUE on an H100): solve in slices
-    eigva, eigve = (torch.cat(x) for x in zip(*(
-        torch.linalg.eigh(c) for c in torch.split(C, EIGH_SLICE))))
+    eigva, eigve = batched_eigh(C)
     max_norm = torch.where(valid, torch.linalg.norm(centered, dim=-1),
                            torch.zeros_like(dists)).amax(dim=1)
     return mean, eigva, eigve, count, max_norm
@@ -133,7 +141,7 @@ class SurfaceNormalDataPointsFilter(DataPointsFilter):
         if self.keepMeanDist:
             md = torch.linalg.norm(pts - mean, dim=1)
             out["meanDists"] = torch.where(degenerate, float(2**31), md)[:, None]
-        return PointCloud(pts, mask, out)
+        return cloud.replace(descriptors=out)
 
 
 def median_split_boxes(points: np.ndarray, knn: int) -> np.ndarray:
@@ -189,6 +197,8 @@ def _segment_extreme(values, seg, num, reduce):
 class SamplingSurfaceNormalDataPointsFilter(DataPointsFilter):
     """Subsample and estimate normals per box of a median-split
     decomposition (see module docstring)."""
+
+    HOST_PREP = True
 
     PARAMS = (
         Param("ratio", "ratio of points to keep with random subsampling",
@@ -269,4 +279,40 @@ class SamplingSurfaceNormalDataPointsFilter(DataPointsFilter):
             out["eigValues"] = eigva[seg]
         if self.keepEigenVectors:
             out["eigVectors"] = eigve.reshape(nb, d * d)[seg]
-        return PointCloud(new_pts, keep, out)
+        return PointCloud(new_pts, keep, out, cloud.times)
+
+
+@DataPointsFilterRegistrar.register
+class SphericalityDataPointsFilter(DataPointsFilter):
+    """Local shape descriptor from the eigenvalues: -1 for a plane, +1 for
+    a uniform spread (reference: DataPointsFilters/Sphericality.cpp; 3D
+    only, needs 'eigValues' from a prior SurfaceNormal pass). Where the
+    largest eigenvalue is not positive, or the value is NaN, it is NaN."""
+
+    PARAMS = (
+        Param("keepUnstructureness", "keep the unstructureness value", bool,
+              False),
+        Param("keepStructureness", "keep the structureness value", bool, False),
+    )
+
+    def filter(self, cloud, key=None, scan=None):
+        if cloud.dim != 3:
+            raise InvalidField("SphericalityDataPointsFilter: works only in 3D")
+        if not cloud.has_descriptor("eigValues"):
+            raise InvalidField(
+                "SphericalityDataPointsFilter: no eigValues found; run "
+                "SurfaceNormalDataPointsFilter with keepEigenValues first")
+        eig = cloud.get_descriptor("eigValues")               # ascending
+        lam1, lam2, lam3 = eig[..., 2], eig[..., 1], eig[..., 0]
+        denom1 = torch.clamp(lam1, min=1e-20)
+        unstructureness = lam3 / denom1
+        denom2 = torch.clamp(lam1 * lam2, min=1e-20)
+        structureness = (lam2 / denom1) * ((lam2 - lam3) / torch.sqrt(denom2))
+        sph = unstructureness - structureness
+        sph = torch.where((lam1 <= 0) | torch.isnan(sph), float("nan"), sph)
+        out = cloud.with_descriptor("sphericality", sph)
+        if self.keepUnstructureness:
+            out = out.with_descriptor("unstructureness", unstructureness)
+        if self.keepStructureness:
+            out = out.with_descriptor("structureness", structureness)
+        return out

@@ -41,10 +41,10 @@ from .checkers import CODE_BOUND_ERROR, CODE_MAX_ITER, CODE_NAN_ERROR
 from .cloud import PointCloud
 from .device import resolve_device
 from .errors import ConvergenceError
-from .filters.base import apply_filter_chain
+from .filters.base import apply_filter_chain, chain_is_traceable
 from .inspectors import NullInspector
 from .loggers import log_info, log_warning
-from .matchers import Matches
+from .matchers import Matcher, Matches
 from .minimizers import MinimizerStats, estimate_overlap
 from .outlierfilters import compute_outlier_weights, init_outlier_states
 from .transformations import RigidTransformation
@@ -61,6 +61,11 @@ READING_STREAM = 2
 #: the stepped driver's step chain draws from ``fold_in(fold_in(PRNGKey(seed),
 #: STEP_STREAM), iteration)``
 STEP_STREAM = 3
+
+
+def _has_sensor_noise(filters) -> bool:
+    return any(type(f).__name__ == "SimpleSensorNoiseDataPointsFilter"
+               for f in filters)
 
 
 def chain_key(seed: int, stream: int) -> prng.Key:
@@ -386,7 +391,8 @@ class ICP(ICPChainBase):
         reference = reference.to(self.device)
         ref_in_count = reference.count_host() if wants_stats else 0
         reference = apply_filter_chain(self.reference_filters, reference,
-                                       chain_key(seed, REFERENCE_STREAM))
+                                       chain_key(seed, REFERENCE_STREAM),
+                                       traced=self._reference_chain_traced(reading))
         reference, T_refIn_refMean = _center_cloud(reference)
         self.matcher.init(reference)
         if wants_stats:
@@ -405,6 +411,30 @@ class ICP(ICPChainBase):
         return (self._step_chain_traced()
                 and not self.inspector.needs_iteration_data)
 
+    def _reading_chain_traced(self, reading_in, wants_stats: bool) -> bool:
+        """True where the JAX engine runs the reading chain inside its
+        one-program one-shot (its ``icp.py:409-433``), with no compaction
+        between filters: a fused loop, no statistics, a ``TRACEABLE``
+        chain, a matcher without loop tables and no sensor-noise
+        descriptors. Elsewhere it compacts after each filter."""
+        return (self._fused() and not wants_stats
+                and chain_is_traceable(self.reading_filters)
+                and type(self.matcher).prepare_loop is Matcher.prepare_loop
+                and not reading_in.has_descriptor("simpleSensorNoise")
+                and not _has_sensor_noise(self.reading_filters))
+
+    def _reference_chain_traced(self, reading) -> bool:
+        """True where the JAX engine runs the whole one-shot in one program
+        (its ``icp.py:882-907``), the reference chain with no compaction
+        between filters: the reading chain so too, a matcher without init
+        tables, ``TRACEABLE`` reference filters after a ``HOST_PREP`` or
+        ``TRACEABLE`` head, none of them SimpleSensorNoise."""
+        rf = self.reference_filters
+        return (self._reading_chain_traced(reading, self.inspector.wants_stats)
+                and type(self.matcher).init is Matcher.init
+                and all(f.TRACEABLE or f.HOST_PREP for f in rf[:1])
+                and chain_is_traceable(rf[1:]) and not _has_sensor_noise(rf))
+
     def compute_with_transformed_reference(self, reading_in, reference,
                                            T_refIn_refMean, T_init, seed=0):
         """Loop half of the pipeline (reference: ICP.cpp:316-452);
@@ -419,7 +449,9 @@ class ICP(ICPChainBase):
         reading_in = reading_in.to(self.device)
         read_in_count = reading_in.count_host() if wants_stats else 0
         reading = apply_filter_chain(self.reading_filters, reading_in,
-                                     chain_key(seed, READING_STREAM))
+                                     chain_key(seed, READING_STREAM),
+                                     traced=self._reading_chain_traced(
+                                         reading_in, wants_stats))
         reading = _apply_transform(self.transformations, reading, T_refMean_dataIn)
         if wants_stats:
             self.inspector.add_stat("ReadingPreprocessingDuration",

@@ -42,10 +42,10 @@ import numpy as np
 import torch
 
 from ..cloud import PointCloud
-from ..filters.base import ScanKeys, apply_filter_chain
+from ..filters.base import ScanKeys, apply_filter_chain, chain_is_traceable
 from ..icp import _apply_transform, _center_cloud
 from ..loggers import log_warning
-from ..matchers import tile_aux_to_device
+from ..matchers import Matcher, tile_aux_to_device
 from ..ops.morton import morton_argsort_device
 from ..utils import prng, se3
 
@@ -156,7 +156,8 @@ def _prep_scans(seq, readings: Sequence[PointCloud], T_rmd: torch.Tensor,
     keys = scan_keys(seed, len(readings), rows, dev)
     filtered = [apply_filter_chain(seq.reading_filters, rd.to(dev), keys,
                                    scan=i, allow_empty=True,
-                                   compact=host_orders is None)
+                                   compact=host_orders is None,
+                                   traced=_traceable(seq) and seq._fused())
                 for i, rd in enumerate(readings)]
     keep_rate = filtered[0].count_host() / max(readings[0].count_host(), 1)
     cap = _serve_compact_cap(keep_rate, rows, compact_rows)
@@ -183,8 +184,10 @@ def _prep_scans(seq, readings: Sequence[PointCloud], T_rmd: torch.Tensor,
 
 def _traceable(seq) -> bool:
     """True when every reading filter only masks rows (``TRACEABLE``), so
-    that a table built from a scan's raw rows stays valid after the chain."""
-    return all(getattr(f, "TRACEABLE", False) for f in seq.reading_filters)
+    that a table built from a scan's raw rows stays valid after the chain;
+    the JAX package's serving program then runs the chain with no
+    compaction between filters."""
+    return chain_is_traceable(seq.reading_filters)
 
 
 def _tile_route(seq) -> bool:
@@ -410,14 +413,19 @@ def register_batch(icp, readings: Sequence[PointCloud],
                                 for i in range(len(readings))],
                                max(c.num_points for c in clouds), dev)
                       for side, clouds in ((0, readings), (1, references)))
+    # both chains as the JAX package's one-program pair path runs them
+    traced = (chain_is_traceable(icp.reading_filters)
+              and chain_is_traceable(icp.reference_filters)
+              and icp._step_chain_traced()
+              and type(icp.matcher).prepare_loop is Matcher.prepare_loop)
     prepped_r, prepped_f, T_rm, T_rmd = [], [], [], []
     for i, (reading, reference) in enumerate(zip(readings, references)):
         reference = apply_filter_chain(icp.reference_filters, reference.to(dev),
-                                       keys_f, scan=i)
+                                       keys_f, scan=i, traced=traced)
         reference, Trm = _center_cloud(reference)
         Trd = se3.inverse(Trm) @ T_inits[i]
         reading = apply_filter_chain(icp.reading_filters, reading.to(dev),
-                                     keys_r, scan=i)
+                                     keys_r, scan=i, traced=traced)
         prepped_r.append(_apply_transform(icp.transformations, reading, Trd))
         prepped_f.append(reference)
         T_rm.append(Trm)

@@ -14,7 +14,10 @@ and their YAML chains on the card against the CPU at the tolerances of
 tools_torch/loop_modules.py, and the engine features: Anderson acceleration
 at a fixed budget (poses within 1e-5), FixStepSampling's masks (equal), the
 stepped driver's rows (equal), matches and pose, and ``estimate_overlap``,
-each on the card against the CPU on the same inputs. Every test
+each on the card against the CPU on the same inputs; and the data
+filters, each on the card against the CPU on the same input at the
+tolerances of tools_torch/filter_checks.py, with the sensor chain's queue
+against its batch on the card. Every test
 needs a CUDA device and skips without one. The file imports neither JAX
 nor the JAX package, so it runs on a machine with the card alone:
 
@@ -1154,3 +1157,135 @@ def test_estimate_overlap_on_card_matches_cpu(cuda):
                                          t(np.zeros(shape[:-1], np.float32))).cpu()
         assert torch.allclose(vals["cuda"], vals["cpu"], rtol=0,
                               atol=1.0 / shape[-1] + 1e-7)
+
+
+def _filter_scene(n, seed):
+    """Planes of a room, 2 mm of noise, a time channel; normals, densities
+    and eigenvalues from SurfaceNormal on the CPU."""
+    rng = np.random.default_rng(seed)
+    k = n // 4
+    parts = [np.c_[rng.uniform(0, 5, k), rng.uniform(0, 4, k), np.zeros(k)],
+             np.c_[rng.uniform(0, 5, k), np.zeros(k), rng.uniform(0, 3, k)],
+             np.c_[np.zeros(k), rng.uniform(0, 4, k), rng.uniform(0, 3, k)],
+             np.c_[rng.uniform(1, 3, n - 3 * k), rng.uniform(1, 3, n - 3 * k),
+                   np.full(n - 3 * k, 0.8)]]
+    pts = (np.concatenate(parts) + 0.002 * rng.standard_normal((n, 3))).astype(np.float32)
+    times = {"stamps": 10**18 + rng.integers(0, 10**9, n)}
+    cloud = pt.PointCloud.from_numpy(pts, device="cpu", times=times)
+    sn = SurfaceNormalDataPointsFilter({"knn": "8", "keepDensities": "1",
+                                        "keepEigenValues": "1"}).filter(cloud)
+    return cloud, sn.with_descriptor(
+        "observationDirections", torch.tensor([2.5, 2.0, 1.3]) - sn.points)
+
+
+FILTER_CASES = [
+    ("BoundingBoxDataPointsFilter", {"xMax": "2", "yMax": "2", "zMax": "2"}, "base", {}),
+    ("MaxDistDataPointsFilter", {"maxDist": "4"}, "base", {}),
+    ("MinDistDataPointsFilter", {"minDist": "2"}, "base", {}),
+    ("DistanceLimitDataPointsFilter", {"dim": "1", "dist": "2"}, "base", {}),
+    ("MaxQuantileOnAxisDataPointsFilter", {"dim": "2", "ratio": "0.7"}, "base", {}),
+    ("RemoveNaNDataPointsFilter", {}, "base", {}),
+    ("MaxDensityDataPointsFilter", {"maxDensity": "3000"}, "desc", {}),
+    ("MaxPointCountDataPointsFilter", {"maxCount": "2500"}, "base", {}),
+    ("ShadowDataPointsFilter", {"eps": "0.2"}, "desc", {}),
+    ("CutAtDescriptorThresholdDataPointsFilter",
+     {"descName": "densities", "threshold": "3000"}, "desc", {}),
+    ("ObservationDirectionDataPointsFilter", {"x": "1", "y": "2"}, "base", {}),
+    ("OrientNormalsDataPointsFilter", {}, "desc", {}),
+    ("IncidenceAngleDataPointsFilter", {}, "desc", {}),
+    ("SphericalityDataPointsFilter", {}, "desc", {}),
+    ("VoxelGridDataPointsFilter", {"vSizeX": "0.1", "vSizeY": "0.1", "vSizeZ": "0.1"},
+     "desc", {}),
+    ("OctreeGridDataPointsFilter", {"maxPointByNode": "8", "samplingMethod": "1"},
+     "desc", {}),
+    ("OctreeGridDataPointsFilter", {"maxPointByNode": "8", "samplingMethod": "2"},
+     "desc", {}),
+    ("OctreeGridDataPointsFilter", {"maxPointByNode": "8", "samplingMethod": "3"},
+     "desc", {"kept_share": 0.99}),
+    ("NormalSpaceDataPointsFilter", {"nbSample": "1000"}, "desc", {}),
+    ("CovarianceSamplingDataPointsFilter", {"nbSample": "1000"}, "desc",
+     {"kept_share": 0.97}),
+    ("ElipsoidsDataPointsFilter", {"keepEigenValues": "1", "keepShapes": "1"}, "desc", {}),
+    ("ElipsoidsDataPointsFilter", {"samplingMethod": "1", "keepMeans": "1"}, "desc", {}),
+    ("GestaltDataPointsFilter", {"ratio": "0.5", "radius": "0.8"}, "base",
+     {"eig_share": 0.9}),
+]
+
+
+@pytest.mark.parametrize("name,params,src,tol", FILTER_CASES)
+def test_filters_on_card_match_cpu(cuda, name, params, src, tol):
+    import filter_checks
+    from libpointmatcher_tpu_torch.filters.base import DataPointsFilterRegistrar
+
+    base, desc = _filter_scene(4000, 3)
+    cloud = base if src == "base" else desc
+    key = prng.fold_in(prng.prng_key(5), 1)
+    create = DataPointsFilterRegistrar.create
+    card = create(name, params).filter(cloud.to(cuda), key=key)
+    assert card.device.type == "cuda"
+    cpu = create(name, params).filter(cloud, key=key)
+    filter_checks.compare(card, cpu, **tol)
+
+
+def test_remove_sensor_bias_on_card_matches_cpu(cuda):
+    import filter_checks
+    from libpointmatcher_tpu_torch.filters import IncidenceAngleDataPointsFilter
+    from libpointmatcher_tpu_torch.filters import RemoveSensorBiasDataPointsFilter
+
+    _, desc = _filter_scene(3000, 4)
+    desc = IncidenceAngleDataPointsFilter().filter(desc)
+    card = RemoveSensorBiasDataPointsFilter().filter(desc.to(cuda))
+    cpu = RemoveSensorBiasDataPointsFilter().filter(desc)
+    filter_checks.compare(card, cpu)
+    assert torch.equal(card.points.cpu(), cpu.points)   # float64 on the host
+
+
+def test_sensor_chain_queue_equals_batch_on_card(cuda):
+    """The sensor's reading chain is served by the queue, which gives the
+    batch's iterations, codes and poses (within 1e-5) on the card."""
+    from libpointmatcher_tpu_torch.parallel.stream import queue_eligible
+
+    base, _ = _filter_scene(6000, 6)
+    world = base.points.numpy()
+    seq = pt.ICPSequence(device=cuda)
+    seq.load_from_yaml("""
+readingDataPointsFilters:
+  - BoundingBoxDataPointsFilter:
+      removeInside: 1
+      xMin: -0.5
+      xMax: 0.5
+      yMin: -0.5
+      yMax: 0.5
+      zMin: -0.5
+      zMax: 0.5
+  - MaxDistDataPointsFilter:
+      maxDist: 6
+  - MinDistDataPointsFilter:
+      minDist: 0.3
+  - RandomSamplingDataPointsFilter:
+      prob: 0.5
+referenceDataPointsFilters:
+  - SamplingSurfaceNormalDataPointsFilter
+matcher: KDTreeMatcher
+outlierFilters:
+  - TrimmedDistOutlierFilter
+errorMinimizer: PointToPlaneErrorMinimizer
+transformationCheckers:
+  - CounterTransformationChecker
+  - DifferentialTransformationChecker
+""")
+    seq.set_map(pt.PointCloud.from_numpy(world, device=cuda), seed=0)
+    assert queue_eligible(seq)
+    rng = np.random.default_rng(7)
+    scans, inits = [], []
+    for i in range(6):
+        rows = world[rng.choice(len(world), 1500, replace=False)] - [0.5, 0.5, 0.3]
+        scans.append(pt.PointCloud.from_numpy(rows.astype(np.float32), device=cuda))
+        T = np.eye(4, dtype=np.float32)
+        T[:3, 3] = [0.5 + 0.02 * i, 0.5 - 0.01 * i, 0.3]
+        inits.append(T)
+    Tq, iq = register_queue_to_map(seq, scans, T_inits=inits, seed=2, lanes=4)
+    Tb, ib = register_batch_to_map(seq, scans, T_inits=inits, seed=2)
+    np.testing.assert_array_equal(iq["iterations"], ib["iterations"])
+    np.testing.assert_array_equal(iq["codes"], ib["codes"])
+    np.testing.assert_allclose(Tq, Tb, atol=1e-5)

@@ -295,7 +295,9 @@ def test_entry_points_need_a_card_unless_cpu():
 def test_port_imports_no_jax():
     code = ("import sys, libpointmatcher_tpu_torch as p; p.ICP(device='cpu'); "
             "import libpointmatcher_tpu_torch.config, "
-            "libpointmatcher_tpu_torch.state; "
+            "libpointmatcher_tpu_torch.state, "
+            "libpointmatcher_tpu_torch.filters.sampling, "
+            "libpointmatcher_tpu_torch.filters.descriptor; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'libpointmatcher_tpu' or m.startswith('libpointmatcher_tpu.')]; "
             "assert not bad, bad")
@@ -309,6 +311,8 @@ def test_port_imports_no_jax():
 def test_port_sources_name_no_jax():
     for path in list((REPO / "libpointmatcher_tpu_torch").rglob("*.py")) + [
             REPO / "chip_smoke.py"]:
+        # no filter loads the JAX package's compiled library
+        assert "libpm_native" not in path.read_text(), path
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]):

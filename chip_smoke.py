@@ -216,7 +216,29 @@ Phases, each fatal on failure:
    after one untimed call and its output held to the CPU's on the same
    input (tools_torch/filter_checks.py: masks, kept rows and times equal,
    OctreeGrid's medoid and CovarianceSampling sharing at least 99.9% and
-   99% of their rows, values within the stated tolerances).
+   99% of their rows, values within the stated tolerances);
+24. IO and the cell-grid matchers (no kernel of their own: host parsing
+   and plain torch gathers; their paths run K8, K1 and K5): the 100 000-point
+   scene with SurfaceNormal's normals and an int64 time channel saved as
+   CSV, VTK, PLY and PCD (ascii and binary) and loaded onto the card through
+   ``io.load``, each equal to the scene (floats bit for bit, times exact;
+   PLY carries no time channel), save and load ms logged, the native parser
+   required; ``CellGridMatcher`` (knn 1, maxDist ``CELL_MAX_DIST``) in the
+   default chain on the map loaded from the binary VTK: a sequence of 2
+   scans, a batch of 8, a queue of 16 through 8 lanes equal to the batch of
+   the same 16 (iterations, poses within 1e-5), no k-NN kernel launched, ms
+   per step (a lockstep or lane iteration, one grid search each) logged,
+   ``cell_knn`` at the batch's second lockstep iteration timed and its first
+   8192 queries equal to the CPU's (d² bit for bit, ids equal), mc, the
+   tile's gather and the peak memory logged; ``KDTreeVarDistMatcher`` with
+   a ``maxSearchDist`` descriptor on the readings: a sequence of 2 scans on
+   the ~30 000-row map (the culled route, no launch), its culled and dense
+   routes equal at a recorded step for knn 1 and 3, a batch of 8 on the
+   host path and its queue served as that batch; sequences at knn 1 and 3 on
+   a map of ``VAR_DENSE_ROWS`` rows (the dense route: K1 and K5 launches equal the
+   iterations); the registered reading saved and read back. Every pose
+   under the gates, ms per iteration logged beside the card's name and
+   power limit.
 
 The second-to-last line is the JSON of kernels, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
@@ -232,6 +254,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 
@@ -726,6 +749,8 @@ class InputRecorder:
         self.name = name
         self.keep = keep
         self.calls = []
+        #: every call, recorded or not
+        self.count = 0
 
     def __enter__(self):
         self.orig = getattr(self.module, self.name)
@@ -733,6 +758,7 @@ class InputRecorder:
         return self
 
     def __call__(self, *a, **k):
+        self.count += 1
         if self.keep is None or len(self.calls) < self.keep:
             self.calls.append(tuple(x.clone() if hasattr(x, "clone") else x
                                     for x in a))
@@ -2460,6 +2486,292 @@ def filter_chains(torch, pt, world, poses, scans, k3, launches, smi, rng):
     return table
 
 
+#: phase 24's CellGridMatcher cell edge (its maxDist): covers the scans'
+#: initial error (perturb's 0.08 m and 0.03 rad) over most of their rows
+CELL_MAX_DIST = 0.5
+#: phase 24's per-point search radii (KDTreeVarDistMatcher's maxSearchDist)
+VAR_RADII = (0.3, 0.6)
+#: phase 24's map rows for KDTreeVarDistMatcher's dense route (under its
+#: CULL_MIN_MAP of 16 384 in the JAX package's 512-row granule)
+VAR_DENSE_ROWS = 15_000
+#: the saved variants of phase 24: (extension, binary)
+IO_VARIANTS = (("csv", False), ("vtk", False), ("vtk", True), ("ply", False),
+               ("ply", True), ("pcd", False), ("pcd", True))
+
+
+def matcher_yaml(matcher, reference=None):
+    """The default chain's YAML with another matcher (its YAML block)."""
+    return chain_yaml(reference=reference).replace(
+        "matcher: KDTreeMatcher", "matcher:\n  " + matcher.replace("\n", "\n  "))
+
+
+def same_arrays(got, want, label):
+    """``(points, descriptors, times)`` equal, NaN where NaN, times exact."""
+    for a, b, part in zip(got, want, ("points", "descriptors", "times")):
+        if isinstance(a, dict):
+            if list(a) != list(b):
+                raise AssertionError(f"{label}: {part} {list(a)}, expected {list(b)}")
+            pairs = [(a[k], b[k], f"{part} {k}") for k in a]
+        else:
+            pairs = [(a, b, part)]
+        for x, y, what in pairs:
+            if x.shape != y.shape or not np.array_equal(x, y, equal_nan=x.dtype.kind == "f"):
+                raise AssertionError(f"{label}: {what} differ")
+
+
+def io_and_cellgrid(torch, pt, world, poses, scans, k3, launches, smi, rng):
+    """Phase 24: IO and the cell-grid matchers on the card (see the module
+    docstring) → the logged table."""
+    import shutil
+
+    from libpointmatcher_tpu_torch import io, matchers
+    from libpointmatcher_tpu_torch.filters.base import DataPointsFilterRegistrar
+    from libpointmatcher_tpu_torch.matchers import KDTreeVarDistMatcher
+    from libpointmatcher_tpu_torch.ops import cellgrid
+    from libpointmatcher_tpu_torch.ops import tile_cuda as tc
+    from libpointmatcher_tpu_torch.parallel import (register_batch_to_map,
+                                                    register_queue_to_map)
+    from libpointmatcher_tpu_torch.parallel.batch import _host_path
+    from libpointmatcher_tpu_torch.parallel.stream import queue_eligible
+
+    table = {}
+
+    def counts():
+        c = dict(launches(), K8=tc.tile_sweep_k.launches)
+        return {k: v for k, v in c.items() if v}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t)
+
+    # ---- 24a. the 100 000-point scene in every format, loaded onto the card
+    if not io.native.available():
+        raise AssertionError("the native IO library (native/pm_native.cpp) "
+                             "did not build: the loaders would parse in Python")
+    stamps = (1_700_000_000_000_000_000 + np.arange(len(world), dtype=np.int64) * 1000
+              + rng.integers(0, 1000, len(world)))
+    reset_launch_counts()
+    src = DataPointsFilterRegistrar.create(
+        "SurfaceNormalDataPointsFilter", {"knn": "10"}).filter(
+        pt.PointCloud.from_numpy(world, times={"time": stamps}))
+    log(f"[io] scene: {src.count_host()} rows with normals (launches {counts()}) "
+        f"and an int64 time channel")
+    want = src.to_numpy(with_times=True)
+    out = Path(__file__).resolve().parent / ".chip_scratch" / "io"
+    out.mkdir(parents=True, exist_ok=True)
+    loaded = {}
+    try:
+        for ext, binary in IO_VARIANTS:
+            label = f"{ext} {'binary' if binary else 'ascii'}"
+            path = str(out / f"scene_{int(binary)}.{ext}")
+            _, save_ms = timed(lambda: io.save(src, path, binary=binary))
+            cloud, load_ms = timed(lambda: io.load(path))
+            if cloud.device.type != "cuda":
+                raise AssertionError(f"{label}: loaded onto {cloud.device}")
+            # PLY has no 64-bit integer type: no time channel is written
+            same_arrays(cloud.to_numpy(with_times=True),
+                        want[:2] + ({},) if ext == "ply" else want, label)
+            loaded[(ext, binary)] = cloud
+            table[f"io {label}"] = dict(save_ms=round(save_ms, 1),
+                                        load_ms=round(load_ms, 1),
+                                        mbytes=round(os.path.getsize(path) / 2 ** 20, 2))
+            log(f"[io] {label}: " + json.dumps(table[f"io {label}"]))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    log("[io] every load equals the scene: points and normals bit for bit, "
+        "times exact (PLY: no time channel)")
+
+    def sequence(seq, idx, clouds, ps, label, kernel=None):
+        """``compute`` of the scans ``idx`` after one untimed call, under the
+        gates; ``kernel``'s launches equal the iterations, no other k-NN
+        launch (none at all without a kernel)."""
+        inits = {i: perturb(rng) @ ps[i] for i in idx}
+        seq.compute(clouds[idx[0]], T_init=inits[idx[0]], seed=idx[0])
+        reset_launch_counts()
+        Ts, iters, ms = [], 0, 0.0
+        for i in idx:
+            T, t_ms = timed(lambda: seq.compute(clouds[i], T_init=inits[i], seed=i))
+            Ts.append(T.cpu().numpy())
+            ms += t_ms
+            iters += seq.last_iteration_count
+        c = counts()
+        worst = gates(Ts, [ps[i] for i in idx], label)
+        if c != ({kernel: iters} if kernel else {}):
+            raise AssertionError(f"{label}: launches {c}, iterations {iters}")
+        table[label] = dict(map_rows=seq.prefiltered_reference_pts_count,
+                            iterations=iters, ms_per_iteration=round(ms / iters, 3),
+                            launches=c, worst=[round(w, 5) for w in worst])
+        log(f"[cellgrid] {label}: " + json.dumps(table[label]))
+
+    def serve(seq, fn, clouds, inits, ps, label, **kw):
+        """One serving call under the gates → (T, info); no k-NN launch. Its
+        steps (lockstep or lane iterations) are its ``cell_knn`` calls."""
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        with InputRecorder(matchers, "cell_knn", keep=0) as steps:
+            (T, info), ms = timed(lambda: fn(seq, clouds, T_inits=inits, seed=1, **kw))
+        c = counts()
+        worst = gates(T, ps, label)
+        if c or not steps.count:
+            raise AssertionError(f"{label}: launches {c}, {steps.count} grid searches")
+        table[label] = dict(ms=round(ms, 1), iterations=info["iterations"].tolist(),
+                            steps=steps.count, ms_per_step=round(ms / steps.count, 3),
+                            peak_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 2),
+                            worst=[round(w, 5) for w in worst])
+        log(f"[cellgrid] {label}: " + json.dumps(table[label]))
+        return T, info
+
+    def same_results(a, b, label):
+        (Ta, ia), (Tb, ib) = a, b
+        diff = float(np.abs(Ta - Tb).max())
+        if (not np.array_equal(ia["iterations"], ib["iterations"])
+                or not np.array_equal(ia["codes"], ib["codes"]) or diff > 1e-5):
+            raise AssertionError(f"{label}: iterations {ia['iterations']} / "
+                                 f"{ib['iterations']}, pose difference {diff}")
+        log(f"[cellgrid] {label}: the same iterations, pose difference {diff:.3g}")
+
+    # ---- 24b. CellGridMatcher on the map loaded from the binary VTK
+    seq = pt.ICPSequence()
+    seq.load_from_yaml(matcher_yaml(
+        f"CellGridMatcher:\n  knn: 1\n  maxDist: {CELL_MAX_DIST}"))
+    _, ms = timed(lambda: seq.set_map(loaded[("vtk", True)], seed=0))
+    del loaded
+    grid = seq.matcher.grid
+    tile = cellgrid.QUERY_TILE
+    log(f"[cellgrid] set_map: {seq.prefiltered_reference_pts_count} map rows in "
+        f"{ms:.1f} ms; grid {grid.dims} cells of {CELL_MAX_DIST} m, mc "
+        f"{grid.max_per_cell}; a {tile}-query tile gathers "
+        f"{tile * 27 * grid.max_per_cell} candidates, "
+        f"{tile * 27 * grid.max_per_cell * 12 / 2 ** 20:.0f} MiB of ids and d²")
+    clouds = [pt.PointCloud.from_numpy(x) for x in scans]
+    sequence(seq, (1, 2), clouds, poses, "CellGrid sequence")
+    b_clouds, b_poses = clouds[1:SERVE_BATCH + 1], poses[1:SERVE_BATCH + 1]
+    b_inits = [perturb(rng) @ P for P in b_poses]
+    with InputRecorder(matchers, "cell_knn", keep=2) as rec:
+        serve(seq, register_batch_to_map, b_clouds, b_inits, b_poses,
+              "CellGrid batch of 8")
+    q, qm, ref, _, max_dist, k = rec.calls[1]
+    del rec
+    n_q = int(qm.sum())
+    ms = cuda_ms(torch, lambda: cellgrid.cell_knn(q, qm, ref, grid, max_dist, k), 3)
+    # each query's result depends on it alone: its first 8192 on the CPU
+    qs, qms = q.reshape(-1, 3)[:8192], qm.reshape(-1)[:8192]
+    card = cellgrid.cell_knn(qs, qms, ref, grid, max_dist, k)
+    cpu_grid = cellgrid.build_cell_grid(ref.cpu().numpy(), np.ones(len(ref), bool),
+                                        max_dist)
+    cpu = cellgrid.cell_knn(qs.cpu(), qms.cpu(), ref.cpu(), cpu_grid, max_dist, k)
+    if not (torch.equal(card[0].cpu(), cpu[0]) and torch.equal(card[1].cpu(), cpu[1])):
+        raise AssertionError("cell_knn on the card differs from the CPU's")
+    table["cell_knn"] = dict(queries=list(q.shape), valid=n_q, mc=grid.max_per_cell,
+                             card_ms=round(ms, 3),
+                             finite=round(float(torch.isfinite(card[0]).float().mean()), 4))
+    log(f"[cellgrid] cell_knn at the batch's second lockstep iteration: "
+        + json.dumps(table["cell_knn"]) + "; its first 8192 queries equal the "
+        "CPU's (d² bit for bit, ids equal)")
+    del q, qm, card, cpu
+    if not queue_eligible(seq) or _host_path(seq):
+        raise AssertionError("CellGridMatcher is not served by the queue's dense mode")
+    q_idx = list(range(1, SERVE_BATCH + 1)) * 2
+    q_clouds, q_poses = [clouds[i] for i in q_idx], [poses[i] for i in q_idx]
+    q_inits = [perturb(rng) @ P for P in q_poses]
+    queued = serve(seq, register_queue_to_map, q_clouds, q_inits, q_poses,
+                   "CellGrid queue of 16", lanes=QUEUE_LANES)
+    batched = serve(seq, register_batch_to_map, q_clouds, q_inits, q_poses,
+                    "CellGrid batch of 16")
+    same_results(queued, batched, "CellGrid queue of 16 against its batch")
+    del seq, clouds, b_clouds, q_clouds
+    torch.cuda.empty_cache()
+
+    # ---- 24c. KDTreeVarDistMatcher on the ~30 000-row map (the culled route)
+    def with_radii(x):
+        return pt.PointCloud.from_numpy(x, {"maxSearchDist": rng.uniform(
+            *VAR_RADII, len(x)).astype(np.float32)})
+
+    v_clouds = [with_radii(x) for x in k3["scans"]]
+    v_seq = pt.ICPSequence()
+    v_seq.load_from_yaml(matcher_yaml("KDTreeVarDistMatcher:\n  knn: 1"))
+    v_seq.set_map(pt.PointCloud.from_numpy(k3["world"]), seed=0)
+    m = v_seq.matcher
+    calls = []
+    find = m.find_closests_in
+
+    def recorded(reading, reference, aux=None):
+        calls.append((reading, reference))
+        return find(reading, reference, aux)
+
+    m.find_closests_in = recorded
+    sequence(v_seq, (0, 1), v_clouds, k3["poses"], "VarDist sequence, culled")
+    del m.find_closests_in
+    if m._vd_grid is None:
+        raise AssertionError("the culled route did not engage")
+    log(f"[cellgrid] VarDist grid: edge {m._vd_rmax:.4f} m, {m._vd_grid.dims} cells, "
+        f"mc {m._vd_grid.max_per_cell}")
+    reading, reference = calls[-2]
+    rows = 512 * -(-reference.count_host() // 512)
+    for knn in (1, 3):
+        culled = KDTreeVarDistMatcher({"knn": str(knn)})
+        culled.init(reference, rows=rows)
+        culled.prepare_loop(reading)
+        dense = KDTreeVarDistMatcher({"knn": str(knn)})
+        dense.init(reference, rows=512)
+        a, b = culled.find_closests_in(reading, reference), \
+            dense.find_closests_in(reading, reference)
+        differ = int((a.ids != b.ids).sum()) + int(
+            ((a.dists != b.dists) & torch.isfinite(b.dists)).sum())
+        if culled._vd_grid is None or dense._vd_grid is not None or differ:
+            raise AssertionError(f"VarDist knn {knn}: the routes differ in {differ} "
+                                 f"entries")
+        log(f"[cellgrid] VarDist knn {knn}: the culled and dense routes equal at "
+            f"a recorded step ({int(torch.isfinite(b.dists).sum())} finite matches)")
+    del calls, reading, reference
+    if not _host_path(v_seq) or queue_eligible(v_seq):
+        raise AssertionError("KDTreeVarDistMatcher must serve on the batch's host path")
+    batch = serve(v_seq, register_batch_to_map, v_clouds, k3["T_inits"],
+                  k3["poses"], "VarDist batch of 8 (host path, culled)")
+    queue = serve(v_seq, register_queue_to_map, v_clouds, k3["T_inits"],
+                  k3["poses"], "VarDist queue of 8 (served as a batch)",
+                  lanes=QUEUE_LANES)
+    same_results(queue, batch, "VarDist queue against its batch")
+
+    # ---- 24d. the dense route: a map under 16 384 rows, knn 1 (K1) and 3 (K5)
+    small = [("SamplingSurfaceNormalDataPointsFilter", {}),
+             ("MaxPointCountDataPointsFilter", {"seed": "0",
+                                                "maxCount": str(VAR_DENSE_ROWS)})]
+    for knn, kernel in ((1, "K1"), (3, "K5")):
+        d_seq = pt.ICPSequence()
+        d_seq.load_from_yaml(matcher_yaml(f"KDTreeVarDistMatcher:\n  knn: {knn}",
+                                          reference=small))
+        d_seq.set_map(pt.PointCloud.from_numpy(k3["world"]), seed=0)
+        sequence(d_seq, (0, 1), v_clouds, k3["poses"],
+                 f"VarDist sequence, dense, knn {knn}", kernel)
+        if d_seq.matcher._vd_grid is not None:
+            raise AssertionError("the dense route built a grid")
+
+    # ---- 24e. the registered reading saved and read back
+    T = batch[0][0]
+    x = k3["scans"][0] @ T[:3, :3].T.astype(np.float32) + T[:3, 3].astype(np.float32)
+    result = pt.PointCloud.from_numpy(
+        x, {"maxSearchDist": v_clouds[0].get_descriptor("maxSearchDist").cpu().numpy()},
+        times={"time": stamps[:len(x)]})
+    out.mkdir(parents=True, exist_ok=True)
+    try:
+        for ext, binary in (("vtk", True), ("pcd", True), ("csv", False)):
+            path = str(out / f"registered.{ext}")
+            io.save(result, path, binary=binary)
+            same_arrays(io.load(path).to_numpy(with_times=True),
+                        result.to_numpy(with_times=True), f"registered {ext}")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    log(f"[cellgrid] the registered reading ({len(x)} rows) saved as VTK, PCD and "
+        f"CSV and read back equal; card: {smi}")
+    del v_seq, batch, queue
+    torch.cuda.empty_cache()
+    return table
+
+
 def kernel_inputs(torch, world, scan_world, n, m, rng, device="cuda"):
     """Queries from a scan placed in the world, references from the scene,
     every 11th query and every 7th reference masked."""
@@ -2906,6 +3218,11 @@ def main() -> int:
     t = time.perf_counter()
     filter_chains(torch, pt, world, poses, scans, k3, launches, smi, rng)
     log(f"[filters] phase 23 took {time.perf_counter() - t:.1f} s")
+
+    # ---- 24. IO and the cell-grid matchers
+    t = time.perf_counter()
+    io_and_cellgrid(torch, pt, world, poses, scans, k3, launches, smi, rng)
+    log(f"[cellgrid] phase 24 took {time.perf_counter() - t:.1f} s")
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

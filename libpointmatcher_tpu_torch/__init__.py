@@ -32,8 +32,9 @@ from .loggers import Logger, LoggerRegistrar, set_logger  # noqa: E402
 from .filters import (DataPointsFilter,  # noqa: E402
                       DataPointsFilterRegistrar, apply_filter_chain)
 from .icp import ICP, ICPChainBase, ICPSequence  # noqa: E402
+from . import io  # noqa: E402
 
-__all__ = ["PointCloud", "ICP", "ICPSequence", "ICPChainBase", "Matches",
+__all__ = ["PointCloud", "ICP", "ICPSequence", "ICPChainBase", "Matches", "io",
            "DataPointsFilterRegistrar", "MatcherRegistrar",
            "OutlierFilterRegistrar", "ErrorMinimizerRegistrar",
            "TransformationCheckerRegistrar", "TransformationRegistrar",

@@ -31,6 +31,7 @@ host copies. It runs the matcher without loop tables.
 
 from __future__ import annotations
 
+import math
 import time
 from typing import List, Optional
 
@@ -880,7 +881,8 @@ class ICPSequence(ICP):
     def _install_map(self, cloud: PointCloud, T_refIn_refMean: torch.Tensor):
         self._map = cloud
         self._T_refIn_refMean = T_refIn_refMean
-        self.matcher.init(cloud)
+        # the JAX engine holds its map at the valid count rounded up to 512
+        self.matcher.init(cloud, rows=512 * math.ceil(max(cloud.count_host(), 1) / 512))
         self.prefiltered_reference_pts_count = cloud.count_host()
 
     def has_map(self) -> bool:

@@ -22,6 +22,12 @@ with knn = 1: ``PMTPU_SKIP_V1=1`` the predicated sweep of :mod:`.ops.skip`
 of :mod:`.ops.tilesweep` (K7, or K8 for knn > 1): the map is cut into
 sub-blocks at ``init``, and each registration's queries are tiled once at
 loop start (:meth:`BlockGridMatcher.prepare_loop`).
+
+``CellGridMatcher`` and ``KDTreeVarDistMatcher`` search through the cell
+grid of :mod:`.ops.cellgrid` (plain torch gathers; the JAX package has no
+kernel for it either): the first at its ``maxDist`` for any map, the second
+at the reading's largest per-point radius on maps of ``CULL_MIN_MAP`` rows
+or more, where it otherwise runs the dense search (K1, K5).
 """
 
 from __future__ import annotations
@@ -30,19 +36,22 @@ import math
 import os
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from .cloud import PointCloud
 from .ops import skip, skip_cuda, sweep, sweep_cuda
+from .ops.cellgrid import build_cell_grid, cell_knn
 from .ops.dispatch import MXU_EPSILON_FLOOR, apply_max_dist, knn_search
 from .ops.morton import morton_argsort, morton_argsort_batch
-from .ops.tilesweep import (assign_tiles, build_sub_blocks, gather_candidates,
-                            live_columns, tile_knnk_from_candidates,
-                            tile_nn1_from_candidates)
+from .ops.tilesweep import (assign_tiles, bucket_size, build_sub_blocks,
+                            gather_candidates, live_columns,
+                            tile_knnk_from_candidates, tile_nn1_from_candidates)
 from .registry import Param, Parametrizable, Registrar
 
 __all__ = ["Matches", "Matcher", "NullMatcher", "KDTreeMatcher",
-           "BlockGridMatcher", "MatcherRegistrar", "tile_aux_to_device"]
+           "KDTreeVarDistMatcher", "CellGridMatcher", "BlockGridMatcher",
+           "MatcherRegistrar", "tile_aux_to_device"]
 
 
 class Matches(NamedTuple):
@@ -66,8 +75,12 @@ class Matcher(Parametrizable):
         #: the iterations it reports (the PointCountTouched statistic)
         self.visit_count = 0
 
-    def init(self, reference: PointCloud) -> None:
-        """Called by the engine with the filtered, centred reference."""
+    def init(self, reference: PointCloud, rows: Optional[int] = None) -> None:
+        """Called by the engine with the filtered, centred reference.
+        ``rows`` is the row count the JAX engine holds that reference at,
+        for thresholds on the map's size: ``ICPSequence`` passes its map's
+        (the valid count rounded up to 512); None means the one-shot
+        engine's, the valid count's bucket (:func:`jax_rows`)."""
         self._reference = reference
 
     def touched_per_iteration(self, reading: PointCloud,
@@ -110,6 +123,12 @@ class Matcher(Parametrizable):
 
 
 MatcherRegistrar = Registrar("Matcher")
+
+
+def jax_rows(reference: PointCloud, rows: Optional[int] = None) -> int:
+    """``rows``, or the row count the JAX one-shot engine holds
+    ``reference`` at: its valid count on the 1-1.5-2 bucket ladder."""
+    return bucket_size(max(reference.count_host(), 1)) if rows is None else rows
 
 
 def _dense_matches(reading, reference, knn: int, epsilon: float,
@@ -325,6 +344,194 @@ class KDTreeMatcher(Matcher):
         return Matches(*matches), (qs, d_s)
 
 
+@MatcherRegistrar.register
+class KDTreeVarDistMatcher(Matcher):
+    """kNN with a per-point maximum radius read from a reading descriptor
+    (reference: MatchersImpl.cpp:132-150).
+
+    On a map of ``CULL_MIN_MAP`` rows or more (counted as the JAX engine
+    holds it, see :meth:`Matcher.init`), :meth:`prepare_loop` reads the
+    reading's radii once per registration and builds a cell grid over the
+    map at their maximum, rounded up on a 1.25 ladder so that scans with
+    similar radii share a grid; the search then gathers only the cells
+    around each query, and each point's own radius masks the result. Else
+    the search is the dense one (K1, or K5 for knn > 1), masked the same
+    way. Both routes give the same matches. The grid is matcher state, as
+    in the JAX package: a driver that does not call :meth:`prepare_loop`
+    (the batch's host path) searches with whatever grid the last
+    registration left, and the stepped driver drops it
+    (:meth:`invalidate_loop_state`)."""
+
+    #: map rows from which the cell grid serves (the JAX package's rows)
+    CULL_MIN_MAP = 16384
+
+    PARAMS = (
+        Param("knn", "number of nearest neighbors to consider", int, 1, min=1),
+        Param("epsilon", "approximation to use for the nearest-neighbor search "
+              "(accepted for config parity; search here is always exact)",
+              float, 0.0, min=0.0),
+        Param("searchType", "kd-tree search strategy in the reference "
+              "(ignored: search is a tiled exact sweep)", int, 1, min=0, max=2),
+        Param("maxDistField", "descriptor name holding the per-point max "
+              "search radius", str, "maxSearchDist"),
+    )
+
+    def __init__(self, params=None):
+        super().__init__(params)
+        self._ref_host = None
+        self._ref_shape = None
+        self._vd_grid = None
+        self._vd_rmax = None
+        self._vd_ref_shape = None
+
+    def init(self, reference: PointCloud, rows: Optional[int] = None) -> None:
+        """Keep the map's host rows when it is large enough for the grid;
+        the same content initialised again keeps the grid it has."""
+        super().init(reference, rows)
+        self._ref_shape = tuple(reference.points.shape)
+        if jax_rows(reference, rows) >= self.CULL_MIN_MAP:
+            pts, mask = reference.host_rows()
+            if (self._ref_host is not None
+                    and self._ref_host[0].shape == pts.shape
+                    and np.array_equal(self._ref_host[0], pts)
+                    and np.array_equal(self._ref_host[1], mask)):
+                return
+            self._ref_host = (pts, mask)
+        else:
+            self._ref_host = None
+        self._vd_grid = self._vd_rmax = self._vd_ref_shape = None
+
+    def prepare_loop(self, reading: PointCloud):
+        """Host, once per registration: the grid over the map at the
+        reading's largest valid radius, rounded up to a power of 1.25
+        (cached while that edge stays the same); dropped when the map is
+        small, the reading has no radius or no positive finite one. Returns
+        None: the search reads the grid from the matcher."""
+        if self._ref_host is None or not reading.has_descriptor(self.maxDistField):
+            self._drop_vd_grid()
+            return None
+        radius = torch.where(reading.mask,
+                             reading.get_descriptor(self.maxDistField)[..., 0], 0.0)
+        rmax = max(float(radius.max()), 0.0) if radius.numel() else 0.0
+        if not math.isfinite(rmax) or rmax <= 0.0:
+            self._drop_vd_grid()
+            return None
+        rq = 1.25 ** math.ceil(math.log(rmax, 1.25) - 1e-9)
+        if self._vd_grid is not None and self._vd_rmax == rq:
+            return None
+        self._vd_grid = build_cell_grid(*self._ref_host, rq,
+                                        device=self._reference.device)
+        self._vd_rmax = rq
+        self._vd_ref_shape = self._ref_shape
+        return None
+
+    def _drop_vd_grid(self) -> None:
+        self._vd_grid = self._vd_rmax = self._vd_ref_shape = None
+
+    def invalidate_loop_state(self) -> None:
+        """The stepped driver does not call :meth:`prepare_loop`: drop the
+        grid an earlier registration built at its own reading's radii."""
+        self._drop_vd_grid()
+
+    def find_closests_in(self, reading, reference, aux=None) -> Matches:
+        """The grid's search when it was built for a reference of this
+        shape, else the dense one; then each query's own radius."""
+        radius = reading.get_descriptor(self.maxDistField)[..., 0]
+        if (self._vd_grid is not None
+                and tuple(reference.points.shape) == self._vd_ref_shape):
+            m = Matches(*cell_knn(reading.points, reading.mask, reference.points,
+                                  self._vd_grid, float(self._vd_rmax), self.knn))
+        else:
+            m = _dense_matches(reading, reference, self.knn, 0.0, float("inf"))
+        keep = m.dists <= (radius * radius)[..., None]
+        return Matches(torch.where(keep, m.dists, float("inf")),
+                       torch.where(keep, m.ids, -1))
+
+
+@MatcherRegistrar.register
+class CellGridMatcher(Matcher):
+    """Bounded-radius kNN through a cell grid of edge ``maxDist`` over the
+    map (an extension beyond the reference registry, as in the JAX package;
+    :mod:`.ops.cellgrid`): each query gathers the 3^d cells around its own.
+    Exact within the radius; a point with no neighbour within it gets
+    (+inf, −1), the contract of ``KDTreeMatcher`` with ``maxDist``. Against
+    a reference of another shape than the one of ``init`` it runs the dense
+    search with ``maxDist`` applied."""
+
+    PARAMS = (
+        Param("knn", "number of nearest neighbors to consider", int, 1, min=1),
+        Param("maxDist", "maximum distance to consider for neighbors "
+              "(required finite; also the cell edge length)", float, 1.0,
+              min=0.0000001),
+    )
+
+    def __init__(self, params=None):
+        super().__init__(params)
+        self.grid = None
+        self._grid_shape = None
+        self._host_cells = None
+
+    def init(self, reference: PointCloud, rows: Optional[int] = None) -> None:
+        """Build the grid over the map, and a host copy of its cells'
+        occupancy for :meth:`touched_per_iteration`."""
+        super().init(reference, rows)
+        pts, mask = reference.host_rows()
+        cell = float(self.maxDist)
+        self.grid = build_cell_grid(pts, mask, cell, device=reference.device)
+        self._grid_shape = tuple(reference.points.shape)
+        p = np.asarray(pts, np.float64)
+        valid = np.asarray(mask, bool)
+        vp = p[valid] if valid.any() else np.zeros((1, p.shape[1]))
+        origin = vp.min(axis=0)
+        lin, dims = _cell_index(np.floor((vp - origin) / cell).astype(np.int64),
+                                None)
+        ulins, counts = np.unique(lin, return_counts=True)
+        self._host_cells = (origin, dims, ulins, counts)
+
+    def find_closests_in(self, reading, reference, aux=None) -> Matches:
+        if self.grid is None or tuple(reference.points.shape) != self._grid_shape:
+            return _dense_matches(reading, reference, self.knn, 0.0,
+                                  float(self.maxDist))
+        return Matches(*cell_knn(reading.points, reading.mask, reference.points,
+                                 self.grid, float(self.maxDist), self.knn))
+
+    def touched_per_iteration(self, reading, reference) -> int:
+        """The candidates each valid query inspects, summed: the occupancy
+        of its 3^d cells, at the reading's current host rows (the loop-start
+        positions in the engine)."""
+        if self._host_cells is None:
+            return super().touched_per_iteration(reading, reference)
+        origin, dims, ulins, counts = self._host_cells
+        pts, mask = reading.host_rows()
+        q = np.asarray(pts, np.float64)[np.asarray(mask, bool)]
+        if len(q) == 0:
+            return 0
+        d = q.shape[-1]
+        qc = np.floor((q - origin) / float(self.maxDist)).astype(np.int64)
+        offs = np.stack(np.meshgrid(*([[-1, 0, 1]] * d), indexing="ij"),
+                        axis=-1).reshape(-1, d)
+        nc = qc[:, None, :] + offs[None, :, :]
+        in_grid = np.all((nc >= 0) & (nc < dims), axis=-1)
+        lin, _ = _cell_index(nc, dims)
+        pos = np.clip(np.searchsorted(ulins, lin), 0, max(len(ulins) - 1, 0))
+        hit = in_grid & (len(ulins) > 0) & (ulins[pos] == lin)
+        return int(np.where(hit, counts[pos], 0).sum())
+
+
+def _cell_index(coords: np.ndarray, dims):
+    """Linear cell index of integer cell coordinates [..., d], the first
+    axis fastest → ``(lin, dims)``; ``dims`` None takes the coordinates'
+    extent."""
+    if dims is None:
+        dims = coords.max(axis=0) + 1
+    lin = coords[..., 0].copy()
+    stride = int(dims[0])
+    for a in range(1, coords.shape[-1]):
+        lin += coords[..., a] * stride
+        stride *= int(dims[a])
+    return lin, dims
+
+
 def tile_aux_to_device(per_scan: dict, units: torch.Tensor) -> dict:
     """A tile assignment in host form (numpy ``q_rows``, ``blocks``,
     ``parent``, ``vrows``, ``ncols``, of one scan or stacked ``[B, ...]``)
@@ -397,9 +604,9 @@ class BlockGridMatcher(Matcher):
     def cell_size(self) -> float:
         return float(self.maxDist) + float(self.motionBound)
 
-    def init(self, reference: PointCloud) -> None:
+    def init(self, reference: PointCloud, rows: Optional[int] = None) -> None:
         """Cut the (filtered, centred) reference into sub-blocks."""
-        super().init(reference)
+        super().init(reference, rows)
         pts, mask = reference.host_rows()
         self._blocks = build_sub_blocks(pts, mask, self.cell_size)
         self.units = torch.as_tensor(self._blocks.units, device=reference.device)

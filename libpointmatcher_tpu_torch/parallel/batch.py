@@ -190,6 +190,16 @@ def _traceable(seq) -> bool:
     return chain_is_traceable(seq.reading_filters)
 
 
+def _host_path(seq) -> bool:
+    """True where the JAX package's batch takes its host path: a chain whose
+    loop its serving program cannot hold (not ``seq._fused()``), or a
+    matcher that builds per-registration state in ``prepare_loop`` with no
+    per-scan serving form (``KDTreeVarDistMatcher``)."""
+    m = seq.matcher
+    return not seq._fused() or (type(m).prepare_loop is not Matcher.prepare_loop
+                                and not hasattr(m, "prepare_loop_host"))
+
+
 def _tile_route(seq) -> bool:
     """True when the matcher serves through tile tables (a
     ``BlockGridMatcher`` with its map's sub-blocks) and the reading chain
@@ -342,11 +352,12 @@ def register_batch_to_map(seq, readings: Sequence[PointCloud],
 
     A chain whose loop the JAX package's serving program cannot hold (a
     step filter without a schedule, or an inspector that dumps
-    iterations) takes the JAX package's host path: the scans' chains
-    compacted without a cap, and the lockstep loop against the map
-    without loop tables (the dense search). As in the JAX package, that
-    loop drops such step filters and makes no dumps, where a one-shot
-    ``compute`` applies both."""
+    iterations), or a matcher with per-registration state and no per-scan
+    serving form (``KDTreeVarDistMatcher``), takes the JAX package's host
+    path (:func:`_host_path`): the scans' chains compacted without a cap,
+    and the lockstep loop against the map without loop tables. As in the
+    JAX package, that loop drops such step filters and makes no dumps, where
+    a one-shot ``compute`` applies both."""
     if not seq.has_map():
         raise RuntimeError("set_map first")
     seq._require_modules()
@@ -354,7 +365,7 @@ def register_batch_to_map(seq, readings: Sequence[PointCloud],
     Trm = seq._T_refIn_refMean
     T_rmd = se3.inverse(Trm) @ _initial_poses(T_inits, len(readings),
                                               readings[0].dim, seq.device)
-    if not seq._fused():
+    if _host_path(seq):
         batch, overflow, _ = _prep_scans(seq, readings, T_rmd, seed, None,
                                          permute=False)
         T_iter, iters, codes, stats = seq._run_loop(batch, reference)

@@ -37,8 +37,8 @@ from ..checkers import (CounterTransformationChecker,
                         DifferentialTransformationChecker)
 from ..cloud import PointCloud
 from ..utils import se3
-from .batch import (PendingRegistration, _info, _initial_poses, _prep_scans,
-                    _prep_tile_scans, _serving_route, _tile_route,
+from .batch import (PendingRegistration, _host_path, _info, _initial_poses,
+                    _prep_scans, _prep_tile_scans, _serving_route, _tile_route,
                     _traceable, register_batch_to_map)
 
 __all__ = ["register_queue_to_map", "queue_eligible"]
@@ -52,12 +52,13 @@ def _queue_mode(seq) -> str:
     when the chain asks for what the JAX package's queue program does not
     hold: a reading filter that is not ``TRACEABLE`` (it runs a host step
     per scan, as SamplingSurfaceNormal's median split does), an
-    ``acceleration``, a step filter without a schedule, or an inspector
-    that dumps iterations. Such a chain serves through
+    ``acceleration``, a step filter without a schedule, an inspector that
+    dumps iterations, or a matcher that the batch serves on its host path
+    (``KDTreeVarDistMatcher``). Such a chain serves through
     :func:`register_batch_to_map`, as in the JAX package. A step filter
     with a schedule (FixStepSampling) stays in the queue, each lane at its
     own iteration."""
-    if seq.acceleration is not None or not seq._fused():
+    if seq.acceleration is not None or _host_path(seq):
         return ""
     if not _traceable(seq):
         return ""

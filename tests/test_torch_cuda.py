@@ -17,7 +17,11 @@ stepped driver's rows (equal), matches and pose, and ``estimate_overlap``,
 each on the card against the CPU on the same inputs; and the data
 filters, each on the card against the CPU on the same input at the
 tolerances of tools_torch/filter_checks.py, with the sensor chain's queue
-against its batch on the card. Every test
+against its batch on the card; and IO and the cell-grid matchers: every
+loader onto the card (the same arrays as a load onto the CPU), ``cell_knn``
+on the card against the CPU (d² bit for bit, ids equal: elementwise
+operations in the same order) and KDTreeVarDistMatcher's culled route
+against its dense one (K1, K5) on the card. Every test
 needs a CUDA device and skips without one. The file imports neither JAX
 nor the JAX package, so it runs on a machine with the card alone:
 
@@ -1289,3 +1293,85 @@ transformationCheckers:
     np.testing.assert_array_equal(iq["iterations"], ib["iterations"])
     np.testing.assert_array_equal(iq["codes"], ib["codes"])
     np.testing.assert_allclose(Tq, Tb, atol=1e-5)
+
+
+# ------------------------------------------------ IO and the cell-grid search
+@pytest.mark.parametrize("ext,binary", [("csv", False), ("vtk", False), ("vtk", True),
+                                        ("ply", False), ("ply", True),
+                                        ("pcd", False), ("pcd", True)])
+def test_loaders_onto_card(cuda, tmp_path, ext, binary):
+    """A load onto the card holds the arrays a load onto the CPU holds,
+    times included where the format carries them (not PLY)."""
+    rng = np.random.default_rng(2)
+    n = 2000
+    cloud = pt.PointCloud.from_numpy(
+        rng.standard_normal((n, 3)), {"normals": rng.standard_normal((n, 3))},
+        device="cpu", times={"time": 1_700_000_000_000_000_000 + rng.integers(0, 2 ** 40, n)})
+    path = str(tmp_path / f"c.{ext}")
+    pt.io.save(cloud, path, binary=binary)
+    on_card, on_cpu = pt.io.load(path), pt.io.load(path, device="cpu")
+    assert on_card.device.type == "cuda"
+    for a, b in zip(on_card.to_numpy(with_times=True), on_cpu.to_numpy(with_times=True)):
+        if isinstance(a, dict):
+            assert list(a) == list(b)
+            for k in a:
+                np.testing.assert_array_equal(a[k], b[k])
+        else:
+            np.testing.assert_array_equal(a, b)
+    assert ("time" in on_card.times) == (ext != "ply")
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("d", [2, 3])
+def test_cell_knn_on_card_equals_cpu(cuda, d, k):
+    from libpointmatcher_tpu_torch.ops import cellgrid
+
+    rng = np.random.default_rng(d * 10 + k)
+    r = rng.uniform(-4, 4, (5000, d)).astype(np.float32)
+    r[1::2] = r[::2][: len(r[1::2])]              # exact duplicates: ties
+    rm = np.ones(len(r), bool)
+    rm[::7] = False
+    q = (r[rng.integers(0, len(r), 3000)] + 0.05 * rng.standard_normal((3000, d))
+         ).astype(np.float32)
+    qm = np.ones(len(q), bool)
+    qm[::11] = False
+    out = []
+    for dev in (cuda, "cpu"):
+        g = cellgrid.build_cell_grid(r, rm, 0.35, device=dev)
+        t = lambda a: torch.as_tensor(a, device=dev)
+        out.append(cellgrid.cell_knn(t(q), t(qm), t(r), g, 0.35, k=k))
+    (dc, ic), (dh, ih) = out
+    assert torch.equal(dc.cpu(), dh) and torch.equal(ic.cpu(), ih)
+    assert torch.isfinite(dh).float().mean() > 0.3
+
+
+@pytest.mark.parametrize("knn", [1, 3])
+def test_var_dist_routes_equal_on_card(cuda, monkeypatch, knn):
+    """KDTreeVarDistMatcher's culled route (the cell grid) and its dense
+    route (K1, or K5 for knn 3) give equal matches on the card, and the
+    culled route the CPU's."""
+    from libpointmatcher_tpu_torch.matchers import KDTreeVarDistMatcher
+
+    monkeypatch.setattr(KDTreeVarDistMatcher, "CULL_MIN_MAP", 1024)
+    rng = np.random.default_rng(7)
+    ref = rng.uniform(-5, 5, (20000, 3)).astype(np.float32)
+    rd = (ref[rng.integers(0, len(ref), 6000)] + 0.05 * rng.standard_normal((6000, 3))
+          ).astype(np.float32)
+    radius = rng.uniform(0.05, 0.4, len(rd)).astype(np.float32)
+    res = {}
+    for dev in (cuda, "cpu"):
+        a = pt.PointCloud.from_numpy(rd, {"maxSearchDist": radius}, device=dev)
+        b = pt.PointCloud.from_numpy(ref, device=dev)
+        m = KDTreeVarDistMatcher({"knn": str(knn)})
+        m.init(b)
+        m.prepare_loop(a)
+        assert m._vd_grid is not None
+        res[str(dev)] = m.find_closests_in(a, b)
+        if dev != "cpu":
+            dense = KDTreeVarDistMatcher({"knn": str(knn)})
+            dense.init(b, rows=512)
+            assert dense._ref_host is None
+            res["dense"] = dense.find_closests_in(a, b)
+    for key in ("dense", "cpu"):
+        assert torch.equal(res["cuda"].dists.cpu(), res[key].dists.cpu()), key
+        assert torch.equal(res["cuda"].ids.cpu(), res[key].ids.cpu()), key

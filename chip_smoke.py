@@ -238,7 +238,31 @@ Phases, each fatal on failure:
    a map of ``VAR_DENSE_ROWS`` rows (the dense route: K1 and K5 launches equal the
    iterations); the registered reading saved and read back. Every pose
    under the gates, ms per iteration logged beside the card's name and
-   power limit.
+   power limit;
+25. the applications (no kernel of their own; their paths run K1, K5 and K8):
+   every ported application's ``main`` in this process with ``--device
+   cuda``, its output captured, on files written under ``.chip_scratch/``
+   (the scans as binary VTK, the scene as CSV and VTK). icp_simple,
+   icp_customized and icp_advance_api register scan 1, saved through a
+   perturbed guess of its pose, onto scan 0, and icp scan 1 itself with
+   that guess as ``--initTranslation``/``--initRotation``: each pose under
+   the gates; align_sequence over the
+   9 scans, each saved in scan 0's frame through a perturbed odometry guess,
+   gives back each guess's error under the gates and a map that reloads;
+   build_map merges the scans at their ground-truth poses; compute_overlap
+   gives a 9 × 9 matrix with 1 on its diagonal, and its 1 → 0 entry again
+   with the plain search; eval_solution on 16 pairs at ``--batch 1`` and
+   ``--batch 8`` (a deterministic chain), every pair under the gates and
+   the two drivers equal per pair (iterations and errors; rotation entries
+   within 1e-5, translations within 3e-5 m), pairs/s
+   logged; plot_results on its JSON; filter_profiler with
+   SurfaceNormal(knn 10) on the scene (K8); list_modules in its three
+   styles; golden_check on synthetic example data (the default chain and
+   the known pose); demo_pipeline on the scene with 6 scans (the refined
+   trajectory error at most the noisy one); and ``optimize_pose_graph``
+   alone at the demo's size, timed. Each application's wall ms and its
+   K1, K5, K7 and K8 launches are logged, and one that should launch K1, or
+   K5 or K8, and launched none fails the phase.
 
 The second-to-last line is the JSON of kernels, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
@@ -2772,6 +2796,325 @@ def io_and_cellgrid(torch, pt, world, poses, scans, k3, launches, smi, rng):
     return table
 
 
+# ------------------------------------------------------------ slice 15
+#: phase 25's eval_solution chain: deterministic filters (the batched and
+#: sequential drivers key their draws differently), and a differential
+#: rotation threshold well above the float32 resolution of an angle near
+#: zero (about 5e-4 rad per ulp of a trace near 3), so that where a pair
+#: stops is decided by its motion, not by rounding
+EVAL_SOLUTION = "\n".join([
+    "readingDataPointsFilters:",
+    "  - MaxDistDataPointsFilter:\n      dim: -1\n      maxDist: 12",
+    "referenceDataPointsFilters:",
+    "  - SurfaceNormalDataPointsFilter:\n      knn: 10",
+    "matcher: KDTreeMatcher",
+    "outlierFilters:\n  - TrimmedDistOutlierFilter:\n      ratio: 0.8",
+    "errorMinimizer: PointToPlaneErrorMinimizer",
+    "transformationCheckers:",
+    "  - CounterTransformationChecker:\n      maxIterationCount: 40",
+    "  - DifferentialTransformationChecker:\n      minDiffRotErr: 0.005\n"
+    "      minDiffTransErr: 0.01\n      smoothLength: 4", ""])
+#: phase 25's gate on eval_solution's batched against sequential
+#: translations, in metres: the lockstep loop sums each pair's normal
+#: equations over the batch's padded rows, in another order than the
+#: single loop; the H100's readings of that spread reached 1.27e-5 m
+#: (PERF.md, "PR 15")
+EVAL_TRANS_TOL = 3e-5
+EVAL_PAIRS = 16
+EVAL_BATCH = 8
+DEMO_SCANS = 6
+#: the applications that must launch a k-NN kernel, and which
+APP_KERNELS = {"icp_simple": ("K1",), "icp": ("K1",), "icp_customized": ("K1",),
+               "icp_advance_api": ("K1",), "align_sequence": ("K1", "K5|K8"),
+               "build_map": ("K5|K8",), "compute_overlap": ("K1",),
+               "eval_solution --batch 1": ("K1",), "eval_solution --batch 8": ("K1",),
+               "filter_profiler": ("K8",), "golden_check": ("K1",),
+               "demo_pipeline": ("K1",)}
+
+
+def _matrix_after(text, tag):
+    """The numbers of the first matrix printed after ``tag``."""
+    tail = text.split(tag, 1)[1].split("]]", 1)[0]
+    nums = re.findall(r"[-+]?(?:\d+\.\d*|\.\d+|\d+)(?:[eE][-+]?\d+)?", tail)
+    return np.array([float(v) for v in nums]).reshape(4, 4)
+
+
+def apps_on_card(torch, pt, world, poses, scans, launches, smi, rng):
+    """Phase 25: every ported application's ``main`` in this process with
+    ``--device cuda`` (see the module docstring) → the logged table."""
+    import contextlib
+    import importlib
+    import io as stdio
+    import shutil
+
+    from libpointmatcher_tpu_torch.ops import tile_cuda as tc
+    from libpointmatcher_tpu_torch.ops.knn import knn_brute_force
+
+    apps = {name: importlib.import_module(f"libpointmatcher_tpu_torch.apps.{name}")
+            for name in ("icp_simple", "icp", "icp_customized", "icp_advance_api",
+                         "align_sequence", "build_map", "compute_overlap",
+                         "eval_solution", "plot_results", "filter_profiler",
+                         "list_modules", "golden_check", "demo_pipeline")}
+    dev = ["--device", "cuda"]
+    table = {}
+
+    def counts():
+        c = dict(launches(), K7=tc.tile_sweep.launches, K8=tc.tile_sweep_k.launches)
+        return {k: v for k, v in c.items() if v}
+
+    def run(name, argv, label=None):
+        """``name``'s main on ``argv``, its output captured → the output;
+        its return code, wall time and launches checked and logged."""
+        label = label or name
+        reset_launch_counts()
+        buf = stdio.StringIO()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = apps[name].main(argv)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t)
+        c = counts()
+        if rc != 0:
+            raise AssertionError(f"{label}: return code {rc}:\n{buf.getvalue()[-2000:]}")
+        for want in APP_KERNELS.get(label, ()):
+            if not any(c.get(k) for k in want.split("|")):
+                raise AssertionError(f"{label}: no {want} launch (launches {c})")
+        table[label] = {"ms": round(ms, 1), "launches": c}
+        log(f"[apps] {label}: {ms:.1f} ms, launches {c}")
+        return buf.getvalue()
+
+    def near(T, gT, label):
+        ang, tr = pose_error(T, gT)
+        if not (np.isfinite(T).all() and ang < ROT_TOL and tr < TRANS_TOL):
+            raise AssertionError(f"{label}: pose error {ang}, {tr}")
+        return round(ang, 5), round(tr, 5)
+
+    def save(points, path, binary=True):
+        pt.io.save(pt.PointCloud.from_numpy(points, device="cpu"), str(path),
+                   binary=binary)
+
+    def rigid(T, pts):
+        return (pts @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
+
+    out = Path(__file__).resolve().parent / ".chip_scratch" / "apps"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    cwd = os.getcwd()
+    t_phase = time.perf_counter()
+    try:
+        os.chdir(out)
+        n = len(scans)
+        # the scans in their sensor frames, with their poses (gT); and each
+        # through a noisy odometry guess D_i into the frame of scan 0, whose
+        # registration onto the map gives back D_i
+        for i, s in enumerate(scans):
+            save(s, out / f"scan{i}.vtk")
+        head = ", ".join(f"gT{a}{b}" for a in range(4) for b in range(4))
+        row = lambda T: ", ".join(repr(float(v)) for v in np.asarray(T).reshape(-1))
+        (out / "gt.csv").write_text(f"reading, {head}\n" + "".join(
+            f"scan{i}.vtk, {row(P)}\n" for i, P in enumerate(poses)))
+        odo = [np.eye(4)] + [perturb(rng) for _ in range(n - 1)]
+        for i in range(n):
+            M = np.linalg.inv(odo[i]) @ np.linalg.inv(poses[0]) @ poses[i]
+            save(rigid(M, scans[i]), out / f"odo{i}.vtk")
+        (out / "odo.csv").write_text(
+            "reading\n" + "".join(f"odo{i}.vtk\n" for i in range(n)))
+        save(world.astype(np.float32), out / "scene.csv", binary=False)
+        save(world.astype(np.float32), out / "scene.vtk")
+        log(f"[apps] files: {n} scans of {len(scans[0])} points and the "
+            f"{len(world)}-point scene in {out.name}/ "
+            f"({time.perf_counter() - t_phase:.1f} s)")
+
+        # ---- 25a. the one-shot applications on scans 1 → 0
+        gT = np.linalg.inv(poses[0]) @ poses[1]
+        guess = perturb(rng) @ gT
+        want = gT @ np.linalg.inv(guess)          # ref ≈ want · reading
+        save(rigid(guess, scans[1]), out / "reading.vtk")
+        pair = [str(out / "scan0.vtk"), str(out / "reading.vtk")]
+        for name in ("icp_simple", "icp_customized", "icp_advance_api"):
+            text = run(name, pair + dev)
+            table[name]["error"] = near(_matrix_after(text, "Final transformation:"),
+                                        want, name)
+        if not (out / "test_data_out.vtk").exists():
+            raise AssertionError("icp_simple / icp_customized saved no aligned cloud")
+        text = run("icp", [str(out / "scan0.vtk"), str(out / "scan1.vtk"),
+                           "--initTranslation", ",".join(repr(float(v)) for v in guess[:3, 3]),
+                           "--initRotation", ",".join(repr(float(v)) for v in guess[:3, :3].ravel()),
+                           "--isVerbose", "--output", "cli"] + dev)
+        table["icp"]["error"] = near(_matrix_after(text, "Final transformation:"),
+                                     gT, "icp")
+        if "readingDataPointsFilters:" not in text:
+            raise AssertionError("icp --isVerbose printed no chain")
+
+        # ---- 25b. align_sequence on the odometry-guessed scans
+        text = run("align_sequence", [str(out / "odo.csv"), "--output", "odo_map.vtk"]
+                   + dev)
+        steps = re.findall(r"\[(\d+)\] T=\n(.*?\]\])\nmap: (\d+) points", text, re.S)
+        if len(steps) != n - 1:
+            raise AssertionError(f"align_sequence registered {len(steps)} of {n - 1} scans")
+        errs = [near(np.array([float(v) for v in re.findall(
+            r"[-+]?(?:\d+\.\d*|\.\d+|\d+)(?:[eE][-+]?\d+)?", m)]).reshape(4, 4),
+            odo[int(i)], f"align_sequence scan {i}") for i, m, _ in steps]
+        rows = pt.io.load(str(out / "odo_map.vtk"), device="cuda").count_host()
+        if rows != int(steps[-1][2]):
+            raise AssertionError(f"align_sequence map reloads with {rows} rows")
+        table["align_sequence"].update(
+            ms_per_scan=round(table["align_sequence"]["ms"] / (n - 1), 1),
+            map_rows=rows, worst=[max(e[0] for e in errs), max(e[1] for e in errs)])
+
+        # ---- 25c. build_map with the ground-truth poses
+        text = run("build_map", [str(out / "gt.csv"), "gt_map.vtk"] + dev)
+        rows = pt.io.load(str(out / "gt_map.vtk"), device="cuda").count_host()
+        if f"map with {rows} points" not in text or rows == 0:
+            raise AssertionError(f"build_map: the saved map has {rows} rows")
+        table["build_map"]["map_rows"] = rows
+
+        # ---- 25d. compute_overlap on the scans
+        run("compute_overlap", [str(out / "gt.csv"), "--noise", "0.05", "--output",
+                                "overlap.csv"] + dev)
+        M = np.loadtxt(out / "overlap.csv", delimiter=",")
+        off = M[~np.eye(n, dtype=bool)]
+        if M.shape != (n, n) or not np.all(np.diag(M) == 1) or not (
+                np.all((off >= 0) & (off <= 1)) and off.max() > 0):
+            raise AssertionError(f"compute_overlap: matrix {M}")
+        ov = apps["compute_overlap"]
+        a, b = (pt.RigidTransformation().compute(
+            pt.PointCloud.from_numpy(scans[i], device="cuda"),
+            torch.as_tensor(poses[i], dtype=torch.float32, device="cuda"))
+            for i in (1, 0))
+        plain = ov.overlap_ratio(a, b, 0.05, search=knn_brute_force)
+        if abs(plain - M[1, 0]) > 5e-7:
+            raise AssertionError(f"overlap 1→0: {M[1, 0]} with K1, {plain} plain")
+        table["compute_overlap"].update(pairs=n * (n - 1),
+                                        overlap_range=[float(off.min()), float(off.max())])
+
+        # ---- 25e. eval_solution, sequential and batched, then plot_results
+        pairs = [(a, b) for d in (1, 2) for b in range(n - d) for a in (b + d,)]
+        pairs = (pairs + [(b, a) for a, b in pairs])[:EVAL_PAIRS]
+        ihead = ", ".join(f"iT{a}{b}" for a in range(4) for b in range(4))
+        lines = [f"reading, reference, {ihead}, {head}"]
+        for a, b in pairs:
+            G = np.linalg.inv(poses[b]) @ poses[a]
+            lines.append(f"scan{a}.vtk, scan{b}.vtk, {row(perturb(rng) @ G)}, {row(G)}")
+        (out / "protocol.csv").write_text("\n".join(lines) + "\n")
+        (out / "solution.yaml").write_text(EVAL_SOLUTION)
+        res = {}
+        for batch in (1, EVAL_BATCH):
+            label = f"eval_solution --batch {batch}"
+            run("eval_solution", ["protocol.csv", "solution.yaml", "--batch", str(batch),
+                                  "--output", f"eval{batch}.json"] + dev, label)
+            with open(out / f"eval{batch}.json") as f:
+                res[batch] = json.load(f)
+            r = res[batch]["results"]
+            for x in r:
+                if x["error"] or x["trans_err"] > TRANS_TOL or x["rot_err"] > ROT_TOL:
+                    raise AssertionError(f"{label} pair {x['pair']}: {x}")
+            table[label]["pairs_per_s"] = round(
+                len(r) / (table[label]["ms"] / 1e3), 2)
+        # per pair the same iterations and errors; the pose within 1e-5 on
+        # rotation entries and EVAL_TRANS_TOL on translation
+        d_rot = d_trans = 0.0
+        for x, y in zip(res[1]["results"], res[EVAL_BATCH]["results"]):
+            D = np.abs(np.array(x["T"]) - np.array(y["T"]))
+            d_rot, d_trans = max(d_rot, float(D[:3, :3].max())), max(d_trans, float(D[:3, 3].max()))
+            if (x["pair"], x["iterations"], x["error"]) != (y["pair"], y["iterations"],
+                                                            y["error"]):
+                raise AssertionError(f"eval_solution pair {x['pair']}: sequential "
+                                     f"{x['iterations']} {x['error']}, batched "
+                                     f"{y['iterations']} {y['error']}")
+        if d_rot > 1e-5 or d_trans > EVAL_TRANS_TOL:
+            raise AssertionError(f"eval_solution: batched poses differ by {d_rot} "
+                                 f"(rotation), {d_trans} m (translation)")
+        table["eval_solution --batch 8"]["vs_batch_1"] = [d_rot, d_trans]
+        log(f"[apps] eval_solution: {len(pairs)} pairs, batched = sequential per pair "
+            f"(iterations and errors equal, rotation entries within {d_rot:.3g}, "
+            f"translations within {d_trans:.3g} m)")
+        text = run("plot_results", [f"eval{EVAL_BATCH}.json", "--csv", "pairs.csv"])
+        if "Translation error histogram" not in text or len(
+                (out / "pairs.csv").read_text().splitlines()) != len(pairs) + 1:
+            raise AssertionError("plot_results: no histogram or CSV")
+
+        # ---- 25f. filter_profiler: SurfaceNormal on the scene (K8)
+        text = run("filter_profiler", ["scene.vtk", "--param", "knn=10", "--runs", "3"]
+                   + dev)
+        table["filter_profiler"]["report"] = text.strip()
+
+        # ---- 25g. list_modules in its three styles
+        for style in ("normal", "roswiki", "bibtex"):
+            text = run("list_modules", ["--citationStyle", style],
+                       f"list_modules {style}")
+            sections = re.findall(r"={60}\n(\w+)\n={60}", text)
+            if len(sections) != 9 or text.count("\n* ") < 58:
+                raise AssertionError(f"list_modules {style}: sections {sections}")
+        icp = pt.ICP(device="cuda")
+        icp.set_default()
+        chain = apps["list_modules"].describe_chain(icp)
+        for m in (icp.reading_filters + icp.reference_filters + [icp.matcher]
+                  + icp.outlier_filters + [icp.error_minimizer] + icp.checkers):
+            if type(m).__name__ not in chain:
+                raise AssertionError(f"describe_chain lacks {type(m).__name__}")
+
+        # ---- 25h. golden_check on synthetic example data
+        gold = out / "golden"
+        (gold / "icp_data").mkdir(parents=True)
+        shutil.copy(out / "scan0.vtk", gold / "cloud.00000.vtk")
+        shutil.copy(out / "reading.vtk", gold / "cloud.00001.vtk")
+        np.savetxt(gold / "icp_data" / "default.ref_trans", want)
+        (gold / "icp_data" / "default.yaml").write_text(chain_yaml())
+        golden = apps["golden_check"]
+        data, icp_data = golden.DATA, golden.ICP_DATA
+        golden.DATA, golden.ICP_DATA = str(gold), str(gold / "icp_data")
+        try:
+            text = run("golden_check", ["--seeds", "1"] + dev)
+        finally:
+            golden.DATA, golden.ICP_DATA = data, icp_data
+        if not text.startswith("PASS default"):
+            raise AssertionError(f"golden_check: {text}")
+        table["golden_check"]["report"] = text.splitlines()[0]
+
+        # ---- 25i. demo_pipeline on the scene
+        text = run("demo_pipeline", ["--cloud", "scene.csv", "--scans", str(DEMO_SCANS)]
+                   + dev)
+        demo = json.loads(text.strip().splitlines()[-1])
+        if not demo["ate_refined"] <= demo["ate_odometry_noisy"]:
+            raise AssertionError(f"demo_pipeline: {demo}")
+        table["demo_pipeline"]["result"] = demo
+
+        # ---- 25j. the pose graph alone, at the demo's size and settings
+        from libpointmatcher_tpu_torch.parallel.posegraph import (
+            edges_from_numpy, optimize_pose_graph, relative_pose_residual)
+
+        gt = [np.linalg.inv(poses[0]) @ P for P in poses[:DEMO_SCANS]]
+        ii = list(range(DEMO_SCANS - 1)) + [0]
+        jj = list(range(1, DEMO_SCANS)) + [DEMO_SCANS - 1]
+        edges = edges_from_numpy(ii, jj, np.stack([np.linalg.inv(gt[a]) @ gt[b]
+                                                    for a, b in zip(ii, jj)]),
+                                 device="cuda")
+        noisy = np.stack([gt[0]] + [perturb(rng) @ P for P in gt[1:]]).astype(np.float32)
+        optimize_pose_graph(noisy, edges, gn_iters=10, cg_iters=30)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        refined, res = optimize_pose_graph(noisy, edges, gn_iters=10, cg_iters=30)
+        res = float(res)
+        ms = 1e3 * (time.perf_counter() - t)
+        before = float(relative_pose_residual(
+            torch.as_tensor(noisy, device="cuda"), edges).norm())
+        worst = max(pose_error(T, P) for T, P in zip(refined.cpu().numpy(), gt))
+        if not (res < 1e-3 * before and worst[0] < 2e-3 and worst[1] < 1e-3):
+            raise AssertionError(f"pose graph: residual {before} -> {res}, worst {worst}")
+        table["pose graph"] = {"ms": round(ms, 1), "residual": [before, res],
+                               "worst": [round(w, 6) for w in worst]}
+        log(f"[apps] pose graph (K = {DEMO_SCANS}, 10 x 30): {ms:.1f} ms, residual "
+            f"{before:.4g} -> {res:.3g}, worst pose error {worst}")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(out, ignore_errors=True)
+    log(f"[apps] card: {smi}; " + json.dumps(table))
+    log(f"[apps] phase 25 took {time.perf_counter() - t_phase:.1f} s")
+    return table
+
+
 def kernel_inputs(torch, world, scan_world, n, m, rng, device="cuda"):
     """Queries from a scan placed in the world, references from the scene,
     every 11th query and every 7th reference masked."""
@@ -3223,6 +3566,9 @@ def main() -> int:
     t = time.perf_counter()
     io_and_cellgrid(torch, pt, world, poses, scans, k3, launches, smi, rng)
     log(f"[cellgrid] phase 24 took {time.perf_counter() - t:.1f} s")
+
+    # ---- 25. the applications
+    apps_on_card(torch, pt, world, poses, scans, launches, smi, rng)
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -17,8 +17,9 @@ torch.backends.cudnn.allow_tf32 = False
 from .cloud import PointCloud  # noqa: E402
 from .device import resolve_device  # noqa: E402
 from .errors import (ConfigurationError, ConvergenceError,  # noqa: E402
-                     InvalidField, InvalidModuleType, InvalidParameter,
-                     PointMatcherError, TransformationError)
+                     InvalidElement, InvalidField, InvalidModuleType,
+                     InvalidParameter, PointMatcherError,
+                     TransformationError)
 from .matchers import Matcher, Matches, MatcherRegistrar  # noqa: E402
 from .minimizers import ErrorMinimizer, ErrorMinimizerRegistrar  # noqa: E402
 from .outlierfilters import OutlierFilter, OutlierFilterRegistrar  # noqa: E402
@@ -41,6 +42,6 @@ __all__ = ["PointCloud", "ICP", "ICPSequence", "ICPChainBase", "Matches", "io",
            "InspectorRegistrar", "LoggerRegistrar", "Logger", "set_logger",
            "RigidTransformation",
            "SimilarityTransformation", "PureTranslation", "ConfigurationError",
-           "ConvergenceError", "InvalidField", "InvalidModuleType",
+           "ConvergenceError", "InvalidElement", "InvalidField", "InvalidModuleType",
            "InvalidParameter", "PointMatcherError", "TransformationError",
            "resolve_device"]

@@ -160,6 +160,23 @@ class PointCloud:
         out._count_cache = self._count_cache
         return out
 
+    def concatenate(self, other: "PointCloud") -> "PointCloud":
+        """``other``'s rows appended (reference: DataPoints.cpp:225), on
+        this cloud's device. A descriptor or time channel is kept only where
+        both clouds have it with the same span, as in the JAX package."""
+        if other.dim != self.dim:
+            raise InvalidField("cannot concatenate clouds of different dim")
+        other = other.to(self.device)
+
+        def common(a, b):
+            return {k: torch.cat([v, b[k]], dim=-2) for k, v in a.items()
+                    if k in b and b[k].shape[-1] == v.shape[-1]}
+
+        return PointCloud(torch.cat([self.points, other.points], dim=-2),
+                          torch.cat([self.mask, other.mask], dim=-1),
+                          common(self.descriptors, other.descriptors),
+                          common(self.times, other.times))
+
     def compact(self) -> "PointCloud":
         """Valid rows packed to the front in their original order, at the
         exact valid count (one host sync)."""

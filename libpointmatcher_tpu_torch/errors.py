@@ -3,7 +3,8 @@
 The same names and meanings as ``libpointmatcher_tpu.errors``:
 ``ConvergenceError`` when ICP cannot proceed (empty cloud after filtering,
 no inliers, NaN differential, out-of-bound transform); the configuration
-errors when a module name or parameter is wrong; ``TransformationError``
+errors when a module name or parameter is wrong; ``InvalidElement`` when
+a registrar is asked for a class it does not hold; ``TransformationError``
 when a transformation matrix fails its validity check."""
 
 from __future__ import annotations
@@ -36,3 +37,7 @@ class InvalidModuleType(PointMatcherError):
 
 class ConfigurationError(PointMatcherError):
     """Malformed pipeline configuration."""
+
+
+class InvalidElement(PointMatcherError):
+    """Registrar element not found (reference: Registrar.h:82-88)."""

@@ -147,8 +147,9 @@ class DistanceLimitDataPointsFilter(DataPointsFilter):
 
 @DataPointsFilterRegistrar.register
 class BoundingBoxDataPointsFilter(DataPointsFilter):
-    """Removes points inside (or outside) an axis-aligned box; z is ignored
-    in 2D (reference: DataPointsFilters/BoundingBox.cpp)."""
+    """Removes points inside (or outside) an axis-aligned box
+    (reference: DataPointsFilters/BoundingBox.cpp)."""
+    # z is ignored in 2D
 
     TRACEABLE = True
     PARAMS = (
@@ -174,11 +175,10 @@ class BoundingBoxDataPointsFilter(DataPointsFilter):
 
 @DataPointsFilterRegistrar.register
 class MaxQuantileOnAxisDataPointsFilter(DataPointsFilter):
-    """Keeps points below the ``ratio`` quantile of an axis coordinate
-    (reference: DataPointsFilters/MaxQuantileOnAxis.cpp).
-
-    The quantile's index is the JAX package's: the valid count times
-    ``ratio`` as a float32 product, truncated, clipped to the rows."""
+    """Keeps points below the ratio-quantile of an axis coordinate
+    (reference: DataPointsFilters/MaxQuantileOnAxis.cpp)."""
+    # the quantile's index is the JAX package's: the valid count times
+    # ``ratio`` as a float32 product, truncated, clipped to the rows
 
     TRACEABLE = True
     PARAMS = (
@@ -199,10 +199,10 @@ class MaxQuantileOnAxisDataPointsFilter(DataPointsFilter):
 
 @DataPointsFilterRegistrar.register
 class MaxDensityDataPointsFilter(DataPointsFilter):
-    """Thins, at random, points whose local density exceeds ``maxDensity``
-    (reference: DataPointsFilters/MaxDensity.cpp; needs the 'densities' of
-    a prior SurfaceNormal or SamplingSurfaceNormal pass). The draw is JAX's
-    from the chain key, one value per row."""
+    """Probabilistically thins points whose local density exceeds maxDensity
+    (reference: DataPointsFilters/MaxDensity.cpp; needs a prior
+    SurfaceNormal/SamplingSurfaceNormal pass to produce 'densities')."""
+    # the draw is JAX's from the chain key, one value per row
 
     TRACEABLE = True
     PARAMS = (
@@ -259,6 +259,11 @@ class MaxPointCountDataPointsFilter(DataPointsFilter):
     rows rank last, and a stable sort keeps the ``maxCount`` smallest
     draws: float32 draws collide (2^23 values in [0.5, 1)), and the tie
     order decides which rows stay."""
+    DESCRIPTION = """Random subsample iff the cloud exceeds maxCount points
+    (reference: DataPointsFilters/MaxPointCount.cpp). The reference's
+    Fisher-Yates prefix swap with a fixed srand seed becomes a seeded
+    ``jax.random`` permutation — same contract: deterministic for a given
+    seed, keeps exactly maxCount points."""
 
     PARAMS = (
         Param("seed", "random seed", int, 1, min=0),
@@ -278,19 +283,17 @@ class MaxPointCountDataPointsFilter(DataPointsFilter):
 
 @DataPointsFilterRegistrar.register
 class FixStepSamplingDataPointsFilter(DataPointsFilter):
-    """Keeps every step-th valid row, the step following a geometric
-    schedule from ``startStep`` towards ``endStep`` across the ICP
+    """Keeps every step-th point with a geometric step schedule across ICP
     iterations (reference: DataPointsFilters/FixStepSampling.cpp; the only
-    filter whose ``init()`` matters).
-
-    The schedule is the host's float64 arithmetic of :meth:`filter`: the
-    step multiplied by ``stepMult`` after each call, clamped at ``endStep``,
-    truncated to an int when used. :meth:`mask_at_iteration` reads it from a
-    table built by replaying that arithmetic (:meth:`_schedule_table`):
-    a float32 power differs from it (startStep 25, stepMult 1.4, iteration
-    2: 49 from the table, 48 from the power). A geometric schedule is
-    constant once clamped or at stepMult 1, so 512 saturating entries are
-    exact for any iteration count."""
+    filter whose ``init()`` matters)."""
+    # The schedule is the host's float64 arithmetic of :meth:`filter`: the
+    # step multiplied by ``stepMult`` after each call, clamped at ``endStep``,
+    # truncated to an int when used. :meth:`mask_at_iteration` reads it from a
+    # table built by replaying that arithmetic (:meth:`_schedule_table`):
+    # a float32 power differs from it (startStep 25, stepMult 1.4, iteration
+    # 2: 49 from the table, 48 from the power). A geometric schedule is
+    # constant once clamped or at stepMult 1, so 512 saturating entries are
+    # exact for any iteration count.
 
     PARAMS = (
         Param("startStep", "initial number of points to skip (initial "
@@ -353,8 +356,8 @@ class FixStepSamplingDataPointsFilter(DataPointsFilter):
 
 @DataPointsFilterRegistrar.register
 class ShadowDataPointsFilter(DataPointsFilter):
-    """Removes shadow (veil) points, whose normal is nearly orthogonal to
-    the viewing direction (reference: DataPointsFilters/Shadow.cpp)."""
+    """Removes shadow (veil) points whose normal is nearly orthogonal to the
+    viewing direction (reference: DataPointsFilters/Shadow.cpp)."""
 
     TRACEABLE = True
     PARAMS = (
@@ -373,8 +376,8 @@ class ShadowDataPointsFilter(DataPointsFilter):
 
 @DataPointsFilterRegistrar.register
 class CutAtDescriptorThresholdDataPointsFilter(DataPointsFilter):
-    """Drops points whose named 1-D descriptor is above (or below) a
-    threshold (reference: DataPointsFilters/CutAtDescriptorThreshold.cpp)."""
+    """Drops points whose named 1-D descriptor is above/below a threshold
+    (reference: DataPointsFilters/CutAtDescriptorThreshold.cpp)."""
 
     TRACEABLE = True
     PARAMS = (
@@ -396,8 +399,8 @@ class CutAtDescriptorThresholdDataPointsFilter(DataPointsFilter):
 
 @DataPointsFilterRegistrar.register
 class ObservationDirectionDataPointsFilter(DataPointsFilter):
-    """Adds an 'observationDirections' descriptor from each point to the
-    sensor centre (reference: DataPointsFilters/ObservationDirection.cpp)."""
+    """Adds an 'observationDirections' descriptor pointing from each point to
+    the sensor center (reference: DataPointsFilters/ObservationDirection.cpp)."""
 
     TRACEABLE = True
     PARAMS = (
@@ -414,9 +417,9 @@ class ObservationDirectionDataPointsFilter(DataPointsFilter):
 
 @DataPointsFilterRegistrar.register
 class OrientNormalsDataPointsFilter(DataPointsFilter):
-    """Flips normals toward (or away from) the observation direction; a
-    normal orthogonal to it is kept (reference:
-    DataPointsFilters/OrientNormals.cpp)."""
+    """Flips normals toward (or away from) the observation direction
+    (reference: DataPointsFilters/OrientNormals.cpp)."""
+    # a normal orthogonal to the observation direction is kept
 
     TRACEABLE = True
     PARAMS = (
@@ -438,7 +441,7 @@ class OrientNormalsDataPointsFilter(DataPointsFilter):
 
 @DataPointsFilterRegistrar.register
 class IncidenceAngleDataPointsFilter(DataPointsFilter):
-    """Adds the incidence angle, acos(view · normal), as 'incidenceAngles'
+    """Adds the incidence angle acos(view·normal) as descriptor
     (reference: DataPointsFilters/IncidenceAngle.cpp)."""
 
     TRACEABLE = True
@@ -455,9 +458,9 @@ class IncidenceAngleDataPointsFilter(DataPointsFilter):
 
 @DataPointsFilterRegistrar.register
 class SimpleSensorNoiseDataPointsFilter(DataPointsFilter):
-    """Adds a ``simpleSensorNoise`` descriptor from an empirical model of
-    the sensor's noise over range (reference:
-    DataPointsFilters/SimpleSensorNoise.cpp, \\cite{Pomerleau2012Noise})."""
+    r"""Adds a 'simpleSensorNoise' descriptor from an empirical sensor model
+    (reference: DataPointsFilters/SimpleSensorNoise.cpp,
+    \cite{Pomerleau2012Noise})."""
 
     TRACEABLE = True
     PARAMS = (

@@ -56,6 +56,31 @@ class GestaltDataPointsFilter(DataPointsFilter):
     The frame follows the sign of the normal, which ``eigh`` does not fix:
     with the normal negated, the warped x and y negate and angular bin a
     becomes bin (a + 4) mod 8."""
+    DESCRIPTION = r"""Gestalt keypoint descriptors (reference:
+    DataPointsFilters/Gestalt.cpp, \cite{Bosse2013Gestalt}): voxel-binned
+    keypoints, each described by 4 radial x 8 angular bins of neighbor-height
+    means/variances in a normal-oriented frame.
+
+    TPU design: keypoint selection is host-side (data-dependent voxel
+    firsts); everything per-keypoint — box masks, covariance/eigen, the
+    32-bin statistics — runs on device in fixed-size keypoint chunks
+    (``lax.map`` over [Kc, N] tiles with segment-sum bin reductions), so
+    device memory is O(Kc·N) and there is no per-point host iteration.
+
+    ``warpedXYZ`` parity note: the reference emits a 3-row descriptor of
+    this name but never defines its content — Gestalt.cpp:467 writes each
+    box's warped neighbor coordinates into the *global* descriptor columns
+    ``0..colCount-1`` (scratch reuse, not the box's own columns), so after
+    the final compaction (Gestalt.cpp:205) a surviving keypoint's column
+    holds a leftover warp of whichever box was processed last over that
+    column index — a function of box traversal order, not of the keypoint.
+    The only well-defined per-keypoint value of the same quantity (the
+    keypoint's own coordinates warped into its new basis, (p−kp)ᵀ·basis at
+    p = kp) is identically zero, which is what this implementation emits;
+    the descriptor exists so reference-schema consumers find the channel.
+    Everything observable about the descriptor output — bin means/variances
+    (including the reference's count normalization and empty-outer-bin
+    propagation), shapes, discards — is pinned by tests/test_filters.py."""
 
     PARAMS = (
         Param("ratio", "ratio of keypoints to keep with random subsampling",
@@ -209,13 +234,14 @@ class GestaltDataPointsFilter(DataPointsFilter):
 
 @DataPointsFilterRegistrar.register
 class RemoveSensorBiasDataPointsFilter(DataPointsFilter):
-    """Corrects the range bias from the laser's incidence angle
+    r"""Correct the range bias induced by the laser incidence angle
     (reference: DataPointsFilters/RemoveSensorBias.{h,cpp},
-    \\cite{Laconte2019SensorBias}). Needs 'incidenceAngles' and
-    'observationDirections'. Points at an incidence of ``angleThreshold``
-    or more (or NaN, or at the sensor) are removed; the others move along
-    the view ray by k1·ΔT + k2·(curvature ratio). The arithmetic is the
-    JAX package's, float64 on the host."""
+    \cite{Laconte2019SensorBias}). Requires 'incidenceAngles' and
+    'observationDirections'; points whose incidence exceeds angleThreshold
+    (or is NaN) are removed, the rest shifted along the view ray by the
+    physical correction k1·ΔT + k2·curvature-ratio."""
+    # a point at the sensor is removed too; the arithmetic is the JAX
+    # package's, float64 on the host
 
     PARAMS = (
         Param("sensorType", "0=Sick LMS-1xx, 1=Velodyne HDL-32E", int, 0,

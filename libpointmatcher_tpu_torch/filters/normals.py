@@ -75,12 +75,15 @@ def density_from_neighborhood(count, max_norm):
 
 @DataPointsFilterRegistrar.register
 class SurfaceNormalDataPointsFilter(DataPointsFilter):
-    """Per-point normals from the eigenvectors of each point's k-NN
-    covariance (reference: DataPointsFilters/SurfaceNormal.cpp). Adds, per
-    flag: 'normals' [d], 'densities' [1], 'eigValues' [d] (ascending),
-    'eigVectors' [d·d] (row-major: segment k holds component k of every
-    eigenvector), 'matchedIds' [knn], 'meanDists' [1]. Normals are defined
-    up to their sign, which point-to-plane does not see."""
+    r"""Per-point surface normals from kNN covariance eigendecomposition
+    (reference: DataPointsFilters/SurfaceNormal.cpp, \cite{Rusinkiewicz2001}).
+
+    Adds (per flags): 'normals' [d], 'densities' [1], 'eigValues' [d]
+    (ascending), 'eigVectors' [d·d] (row-major rows = eigenvectors),
+    'matchedIds' [knn], 'meanDists' [1]."""
+    # 'eigVectors' is row-major: segment k holds component k of every
+    # eigenvector; normals are defined up to their sign, which
+    # point-to-plane does not see
 
     PARAMS = (
         Param("knn", "number of nearest neighbors to consider, including the "
@@ -197,6 +200,14 @@ def _segment_extreme(values, seg, num, reduce):
 class SamplingSurfaceNormalDataPointsFilter(DataPointsFilter):
     """Subsample and estimate normals per box of a median-split
     decomposition (see module docstring)."""
+    DESCRIPTION = """Subsample + estimate normals per kd-box decomposition
+    (reference: DataPointsFilters/SamplingSurfaceNormal.cpp; the default
+    reference-cloud filter, ICP.cpp:106).
+
+    TPU design: the median-split decomposition runs on host (numpy,
+    O(N log N)); the per-box covariance/eigen statistics, the fitness
+    tests and the subsampling draw are one fused device program
+    (``_ssn_device``)."""
 
     HOST_PREP = True
 
@@ -284,10 +295,11 @@ class SamplingSurfaceNormalDataPointsFilter(DataPointsFilter):
 
 @DataPointsFilterRegistrar.register
 class SphericalityDataPointsFilter(DataPointsFilter):
-    """Local shape descriptor from the eigenvalues: -1 for a plane, +1 for
-    a uniform spread (reference: DataPointsFilters/Sphericality.cpp; 3D
-    only, needs 'eigValues' from a prior SurfaceNormal pass). Where the
-    largest eigenvalue is not positive, or the value is NaN, it is NaN."""
+    """Local shape descriptor from eigenvalues: −1 = plane … +1 = uniform
+    (reference: DataPointsFilters/Sphericality.cpp; 3D only, needs
+    'eigValues' from a prior SurfaceNormal pass)."""
+    # where the largest eigenvalue is not positive, or the value is NaN,
+    # it is NaN
 
     PARAMS = (
         Param("keepUnstructureness", "keep the unstructureness value", bool,

@@ -243,7 +243,7 @@ class PointToPointErrorMinimizer(ErrorMinimizer):
 
 @ErrorMinimizerRegistrar.register
 class PointToPointSimilarityErrorMinimizer(ErrorMinimizer):
-    """Umeyama similarity solve: rotation, translation and uniform scale
+    """Umeyama similarity solve — rotation, translation and uniform scale
     (reference: ErrorMinimizers/PointToPointSimilarity.cpp)."""
 
     def compute(self, reading, reference, weights, matches):
@@ -255,8 +255,8 @@ class PointToPointSimilarityErrorMinimizer(ErrorMinimizer):
 
 @ErrorMinimizerRegistrar.register
 class PointToPlaneErrorMinimizer(ErrorMinimizer):
-    """Linearized point-to-plane least squares, 3-D and 2-D
-    (reference: ErrorMinimizers/PointToPlane.cpp, \\cite{Chen1991Point2Plane})."""
+    r"""Linearized point-to-plane least squares
+    (reference: ErrorMinimizers/PointToPlane.cpp, \cite{Chen1991Point2Plane})."""
 
     PARAMS = (
         Param("force2D", "force minimization in the XY plane for 3D input",
@@ -383,7 +383,7 @@ def _censi_covariance(pairs: Pairs, normals, T, sensor_std_dev: float):
 
 @ErrorMinimizerRegistrar.register
 class PointToPointWithCovErrorMinimizer(PointToPointErrorMinimizer):
-    """PointToPoint and the Censi covariance of its transform
+    """PointToPoint + Censi covariance of the estimated transform
     (reference: ErrorMinimizers/PointToPointWithCov.cpp)."""
 
     PRODUCES_COVARIANCE = True
@@ -402,7 +402,7 @@ class PointToPointWithCovErrorMinimizer(PointToPointErrorMinimizer):
 
 @ErrorMinimizerRegistrar.register
 class PointToPlaneWithCovErrorMinimizer(PointToPlaneErrorMinimizer):
-    """PointToPlane and the Censi covariance of its transform
+    """PointToPlane + Censi covariance of the estimated transform
     (reference: ErrorMinimizers/PointToPlaneWithCov.cpp)."""
 
     PRODUCES_COVARIANCE = True

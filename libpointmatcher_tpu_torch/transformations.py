@@ -84,7 +84,7 @@ class RigidTransformation(Transformation):
 
 @TransformationRegistrar.register
 class SimilarityTransformation(Transformation):
-    """Sim(n) apply, scale·R + t, with no validity constraint
+    """Sim(n) apply: scale·R + t; no validity constraint
     (reference: TransformationsImpl.cpp:158-210)."""
 
     def compute(self, cloud, T):

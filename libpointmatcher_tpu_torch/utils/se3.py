@@ -6,8 +6,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["identity", "inverse", "from_rt", "apply", "rodrigues", "rot2d",
-           "rotation_angle_between", "orthogonalize"]
+__all__ = ["identity", "inverse", "from_rt", "apply", "rodrigues",
+           "log_rotation", "rot2d", "rotation_angle_between", "orthogonalize"]
 
 
 def identity(dim: int, device=None) -> torch.Tensor:
@@ -63,6 +63,26 @@ def rodrigues(omega: torch.Tensor) -> torch.Tensor:
                      torch.stack([-wy, wx, z], dim=-1)], dim=-2)
     eye = torch.eye(3, dtype=omega.dtype, device=omega.device)
     return eye + a * K + b * (K @ K)
+
+
+def log_rotation(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix [..., 3, 3] → axis-angle vector [..., 3], the inverse
+    of :func:`rodrigues` for angles in [0, π). The JAX package's formula,
+    guards included: the series near θ = 0 and the +1e-30 under the square
+    root keep it differentiable at the identity, where the pose graph's
+    Gauss-Newton linearizes."""
+    w = torch.stack([R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0],
+                     R[..., 1, 0] - R[..., 0, 1]], dim=-1)
+    # ‖w‖ = 2 sin θ
+    s = 0.5 * torch.sqrt(torch.sum(w * w, dim=-1) + 1e-30)
+    tr = (R[..., 0, 0] + R[..., 1, 1]) + R[..., 2, 2]
+    c = torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0)
+    theta = torch.atan2(s, c)
+    small = s < 1e-5
+    safe_s = torch.where(small, torch.ones_like(s), s)
+    scale = torch.where(small, 0.5 + theta * theta / 12.0,
+                        theta / (2.0 * safe_s))
+    return scale[..., None] * w
 
 
 def rot2d(angle: torch.Tensor) -> torch.Tensor:

@@ -21,7 +21,9 @@ against its batch on the card; and IO and the cell-grid matchers: every
 loader onto the card (the same arrays as a load onto the CPU), ``cell_knn``
 on the card against the CPU (d² bit for bit, ids equal: elementwise
 operations in the same order) and KDTreeVarDistMatcher's culled route
-against its dense one (K1, K5) on the card. Every test
+against its dense one (K1, K5) on the card; and the applications ``icp``
+and ``compute_overlap`` with ``--device cuda`` against ``--device cpu``.
+Every test
 needs a CUDA device and skips without one. The file imports neither JAX
 nor the JAX package, so it runs on a machine with the card alone:
 
@@ -1375,3 +1377,92 @@ def test_var_dist_routes_equal_on_card(cuda, monkeypatch, knn):
     for key in ("dense", "cpu"):
         assert torch.equal(res["cuda"].dists.cpu(), res[key].dists.cpu()), key
         assert torch.equal(res["cuda"].ids.cpu(), res[key].ids.cpu()), key
+
+
+# ------------------------------------------------------------- applications
+APP_CHAIN = "\n".join([
+    "readingDataPointsFilters:\n  - RandomSamplingDataPointsFilter",
+    "referenceDataPointsFilters:\n  - SamplingSurfaceNormalDataPointsFilter",
+    "matcher: KDTreeMatcher",
+    "outlierFilters:\n  - TrimmedDistOutlierFilter",
+    "errorMinimizer: PointToPlaneErrorMinimizer",
+    "transformationCheckers:\n  - CounterTransformationChecker:\n"
+    "      maxIterationCount: 10", ""])
+
+
+def _app_files(tmp_path):
+    """A planar scene as ref.csv, a displaced sample of it as data.csv, and
+    a list of both with their poses."""
+    rng = np.random.default_rng(5)
+    k = 1500
+    world = np.concatenate([
+        np.c_[rng.uniform(0, 6, k), rng.uniform(0, 4, k), np.zeros(k)],
+        np.c_[rng.uniform(0, 6, k), np.zeros(k), rng.uniform(0, 2.5, k)],
+        np.c_[np.zeros(k), rng.uniform(0, 4, k), rng.uniform(0, 2.5, k)],
+        np.c_[rng.uniform(2, 3, k), rng.uniform(1.5, 2.5, k), np.full(k, 0.8)],
+    ]).astype(np.float32)
+    shift = np.float32([0.05, -0.03, 0.02])
+    for name, pts in (("ref.csv", world[::2]), ("data.csv", world[1::2] + shift)):
+        pt.io.save(pt.PointCloud.from_numpy(pts, device="cpu"), str(tmp_path / name))
+    head = ", ".join(f"gT{i}{j}" for i in range(4) for j in range(4))
+    T = np.eye(4)
+    T[:3, 3] = -shift
+    (tmp_path / "list.csv").write_text(
+        f"reading, {head}\nref.csv, " + ", ".join(map(str, np.eye(4).ravel()))
+        + "\ndata.csv, " + ", ".join(map(str, T.ravel())) + "\n")
+    (tmp_path / "chain.yaml").write_text(APP_CHAIN)
+    return T
+
+
+def _app_out(main, argv, cwd, monkeypatch):
+    import contextlib
+    import io as stdio
+
+    cwd.mkdir()
+    monkeypatch.chdir(cwd)
+    buf = stdio.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert main(argv) == 0
+    return buf.getvalue()
+
+
+def test_icp_app_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """``apps.icp`` with ``--device cuda`` prints the pose ``--device cpu``
+    prints (a fixed budget of 10 iterations; the draws are equal on both
+    devices), and K1 ran."""
+    import re
+
+    from libpointmatcher_tpu_torch.apps import icp as app
+
+    T = _app_files(tmp_path)
+    argv = [str(tmp_path / "ref.csv"), str(tmp_path / "data.csv"), "--config",
+            str(tmp_path / "chain.yaml")]
+    poses = {}
+    for dev in ("cpu", "cuda"):
+        kc.reset_launch_counts()
+        text = _app_out(app.main, argv + ["--device", dev], tmp_path / dev, monkeypatch)
+        assert kc.knn1.launches == (10 if dev == "cuda" else 0)
+        nums = re.findall(r"[-+]?(?:\d+\.\d*|\.\d+|\d+)(?:[eE][-+]?\d+)?",
+                          text.split("Final transformation:")[1])
+        poses[dev] = np.array([float(v) for v in nums[:16]]).reshape(4, 4)
+    np.testing.assert_allclose(poses["cuda"], poses["cpu"], atol=1e-5)
+    np.testing.assert_allclose(poses["cuda"], T, atol=1e-2)
+
+
+def test_compute_overlap_app_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """``apps.compute_overlap`` on the card (K1) gives the CPU's matrix,
+    within one point of each ratio (the clouds are moved by float32
+    products that may round differently on the two devices)."""
+    from libpointmatcher_tpu_torch.apps import compute_overlap as app
+
+    _app_files(tmp_path)
+    mats = {}
+    for dev in ("cpu", "cuda"):
+        kc.reset_launch_counts()
+        _app_out(app.main, [str(tmp_path / "list.csv"), "--noise", "0.1",
+                            "--output", "ov.csv", "--device", dev],
+                 tmp_path / dev, monkeypatch)
+        assert kc.knn1.launches == (2 if dev == "cuda" else 0)
+        mats[dev] = np.loadtxt(tmp_path / dev / "ov.csv", delimiter=",")
+    np.testing.assert_allclose(mats["cuda"], mats["cpu"], atol=1 / 3000 + 1e-6)
+    assert mats["cpu"][0, 1] > 0.5

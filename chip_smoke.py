@@ -262,7 +262,28 @@ Phases, each fatal on failure:
    trajectory error at most the noisy one); and ``optimize_pose_graph``
    alone at the demo's size, timed. Each application's wall ms and its
    K1, K5, K7 and K8 launches are logged, and one that should launch K1, or
-   K5 or K8, and launched none fails the phase.
+   K5 or K8, and launched none fails the phase;
+26. multi-device on ``torch.distributed`` (no kernel of its own; its
+   shards run K1, K5, K7 and K2 with K3/K4): on phase 11's sequence map
+   (the K4 route's, padded to a multiple of 4 rows) and a 25 000-point
+   scan in its frame, ``sharded_knn`` (k 1 and 5), ``sharded_tile_nn1``,
+   ``sharded_nn1_sorted_v2`` (the map's survivor tables padded for the
+   mesh), ``sharded_block_nn1``, ``register_batch(mesh=)`` on phase 12's
+   4 pairs, ``register_batch_to_map(mesh=)`` on phase 11's 8 scans (the
+   map installed from phase 11's arrays) and the sharded pose graph (64
+   poses), first on one NCCL rank in this process, then on 2 and on 4
+   gloo ranks spawned on the one card (``tests/torch_sharding_worker.py``,
+   a ``file://`` store, every collective under a timeout, each group under
+   a deadline): every result equal to the single-device one on the card
+   bit for bit (the pose graph and the pairs within 1e-5), the batch equal
+   to phase 11's poses bit for bit, ``gather_rows``' sharded case keeping
+   −0.0 and ±inf; per rank the batch's registrations/s, its K1 launches an
+   iteration, K1's ms (CUDA events) and the collectives' ms with their host
+   staging (host clock between synchronizes) logged. Then
+   ``scaling_bench --ranks 4 --backend gloo`` and ``--ranks 1 --backend
+   nccl`` (each mesh size's registrations/s) and the two-process dry run
+   (``tools_torch/dryrun_multihost.py``: poses within 1e-5 of one process)
+   in subprocesses. A failed rank or a deadline fails the phase.
 
 The second-to-last line is the JSON of kernels, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
@@ -3115,6 +3136,350 @@ def apps_on_card(torch, pt, world, poses, scans, launches, smi, rng):
     return table
 
 
+# ------------------------------------------------------------ slice 16
+#: phase 26's gloo groups on the one card (NCCL takes one rank a card)
+MULTI_GLOO_WORLDS = (2, 4)
+#: each collective's timeout, and each spawned group's from start to join
+MULTI_RANK_TIMEOUT_S = 300.0
+MULTI_GROUP_TIMEOUT_S = 420.0
+#: the sharded k-NN's k on K5's route, the tile route's radius and cell
+#: edge (maxDist + motionBound of the tile phases), the cell blocks' edge
+MULTI_KNN_K = 5
+MULTI_MAX_DIST = 0.5
+MULTI_TILE_CELL = 1.5
+MULTI_BLOCK_CELL = 0.5
+MULTI_POSE_GRAPH = (64, 8, 1)   # poses, extra closures, seed
+
+
+def _worker():
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                    "tests"))
+    import torch_sharding_worker as w
+    return w
+
+
+def multi_inputs(torch, cell, batch_T, pairs, pair_T):
+    """Phase 26's inputs as host arrays: the K4 route's map (the sequence
+    map) padded with masked rows to a multiple of 4, phase 11's 8 scans,
+    their guesses and the batch's poses, one of them in the map's frame as
+    the queries (and in its Morton order), the map's survivor tables,
+    phase 12's pairs and their poses."""
+    from libpointmatcher_tpu_torch.ops import morton, sweep
+
+    internal = cell["seq"].get_prefiltered_internal_map()
+    pts, mask = internal.host_rows()
+    m = len(pts)
+    m4 = -(-m // 4) * 4
+    inp = {"map": pts, "mask": mask,
+           "normals": internal.get_descriptor("normals").cpu().numpy(),
+           "trm": cell["seq"].trm_host().astype(np.float32),
+           "map_pad": np.concatenate([pts, np.zeros((m4 - m, 3), np.float32)]),
+           "mask_pad": np.concatenate([mask, np.zeros(m4 - m, bool)]),
+           "serve_T": batch_T, "pair_T": pair_T,
+           "inits": np.stack(cell["qinits"][:SERVE_BATCH]).astype(np.float32)}
+    for i, c in enumerate(cell["qclouds"][:SERVE_BATCH]):
+        inp[f"scan_{i}"] = c.points.cpu().numpy()
+    T = np.linalg.inv(cell["seq"].trm_host()) @ cell["qinits"][0]
+    q = (inp["scan_0"] @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
+    inp["q"], inp["qm"] = q, np.ones(len(q), bool)
+    inp["qs"] = q[morton.morton_argsort(q, inp["qm"])[0]]
+    rorder, _ = morton.morton_argsort(pts, mask)
+    inp["rt3"] = sweep.chunked_ref_table(pts[rorder], mask[rorder])
+    inp["ct"] = sweep.chunk_summaries(pts[rorder], mask[rorder])
+    for i, (rd, rf, ti) in enumerate(zip(*pairs)):
+        inp[f"pair_read_{i}"], inp[f"pair_ref_{i}"] = rd, rf
+        inp[f"pair_init_{i}"] = np.asarray(ti, np.float32)
+    return inp
+
+
+def multi_cases(torch, mesh, pmesh, inp):
+    """Phase 26's cases through the port's entry points on ``mesh`` (and
+    ``pmesh``, its pair axis), or with ``mesh`` None the single-device ops
+    → ``{case: numpy array}``. The serving batch is phase 11's 8 scans on
+    the sequence map (installed from phase 11's arrays)."""
+    import libpointmatcher_tpu_torch as pt
+    from libpointmatcher_tpu_torch.ops import cellblocks, dispatch, sweep, tilesweep
+    from libpointmatcher_tpu_torch.parallel import (posegraph, register_batch,
+                                                    register_batch_to_map,
+                                                    sharding)
+
+    w = _worker()
+    dev = "cuda" if mesh is None else mesh.device
+    t = lambda a: torch.as_tensor(np.asarray(a), device=dev)
+    out = {}
+    q, qm = t(inp["q"]), t(inp["qm"])
+    r, rm = t(inp["map_pad"]), t(inp["mask_pad"])
+    for k in (1, MULTI_KNN_K):
+        d, i = (dispatch.knn_search(q, qm, r, rm, k=k) if mesh is None
+                else sharding.sharded_knn(q, qm, r, rm, k, mesh))
+        out[f"knn{k}_d"], out[f"knn{k}_i"] = d, i
+    sub = tilesweep.build_sub_blocks(inp["map"], inp["mask"], MULTI_TILE_CELL)
+    ta = tilesweep.assign_tiles(inp["q"], inp["qm"], sub, tile_q=64,
+                                block_cap=1024)
+    units = t(sub.units)
+    out["tile_d"], out["tile_i"] = (
+        tilesweep.tile_nn1(q, qm, ta, units, MULTI_MAX_DIST) if mesh is None
+        else sharding.sharded_tile_nn1(q, qm, ta, units, MULTI_MAX_DIST, mesh))
+    qs, ub = t(inp["qs"]), torch.full(qm.shape, float("inf"), device=dev)
+    if mesh is None:
+        d, i, _ = sweep.nn1_sorted_v2(
+            qs, qm, ub, t(inp["rt3"]), t(inp["ct"]),
+            stream=128 * inp["rt3"].shape[0] > sweep.SKIP_MAX_MPAD)
+    else:
+        rt3p, ctp = sharding.pad_sweep_tables_for_mesh(inp["rt3"], inp["ct"],
+                                                       mesh.size)
+        d, i = sharding.sharded_nn1_sorted_v2(qs, qm, ub, t(rt3p), t(ctp), mesh)
+    out["sweep_d"], out["sweep_i"] = d, i
+    rb = cellblocks.build_ref_blocks(inp["map"], inp["mask"], MULTI_BLOCK_CELL,
+                                     device=dev)
+    qb = cellblocks.assign_query_blocks(inp["q"], inp["qm"], rb)
+    out["block_d"], out["block_i"] = (
+        cellblocks.block_nn1(q, qb, rb.blocks, rb.block_ids, MULTI_MAX_DIST)
+        if mesh is None else sharding.sharded_block_nn1(
+            q, qb.rows, qb.nb_slots, rb.blocks, rb.block_ids, MULTI_MAX_DIST,
+            mesh))
+    icp = pt.ICP(device=dev)
+    icp.set_default()
+    n_pairs = len([k for k in inp if k.startswith("pair_read_")])
+    cloud = lambda a: pt.PointCloud.from_numpy(a, device=dev)
+    out["pair_T"], _ = register_batch(
+        icp, [cloud(inp[f"pair_read_{i}"]) for i in range(n_pairs)],
+        [cloud(inp[f"pair_ref_{i}"]) for i in range(n_pairs)],
+        T_inits=[inp[f"pair_init_{i}"] for i in range(n_pairs)], seed=1,
+        mesh=pmesh)
+    seq = multi_sequence(torch, pt, inp, dev)
+    out["serve_T"], info = register_batch_to_map(
+        seq, multi_scans(pt, inp, dev), T_inits=list(inp["inits"]), seed=1,
+        mesh=mesh)
+    out["serve_iterations"], out["serve_codes"] = info["iterations"], info["codes"]
+    init, ii, jj, meas, _ = w.pose_graph_inputs(*MULTI_POSE_GRAPH)
+    edges = posegraph.edges_from_numpy(ii, jj, meas, device=dev)
+    if mesh is not None:
+        edges = posegraph.shard_edges(edges, mesh)
+    out["pg_poses"], out["pg_res"] = posegraph.optimize_pose_graph(
+        init, edges, gn_iters=10, cg_iters=30, mesh=mesh)
+    return {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
+            for k, v in out.items()}
+
+
+def multi_sequence(torch, pt, inp, dev):
+    """A default-chain sequence holding phase 11's sequence map."""
+    from libpointmatcher_tpu_torch.state import install_map
+
+    seq = pt.ICPSequence(device=dev)
+    seq.set_default()
+    install_map(seq, inp["map"], inp["normals"], inp["trm"], inp["mask"])
+    return seq
+
+
+def multi_scans(pt, inp, dev):
+    return [pt.PointCloud.from_numpy(inp[f"scan_{i}"], device=dev)
+            for i in range(len(inp["inits"]))]
+
+
+def multi_meter(torch, mesh, inp):
+    """The serving batch of phase 26 on ``mesh``, three times: one run for
+    registrations/s (host clock ending in a synchronize), then one with
+    every K1/K5 search timed by CUDA events and every collective (host
+    staging included) by the host clock between two synchronizes → a dict
+    of this rank's numbers."""
+    import libpointmatcher_tpu_torch as pt
+    from libpointmatcher_tpu_torch.ops import dispatch
+    from libpointmatcher_tpu_torch.ops import knn_cuda as kc
+    from libpointmatcher_tpu_torch.parallel import batch as batch_mod
+    from libpointmatcher_tpu_torch.parallel import register_batch_to_map, sharding
+
+    seq = multi_sequence(torch, pt, inp, mesh.device)
+    clouds = multi_scans(pt, inp, mesh.device)
+    run = lambda: register_batch_to_map(seq, clouds, T_inits=list(inp["inits"]),
+                                        seed=1, mesh=mesh)
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, info = run()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    events, coll = [], [0, 0.0]
+    orig = {"knn": dispatch.knn_search, "ar": sharding.all_reduce,
+            "ag": sharding.all_gather}
+
+    def knn(*a, **k):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = orig["knn"](*a, **k)
+        e1.record()
+        events.append((e0, e1))
+        return out
+
+    def timed(fn):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            coll[0] += 1
+            coll[1] += 1e3 * (time.perf_counter() - t)
+            return out
+        return call
+
+    patches = [(dispatch, "knn_search", knn),
+               (sharding, "all_reduce", timed(orig["ar"])),
+               (sharding, "all_gather", timed(orig["ag"])),
+               (batch_mod, "all_reduce", timed(orig["ar"])),
+               (batch_mod, "all_gather", timed(orig["ag"]))]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
+    kc.reset_launch_counts()
+    try:
+        for m, n, f in patches:
+            setattr(m, n, f)
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        metered = time.perf_counter() - t0
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+    it = int(info["iterations"].max())
+    return {"rank": mesh.index, "ranks": mesh.size, "backend": mesh.backend,
+            "iterations": it, "registrations_per_s": SERVE_BATCH / sec,
+            "batch_ms": 1e3 * sec,
+            "k1_launches_per_iteration": kc.knn1.launches / max(it, 1),
+            "kernel_ms": sum(a.elapsed_time(b) for a, b in events),
+            "collectives": coll[0], "collective_ms": coll[1],
+            "metered_batch_ms": 1e3 * metered}
+
+
+def multi_rank(rank, world, init_file, in_file, out_dir):
+    """A gloo rank of phase 26 on the card: its group's cases and meter;
+    rank 0 saves the cases, every rank its numbers."""
+    import torch
+
+    w = _worker()
+    torch.cuda.set_device(0)
+    w.init_rank(rank, world, init_file, "gloo", MULTI_RANK_TIMEOUT_S)
+    from libpointmatcher_tpu_torch.parallel import sharding
+    try:
+        inp = dict(np.load(in_file))
+        mesh = sharding.make_mesh(world, device="cuda")
+        pmesh = sharding.make_mesh(world, axis_name="pairs", device="cuda")
+        special = {}
+        w.special_rows(mesh, special)
+        out = multi_cases(torch, mesh, pmesh, inp)
+        out.update(special)
+        meter = multi_meter(torch, mesh, inp)
+        if rank == 0:
+            np.savez(os.path.join(out_dir, f"cases_{world}.npz"), **out)
+        with open(os.path.join(out_dir, f"meter_{world}_{rank}.json"), "w") as f:
+            json.dump(meter, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def multi_check(single, got, label):
+    """Every case of ``got`` against the single-device ``single``: bit for
+    bit but the pose graph and ``register_batch``'s poses (within 1e-5);
+    and the sharded gather's signed zeros and infinities."""
+    for key, want in single.items():
+        v = got[key]
+        if key.startswith("pg_") or key == "pair_T":
+            err = float(np.abs(v - want).max())
+            if not err <= 1e-5:
+                raise AssertionError(f"{label}: {key} differs by {err}")
+        elif v.shape != want.shape or v.tobytes() != want.tobytes():
+            bad = int((v != want).sum()) if v.shape == want.shape else -1
+            raise AssertionError(f"{label}: {key} not bit for bit ({bad} differ)")
+    if "special_rows" in got and (got["special_rows"].tobytes()
+                                  != got["special_want"].tobytes()):
+        raise AssertionError(f"{label}: gather_rows lost a signed zero or inf")
+
+
+def multi_device(torch, inp, smi):
+    """Phase 26 (see the module docstring) → the logged table."""
+    import torch.distributed as dist
+
+    from libpointmatcher_tpu_torch.parallel import sharding
+
+    w = _worker()
+    t_phase = time.perf_counter()
+    scratch = Path(__file__).resolve().parent / ".chip_scratch" / "multi"
+    if scratch.exists():
+        import shutil
+        shutil.rmtree(scratch)
+    scratch.mkdir(parents=True)
+    in_file = str(scratch / "inputs.npz")
+    np.savez(in_file, **inp)
+    single = multi_cases(torch, None, None, inp)
+    if single["serve_T"].tobytes() != inp["serve_T"].tobytes():
+        raise AssertionError("phase 26's single-device batch differs from "
+                             "phase 11's")
+    single.pop("serve_iterations"), single.pop("serve_codes")
+    table = {}
+
+    # ---- 26a. one NCCL rank in this process
+    from datetime import timedelta
+    dist.init_process_group("nccl", init_method=f"file://{scratch / 'nccl'}",
+                            rank=0, world_size=1,
+                            timeout=timedelta(seconds=MULTI_RANK_TIMEOUT_S))
+    try:
+        mesh = sharding.make_mesh(1, device="cuda")
+        pmesh = sharding.make_mesh(1, axis_name="pairs", device="cuda")
+        got = multi_cases(torch, mesh, pmesh, inp)
+        w.special_rows(mesh, got)
+        multi_check(single, got, "NCCL world 1")
+        table["nccl_1"] = [multi_meter(torch, mesh, inp)]
+    finally:
+        dist.destroy_process_group()
+    log(f"[multi] NCCL world 1: every case equals the single-device one; "
+        + json.dumps(table["nccl_1"]))
+
+    # ---- 26b. gloo ranks on the one card
+    for world in MULTI_GLOO_WORLDS:
+        t = time.perf_counter()
+        w.spawn_ranks(multi_rank, world,
+                      (world, str(scratch / f"gloo_{world}"), in_file,
+                       str(scratch)), MULTI_GROUP_TIMEOUT_S)
+        got = dict(np.load(scratch / f"cases_{world}.npz"))
+        multi_check(single, got, f"gloo world {world}")
+        table[f"gloo_{world}"] = [
+            json.loads((scratch / f"meter_{world}_{r}.json").read_text())
+            for r in range(world)]
+        log(f"[multi] gloo world {world} on the card ({time.perf_counter() - t:.1f} s): "
+            f"every case equals the single-device one, the batch equals phase "
+            f"11's; " + json.dumps(table[f"gloo_{world}"]))
+
+    # ---- 26c. scaling_bench and the two-process dry run
+    root = Path(__file__).resolve().parent
+    for argv in (["--ranks", "4", "--backend", "gloo", "--device", "cuda"],
+                 ["--ranks", "1", "--backend", "nccl", "--device", "cuda"]):
+        proc = subprocess.run(
+            [sys.executable, "-m", "libpointmatcher_tpu_torch.apps.scaling_bench",
+             *argv], capture_output=True, text=True, timeout=MULTI_GROUP_TIMEOUT_S,
+            cwd=root)
+        if proc.returncode != 0:
+            raise AssertionError(f"scaling_bench {argv}: {proc.stderr[-2000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        want = {f"{n}_devices" for n in sorted({1, max(1, int(argv[1]) // 2),
+                                                int(argv[1])})}
+        if set(res) != want or not all(v["registrations_per_s"] > 0
+                                       for v in res.values()):
+            raise AssertionError(f"scaling_bench {argv}: {res}")
+        table[f"scaling_bench {' '.join(argv[:4])}"] = res
+        log(f"[multi] scaling_bench {' '.join(argv[:4])}: {json.dumps(res)}")
+    proc = subprocess.run(
+        [sys.executable, str(root / "tools_torch" / "dryrun_multihost.py"),
+         "--device", "cuda", "--out", str(scratch / "dryrun.json")],
+        capture_output=True, text=True, timeout=MULTI_GROUP_TIMEOUT_S, cwd=root)
+    if proc.returncode != 0:
+        raise AssertionError(f"dry run: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    dry = json.loads((scratch / "dryrun.json").read_text())
+    table["dryrun"] = [{k: r[k] for k in ("multi_vs_single_maxdiff",
+                                          "trans_err_max_vs_truth", "wall_s")}
+                       for r in dry["results"]]
+    log(f"[multi] dry run, 2 gloo processes: {json.dumps(table['dryrun'])}")
+    log(f"[multi] card: {smi}; phase 26 took {time.perf_counter() - t_phase:.1f} s")
+    return table
+
+
 def kernel_inputs(torch, world, scan_world, n, m, rng, device="cuda"):
     """Queries from a scan placed in the world, references from the scene,
     every 11th query and every 7th reference masked."""
@@ -3471,9 +3836,10 @@ def main() -> int:
             if route == "K6":
                 k6_launches += counts["K6"]
             if coarse is None:
-                _, ib = register_batch_to_map(
+                Tb, ib = register_batch_to_map(
                     q_seq, cell["qclouds"][:SERVE_BATCH],
                     T_inits=cell["qinits"][:SERVE_BATCH], seed=1)
+                cell["queue_batch_T"] = Tb
                 for key in ("iterations", "codes"):
                     if not np.array_equal(ib[key], info[key][:SERVE_BATCH]):
                         raise AssertionError(
@@ -3496,12 +3862,13 @@ def main() -> int:
     pair_icp = pt.ICP()
     pair_icp.set_default()
     gts = [np.linalg.inv(poses[i]) @ poses[i + 1] for i in range(PAIRS)]
+    pair_inits = [perturb(rng) @ g for g in gts]
     kc.reset_launch_counts()
     with InputRecorder(matchers, "knn_search") as rec:
         T, info = register_batch(
             pair_icp, [pt.PointCloud.from_numpy(scans[i + 1]) for i in range(PAIRS)],
             [pt.PointCloud.from_numpy(scans[i]) for i in range(PAIRS)],
-            T_inits=[perturb(rng) @ g for g in gts], seed=1)
+            T_inits=pair_inits, seed=1)
     it = int(info["iterations"].max())
     k1_launches = kc.knn1.launches
     log(f"[pairs] register_batch of {PAIRS} pairs: iterations "
@@ -3521,6 +3888,11 @@ def main() -> int:
     for j, call in enumerate(rec.calls):
         check_k1_call(torch, kc, *call[:4], f"register_batch iteration {j}")
     del rec
+    # phase 26's inputs: phase 11's batch on the sequence map, these pairs
+    multi_in = multi_inputs(
+        torch, serve["K4"], serve["K4"]["queue_batch_T"],
+        ([scans[i + 1] for i in range(PAIRS)], [scans[i] for i in range(PAIRS)],
+         pair_inits), T)
     torch.cuda.empty_cache()
 
     # ---- 13.-16. large-map tile-sweep serving
@@ -3569,6 +3941,10 @@ def main() -> int:
 
     # ---- 25. the applications
     apps_on_card(torch, pt, world, poses, scans, launches, smi, rng)
+
+    # ---- 26. multi-device on torch.distributed
+    torch.cuda.empty_cache()
+    multi_device(torch, multi_in, smi)
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

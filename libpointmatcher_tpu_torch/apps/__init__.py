@@ -16,11 +16,12 @@ Run as ``python -m libpointmatcher_tpu_torch.apps.<name>``:
 - ``plot_results``     — text and CSV report of eval_solution's results
 - ``golden_check``     — full-cloud golden-config sweep vs the reference's .ref_trans
 - ``demo_pipeline``    — odometry, pose-graph refinement and trajectory error on a synthetic sequence
+- ``scaling_bench``    — registrations/s of ``register_batch`` split over 1, n/2 and n local ranks
 
 Every application that computes takes ``--device``: the card by default,
 ``--device cpu`` for the CPU. It is the port's device rule (entry points run
 on the card unless asked for the CPU, and raise without one) carried to the
-command line; no application falls back to the CPU on its own. The JAX
-package's ``scaling_bench`` shards pairs over a device mesh and waits for
-the port's multi-device layer.
+command line; no application falls back to the CPU on its own.
+``scaling_bench`` also takes the group's backend (``--backend``): the
+caller picks it, and the port never switches it.
 """

@@ -135,7 +135,16 @@ def _dense_matches(reading, reference, knn: int, epsilon: float,
                    max_dist: float) -> Matches:
     """The exact dense search (K1, K9, K5) of every scan of ``reading``
     against a shared ``reference``, or with a reference ``[B, M, d]`` each
-    scan against its own, ``max_dist`` applied."""
+    scan against its own, ``max_dist`` applied. A reference laid out over a
+    mesh (``parallel.sharding.ShardedCloud``) is searched on this rank's
+    rows and merged over the mesh."""
+    if getattr(reference, "mesh", None) is not None:
+        b = reading.points.shape[:-2]
+        dists, ids = reference.knn(reading.points.reshape(-1, reading.dim),
+                                   reading.mask.reshape(-1), k=knn,
+                                   epsilon=epsilon)
+        return Matches(*apply_max_dist(dists.reshape(*b, -1, knn),
+                                       ids.reshape(*b, -1, knn), max_dist))
     if reference.points.ndim == 3:
         dists, ids = knn_search(reading.points, reading.mask, reference.points,
                                 reference.mask, k=knn, epsilon=epsilon)
@@ -689,16 +698,23 @@ class BlockGridMatcher(Matcher):
         """Through the tile sweep with ``aux`` (:meth:`prepare_loop`'s, or
         a serving driver's for readings in tile order, without ``q_rows``)
         against the reference of ``init``; else the exact dense search with
-        ``maxDist`` applied."""
-        if aux is not None and tuple(reference.points.shape) == self._ref_shape:
+        ``maxDist`` applied. Against a reference laid out over a mesh
+        (``parallel.sharding.ShardedCloud``), ``aux``'s candidate tables hold
+        only this rank's rows (``ShardedCloud.own_candidates``), and the
+        ranks' results are merged over the mesh."""
+        sharded = getattr(reference, "mesh", None) is not None
+        if aux is not None and (sharded or tuple(reference.points.shape)
+                                == self._ref_shape):
             q_rows = aux.get("q_rows")
             if self.knn > 1:
-                return Matches(*tile_knnk_from_candidates(
+                d, i = tile_knnk_from_candidates(
                     reading.points, reading.mask, q_rows, aux["cand_t"],
                     float(self.maxDist), None, aux["vrows"], int(self.knn),
-                    aux["ncols"]))
-            d1, i1 = tile_nn1_from_candidates(
-                reading.points, reading.mask, q_rows, aux["cand_t"],
-                float(self.maxDist), None, aux["vrows"], aux["ncols"])
-            return Matches(d1[..., None], i1[..., None])
+                    aux["ncols"])
+            else:
+                d, i = tile_nn1_from_candidates(
+                    reading.points, reading.mask, q_rows, aux["cand_t"],
+                    float(self.maxDist), None, aux["vrows"], aux["ncols"])
+                d, i = d[..., None], i[..., None]
+            return Matches(*(reference.merge(d, i) if sharded else (d, i)))
         return _dense_matches(reading, reference, self.knn, 0.0, self.maxDist)

@@ -62,9 +62,15 @@ def _valid_pairs(weights, matches):
     return torch.isfinite(matches.dists) & (weights != 0.0)
 
 
-def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+def gather_rows(table: torch.Tensor, ids: torch.Tensor,
+                cloud=None) -> torch.Tensor:
     """Rows ``ids [..., P]`` of ``table``: a shared ``[M, s]`` one, or
-    ``[B, M, s]`` with one table per scan (a pair axis) → ``[..., P, s]``."""
+    ``[B, M, s]`` with one table per scan (a pair axis) → ``[..., P, s]``.
+    ``cloud`` is the cloud whose rows ``table`` holds: one laid out over a
+    mesh (``parallel.sharding.ShardedCloud``) holds only its rank's rows,
+    and completes the gather of global ids over the mesh."""
+    if getattr(cloud, "mesh", None) is not None:
+        return cloud.gather(table, ids)
     if table.ndim == 2:
         return table[ids]
     return torch.gather(table, -2,
@@ -82,19 +88,20 @@ def make_pairs(reading, reference, weights, matches) -> Pairs:
     return Pairs(
         w=torch.where(valid, weights, torch.zeros_like(weights)).reshape(*b, -1),
         read=reading.points[..., None, :].expand(*b, n, k, d).reshape(*b, -1, d),
-        ref=gather_rows(reference.points, ids),
+        ref=gather_rows(reference.points, ids, reference),
         ids=ids,
         valid=valid.reshape(*b, -1))
 
 
 def gather_pair_descriptor(cloud_desc: torch.Tensor, pairs: Pairs, side: str,
-                           knn: int) -> torch.Tensor:
+                           knn: int, cloud=None) -> torch.Tensor:
     """Descriptor values per pair: the reading's repeat over its ``knn``
-    matches, the reference's are gathered at the matched rows."""
+    matches, the reference's are gathered at the matched rows (of
+    ``cloud``, as :func:`gather_rows` takes it)."""
     if side == "reading":
         *b, n, sp = cloud_desc.shape
         return cloud_desc[..., None, :].expand(*b, n, knn, sp).reshape(*b, -1, sp)
-    return gather_rows(cloud_desc, pairs.ids)
+    return gather_rows(cloud_desc, pairs.ids, cloud)
 
 
 def _used_ratios(reading, weights, matches):
@@ -275,7 +282,7 @@ class PointToPlaneErrorMinimizer(ErrorMinimizer):
         d = reading.dim
         pairs = make_pairs(reading, reference, weights, matches)
         normals = gather_rows(reference.get_descriptor("normals"),
-                              pairs.ids)                  # [..., P, d]
+                              pairs.ids, reference)       # [..., P, d]
         w = pairs.w
         delta = pairs.read - pairs.ref
         if d == 2 or self.force2D:
@@ -322,7 +329,7 @@ class PointToPlaneErrorMinimizer(ErrorMinimizer):
         pairs = make_pairs(reading, reference, weights, matches)
         normals = gather_pair_descriptor(reference.get_descriptor("normals"),
                                          pairs, "reference",
-                                         matches.dists.shape[-1])
+                                         matches.dists.shape[-1], reference)
         dot = torch.sum((pairs.read - pairs.ref) * normals, dim=-1)
         return torch.sum(pairs.w * dot * dot, dim=-1)
 

@@ -65,12 +65,14 @@ def _unit_rows(v: torch.Tensor) -> torch.Tensor:
     return v / torch.clamp(torch.sqrt(_dot(v, v)), min=1e-20)[..., None]
 
 
-def _gather_pairs(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Rows of ``table`` (shared or one per scan) at the match ids
-    ``[..., N, knn]`` (clamped to 0) → ``[..., N, knn, s]``."""
+def _gather_pairs(table: torch.Tensor, ids: torch.Tensor,
+                  cloud=None) -> torch.Tensor:
+    """Rows of ``table`` (shared or one per scan, of ``cloud`` as
+    ``gather_rows`` takes it) at the match ids ``[..., N, knn]`` (clamped
+    to 0) → ``[..., N, knn, s]``."""
     *b, n, k = ids.shape
     flat = torch.clamp(ids, min=0).to(torch.int64).reshape(*b, n * k)
-    return gather_rows(table, flat).reshape(*b, n, k, table.shape[-1])
+    return gather_rows(table, flat, cloud).reshape(*b, n, k, table.shape[-1])
 
 
 class OutlierFilter(Parametrizable):
@@ -267,7 +269,7 @@ class SurfaceNormalOutlierFilter(OutlierFilter):
         eps = _f32(math.cos(self.maxAngle))
         nr = _unit_rows(reading.get_descriptor("normals"))
         nf = _unit_rows(reference.get_descriptor("normals"))
-        nref = _gather_pairs(nf, matches.ids)          # [..., N, knn, d]
+        nref = _gather_pairs(nf, matches.ids, reference)  # [..., N, knn, d]
         dot = torch.abs(_dot(nr[..., None, :], nref))
         w = (dot >= eps).to(torch.float32)
         return torch.where(matches.ids >= 0, w, torch.zeros_like(w)), state
@@ -308,7 +310,7 @@ class GenericDescriptorOutlierFilter(OutlierFilter):
             raise InvalidParameter(
                 f"GenericDescriptorOutlierFilter: '{self.descName}' must be 1-D")
         if self.source == "reference":
-            vals = _gather_pairs(desc, matches.ids)[..., 0]
+            vals = _gather_pairs(desc, matches.ids, reference)[..., 0]
         else:
             vals = desc[..., :, :1].expand(matches.dists.shape)
         matched = matches.ids >= 0
@@ -374,8 +376,8 @@ class RobustOutlierFilter(OutlierFilter):
         if self.distanceType == "point2point":
             return matches.dists
         nref = _gather_pairs(_unit_rows(reference.get_descriptor("normals")),
-                             matches.ids)
-        pref = _gather_pairs(reference.points, matches.ids)
+                             matches.ids, reference)
+        pref = _gather_pairs(reference.points, matches.ids, reference)
         delta = reading.points[..., None, :] - pref
         d = _dot(nref, delta) ** 2
         return torch.where(matches.ids >= 0, d, torch.zeros_like(d))

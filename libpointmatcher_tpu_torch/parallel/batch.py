@@ -45,9 +45,11 @@ from ..cloud import PointCloud
 from ..filters.base import ScanKeys, apply_filter_chain, chain_is_traceable
 from ..icp import _apply_transform, _center_cloud
 from ..loggers import log_warning
-from ..matchers import Matcher, tile_aux_to_device
+from ..matchers import (BlockGridMatcher, KDTreeMatcher, Matcher,
+                        tile_aux_to_device)
 from ..ops.morton import morton_argsort_device
 from ..utils import prng, se3
+from .sharding import all_gather, all_reduce, shard_cloud
 
 __all__ = ["register_batch", "register_batch_to_map", "PendingRegistration"]
 
@@ -332,9 +334,18 @@ def _info(iters, codes, stats, overflow=None, matcher=None) -> dict:
     return info
 
 
+def _map_mesh(seq, mesh, map_axis: str) -> None:
+    """Refuse a map mesh this rank or this matcher cannot serve."""
+    mesh.require(map_axis)
+    if not isinstance(seq.matcher, (KDTreeMatcher, BlockGridMatcher)):
+        raise ValueError(f"{type(seq.matcher).__name__} serves no map laid out "
+                         f"over a mesh (KDTreeMatcher and BlockGridMatcher do)")
+
+
 def register_batch_to_map(seq, readings: Sequence[PointCloud],
                           T_inits: Optional[Sequence] = None, seed: int = 0,
-                          compact_rows="auto", block: bool = True):
+                          compact_rows="auto", mesh=None,
+                          map_axis: str = "points", block: bool = True):
     """Register every scan of ``readings`` against the map of ``seq`` (an
     ``ICPSequence`` after ``set_map``) at once.
 
@@ -357,24 +368,49 @@ def register_batch_to_map(seq, readings: Sequence[PointCloud],
     path (:func:`_host_path`): the scans' chains compacted without a cap,
     and the lockstep loop against the map without loop tables. As in the
     JAX package, that loop drops such step filters and makes no dumps, where
-    a one-shot ``compute`` applies both."""
+    a one-shot ``compute`` applies both.
+
+    With ``mesh`` (:func:`.sharding.make_mesh`, on every rank of it, each
+    holding every scan after the same ``set_map``), the map's rows are laid
+    out over the mesh (``map_axis``, :func:`.sharding.shard_cloud`) and the
+    loop holds only this rank's rows of it; every rank returns the same
+    result, equal bit for bit to single-device serving where ties do not
+    part them. The scans' prep, the outlier filters, the minimizer and the
+    checkers run replicated. Matching runs on the dense route, as in the
+    JAX package: each rank searches its rows (K1, K5 for knn > 1) and the
+    ranks merge (:meth:`.sharding.ShardedCloud.knn`), against the
+    Morton-sorted map with each scan in its Morton order where the
+    single-device run takes a survivor route, so that rows and sums keep
+    its order. A ``BlockGridMatcher`` keeps its tile route, each rank
+    sweeping (K7, K8) the candidates it owns before the merge. Matched rows
+    are read through ``minimizers.gather_rows``' sharded case. Only
+    ``KDTreeMatcher`` and ``BlockGridMatcher`` take a mesh."""
     if not seq.has_map():
         raise RuntimeError("set_map first")
     seq._require_modules()
+    if mesh is not None:
+        _map_mesh(seq, mesh, map_axis)
     reference = seq.get_prefiltered_internal_map()
     Trm = seq._T_refIn_refMean
     T_rmd = se3.inverse(Trm) @ _initial_poses(T_inits, len(readings),
                                               readings[0].dim, seq.device)
+    shard = ((lambda ref: ref) if mesh is None
+             else (lambda ref: shard_cloud(ref, mesh, map_axis)))
     if _host_path(seq):
         batch, overflow, _ = _prep_scans(seq, readings, T_rmd, seed, None,
                                          permute=False)
-        T_iter, iters, codes, stats = seq._run_loop(batch, reference)
+        T_iter, iters, codes, stats = seq._run_loop(batch, shard(reference))
     elif _tile_route(seq):
         batch, aux = _prep_tile_scans(seq, readings, T_inits, T_rmd, seed)
         overflow = np.zeros(len(readings), bool)
-        T_iter, iters, codes, stats = seq._run_loop(batch, reference, aux)
+        ref_loop = shard(reference)
+        if mesh is not None:
+            aux["cand_t"] = ref_loop.own_candidates(aux["cand_t"])
+        T_iter, iters, codes, stats = seq._run_loop(batch, ref_loop, aux)
     else:
         permute, ref_loop, aux = _serving_route(seq, reference)
+        if mesh is not None:
+            ref_loop, aux = shard(ref_loop), None
         host = (permute and _traceable(seq)
                 and (not getattr(seq.matcher, "SERVING_DEVICE_ORDER", True)
                      or os.environ.get("PMTPU_SKIP_HOST_MORTON", "0") == "1"))
@@ -392,9 +428,16 @@ def register_batch_to_map(seq, readings: Sequence[PointCloud],
     return finish() if block else PendingRegistration(finish)
 
 
+def _gather_batch(mesh, values):
+    """Every rank's ``[b/n, ...]`` tensors → the whole batch's, in rank
+    order (one ``all_gather`` each)."""
+    return [torch.cat(all_gather(mesh, v)) for v in values]
+
+
 def register_batch(icp, readings: Sequence[PointCloud],
                    references: Sequence[PointCloud],
-                   T_inits: Optional[Sequence] = None, seed: int = 0):
+                   T_inits: Optional[Sequence] = None, seed: int = 0,
+                   mesh=None, axis_name: str = "pairs"):
     """Register ``readings[i]`` onto ``references[i]`` for every i at once
     (pair-parallel one-shot ICP, the counterpart of the JAX package's
     per-pair path of ``register_batch``).
@@ -411,11 +454,26 @@ def register_batch(icp, readings: Sequence[PointCloud],
 
     Returns ``(T [B, d+1, d+1] numpy, info)`` with ``iterations``,
     ``codes``, ``point_used_ratio``, ``weighted_point_used_ratio`` and
-    ``residual`` per pair."""
+    ``residual`` per pair.
+
+    With ``mesh`` (:func:`.sharding.make_mesh`, on every rank of it, each
+    holding every pair), the pair axis (``axis_name``) is split into
+    contiguous blocks, one a rank (B must divide the mesh): each rank
+    prepares and registers its own pairs, with the keys of their global
+    indices, stacked at the whole batch's row counts (one
+    ``all_reduce(MAX)``), and the poses, counts and statistics are
+    gathered, so that every rank returns the whole batch's result."""
     if len(readings) != len(references) or not readings:
         raise ValueError("register_batch takes as many readings as "
                          "references, at least one")
     icp._require_modules()
+    lo, hi = 0, len(readings)
+    if mesh is not None:
+        mesh.require(axis_name)
+        if len(readings) % mesh.size:
+            raise ValueError(f"{len(readings)} pairs do not divide the mesh "
+                             f"({mesh.size})")
+        lo, hi = mesh.span(len(readings))
     dev = icp.device
     dim = readings[0].dim
     T_inits = _initial_poses(T_inits, len(readings), dim, dev)
@@ -430,7 +488,8 @@ def register_batch(icp, readings: Sequence[PointCloud],
               and icp._step_chain_traced()
               and type(icp.matcher).prepare_loop is Matcher.prepare_loop)
     prepped_r, prepped_f, T_rm, T_rmd = [], [], [], []
-    for i, (reading, reference) in enumerate(zip(readings, references)):
+    for i in range(lo, hi):
+        reading, reference = readings[i], references[i]
         reference = apply_filter_chain(icp.reference_filters, reference.to(dev),
                                        keys_f, scan=i, traced=traced)
         reference, Trm = _center_cloud(reference)
@@ -441,8 +500,18 @@ def register_batch(icp, readings: Sequence[PointCloud],
         prepped_f.append(reference)
         T_rm.append(Trm)
         T_rmd.append(Trd)
-    T_iter, iters, codes, stats = icp._run_loop(_stack(prepped_r),
-                                                _stack(prepped_f))
-    icp.last_stats = stats
+    rows = [max(c.num_points for c in cl) for cl in (prepped_r, prepped_f)]
+    if mesh is not None:
+        rows = all_reduce(mesh, torch.tensor(rows, device=dev), "max").tolist()
+    T_iter, iters, codes, stats = icp._run_loop(_stack(prepped_r, rows[0]),
+                                                _stack(prepped_f, rows[1]))
     T_out = torch.stack(T_rm) @ T_iter @ torch.stack(T_rmd)
+    if mesh is not None:
+        fields = ("point_used_ratio", "weighted_point_used_ratio", "residual")
+        if stats.covariance is not None:
+            fields += ("covariance",)
+        T_out, iters, codes, *vals = _gather_batch(
+            mesh, [T_out, iters, codes] + [getattr(stats, f) for f in fields])
+        stats = stats._replace(**dict(zip(fields, vals)))
+    icp.last_stats = stats
     return T_out.cpu().numpy(), _info(iters, codes, stats)

@@ -17,8 +17,16 @@ fixed counts (no early exit), damping and 1e-20 guards.
 
 Parametrization: poses as [K, 4, 4]; updates as per-pose twists
 δ = (ω, u) ∈ R⁶ applied as T ← T·exp(δ) with the rotation/translation
-decoupled retraction. Pose 0 is gauge-fixed. The sharded form of the JAX
-package (edges laid out over a mesh) is not part of this module.
+decoupled retraction. Pose 0 is gauge-fixed.
+
+The sharded form: the JAX package shards the edge arrays over a mesh and
+lets XLA split the two sweeps of each CG product. Here
+``optimize_pose_graph(..., mesh=)`` takes this rank's share of the edges
+(:func:`shard_edges`): in each product the local J·δ and the scatter-add
+of Jᵀ(W·r) into ``[K, 6]`` are followed by one ``all_reduce(SUM)``, as is
+the final residual's sum; the dot products over poses stay replicated.
+The sums then run in another order, so the result agrees with the
+single-device solve to rounding, not bit for bit.
 """
 
 from __future__ import annotations
@@ -30,9 +38,10 @@ import torch
 
 from ..device import resolve_device
 from ..utils import se3
+from .sharding import all_reduce
 
 __all__ = ["PoseGraphEdges", "optimize_pose_graph", "relative_pose_residual",
-           "edges_from_numpy"]
+           "edges_from_numpy", "shard_edges"]
 
 
 class PoseGraphEdges(NamedTuple):
@@ -89,15 +98,16 @@ def _jacobian_blocks(poses, edges: PoseGraphEdges, gauge):
     return r.detach(), Ji, Jj
 
 
-def _gn_step(poses, edges, w, gauge, cg_iters: int, damping: float):
-    """One Gauss-Newton step: CG on (JᵀWJ + λI)·x = −JᵀW·r at δ = 0."""
+def _gn_step(poses, edges, w, gauge, cg_iters: int, damping: float, total):
+    """One Gauss-Newton step: CG on (JᵀWJ + λI)·x = −JᵀW·r at δ = 0.
+    ``total`` sums a ``[K, 6]`` product over the ranks' edges."""
     r0, Ji, Jj = _jacobian_blocks(poses, edges, gauge)
 
     def jtw(vec_c):       # Jᵀ(W·vec): [C, 6] → [K, 6]
         u = (w * vec_c)[..., None]
         out = torch.zeros_like(gauge)
         out.index_add_(0, edges.i, (Ji.mT @ u)[..., 0])
-        return out.index_add_(0, edges.j, (Jj.mT @ u)[..., 0])
+        return total(out.index_add_(0, edges.j, (Jj.mT @ u)[..., 0]))
 
     def jv(delta):        # J·delta: [K, 6] → [C, 6]
         return (Ji @ delta[edges.i, :, None]
@@ -121,9 +131,17 @@ def _gn_step(poses, edges, w, gauge, cg_iters: int, damping: float):
 
 
 def optimize_pose_graph(poses, edges: PoseGraphEdges, gn_iters: int = 10,
-                        cg_iters: int = 25, damping: float = 1e-6):
+                        cg_iters: int = 25, damping: float = 1e-6, mesh=None):
     """→ (optimized poses [K, 4, 4], final weighted residual norm), both
-    tensors on the edges' device. ``poses`` [K, 4, 4] (numpy or a tensor)."""
+    tensors on the edges' device. ``poses`` [K, 4, 4] (numpy or a tensor).
+    With ``mesh`` (:func:`.sharding.make_mesh`), ``edges`` is this rank's
+    share of the constraints (:func:`shard_edges`), ``poses`` the same on
+    every rank, and every rank returns the same result."""
+    if mesh is None:
+        total = lambda x: x
+    else:
+        mesh.require()
+        total = lambda x: all_reduce(mesh, x, "sum")
     dev = edges.T_meas.device
     poses = torch.as_tensor(np.asarray(poses, np.float32)
                             if not isinstance(poses, torch.Tensor) else poses,
@@ -134,9 +152,18 @@ def optimize_pose_graph(poses, edges: PoseGraphEdges, gn_iters: int = 10,
     gauge = torch.ones((poses.shape[0], 6), dtype=torch.float32, device=dev)
     gauge[0] = 0.0                                     # fix pose 0
     for _ in range(gn_iters):
-        poses = _gn_step(poses, edges, w, gauge, cg_iters, damping)
+        poses = _gn_step(poses, edges, w, gauge, cg_iters, damping, total)
     final_res = relative_pose_residual(poses, edges)
-    return poses, torch.sqrt(torch.sum((w * final_res) ** 2))
+    return poses, torch.sqrt(total(torch.sum((w * final_res) ** 2)))
+
+
+def shard_edges(edges: PoseGraphEdges, mesh) -> PoseGraphEdges:
+    """This rank's contiguous share of the constraints (the shares of the
+    ranks differ by at most one edge), on the mesh's device."""
+    mesh.require()
+    c = edges.T_meas.shape[0]
+    lo, hi = c * mesh.index // mesh.size, c * (mesh.index + 1) // mesh.size
+    return PoseGraphEdges(*(x[lo:hi].to(mesh.device) for x in edges))
 
 
 def edges_from_numpy(i, j, T_meas, weight=None, device=None) -> PoseGraphEdges:

@@ -22,7 +22,11 @@ loader onto the card (the same arrays as a load onto the CPU), ``cell_knn``
 on the card against the CPU (d² bit for bit, ids equal: elementwise
 operations in the same order) and KDTreeVarDistMatcher's culled route
 against its dense one (K1, K5) on the card; and the applications ``icp``
-and ``compute_overlap`` with ``--device cuda`` against ``--device cpu``.
+and ``compute_overlap`` with ``--device cuda`` against ``--device cpu``;
+and the multi-device layer: every sharded op and both drivers' mesh
+arguments at NCCL world size 1 in this process and on 2 gloo ranks on the
+card against the single-device ops (bit for bit; ``register_batch``
+within 1e-5), ``gather_rows``' sharded case keeping −0.0 and ±inf.
 Every test
 needs a CUDA device and skips without one. The file imports neither JAX
 nor the JAX package, so it runs on a machine with the card alone:
@@ -1466,3 +1470,53 @@ def test_compute_overlap_app_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
         mats[dev] = np.loadtxt(tmp_path / dev / "ov.csv", delimiter=",")
     np.testing.assert_allclose(mats["cuda"], mats["cpu"], atol=1 / 3000 + 1e-6)
     assert mats["cpu"][0, 1] > 0.5
+
+
+# ------------------------------------------------------- multi-device layer
+def _same_as_single(got, want, label):
+    """Every sharded result against its single-device one: bit for bit
+    (bytes: −0.0 is not +0.0), but ``register_batch``'s poses within 1e-5;
+    the route counter is the run's own, the padded tables have none."""
+    own = ("special_rows", "special_want", "sweep_rt3p", "sweep_ctp")
+    for key, v in got.items():
+        if key in own or key.endswith("survivor_steps"):
+            continue
+        if key == "pairs_T":
+            np.testing.assert_allclose(v, want[key], rtol=0, atol=1e-5,
+                                       err_msg=label)
+        else:
+            assert v.shape == want[key].shape and v.tobytes() == want[key].tobytes(), \
+                f"{label}: {key}"
+    assert got["special_rows"].tobytes() == got["special_want"].tobytes(), label
+
+
+def test_sharded_ops_nccl_world_one_equal_single(cuda, tmp_path):
+    """One NCCL rank in this process: every sharded op and driver equals
+    the single-device one on the card bit for bit."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    import torch_sharding_worker as w
+
+    from libpointmatcher_tpu_torch.parallel import sharding
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}",
+                            rank=0, world_size=1, timeout=timedelta(seconds=120))
+    try:
+        got = w.card_cases(sharding.make_mesh(1, device="cuda"),
+                           sharding.make_mesh(1, axis_name="pairs",
+                                              device="cuda"))
+    finally:
+        dist.destroy_process_group()
+    _same_as_single(got, w.card_single("cuda"), "NCCL world 1")
+
+
+def test_sharded_ops_gloo_world_two_on_card(cuda, tmp_path):
+    """Two gloo ranks on the one card (collectives staged through host
+    memory): the same results as the single-device ops on the card."""
+    import torch_sharding_worker as w
+
+    w.spawn_ranks(w.card_suite, 2, (2, str(tmp_path / "store"), str(tmp_path),
+                                    120.0), timeout_s=300.0)
+    got = dict(np.load(tmp_path / "card_2.npz"))
+    _same_as_single(got, w.card_single("cuda"), "gloo world 2")

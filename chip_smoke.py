@@ -283,7 +283,29 @@ Phases, each fatal on failure:
    ``scaling_bench --ranks 4 --backend gloo`` and ``--ranks 1 --backend
    nccl`` (each mesh size's registrations/s) and the two-process dry run
    (``tools_torch/dryrun_multihost.py``: poses within 1e-5 of one process)
-   in subprocesses. A failed rank or a deadline fails the phase.
+   in subprocesses. A failed rank or a deadline fails the phase;
+27. the JAX package's switches, each set for its case alone and restored
+   after it: ``PMTPU_KNN_IMPL=mxu`` on phase 4's sequence of 8 scans (a
+   fresh ``set_map`` of the scene), phase 7's batch on the 25 000-point
+   scene's map (dense) and phase 11's queue of 64 on it: K9 launches equal
+   to the iterations (lane iterations for the queue), K1 and every other
+   kernel none, every pose under the gates; the relative excess of K9's
+   pick over K1's d² at every recorded sequence search (maximum, 99th
+   percentile) and both kernels' ms at the first one logged; phase 7's
+   batch on the 50 147-row map (the survivor route, K2 + K4) launches no
+   K9 and equals the batch without the switch bit for bit. The three
+   switches the port does not read (``PMTPU_SOLVE=chol``,
+   ``PMTPU_SELECT=bisect``, ``PMTPU_STACK_NUMPY=0``, ROADMAP Queue 3): the
+   dense batch of host clouds under all three equal bit for bit, launches
+   included, to the batch without them. The upload of host clouds: the
+   dense batch and a terrain tile batch (phase 14's configuration, 8 scans
+   on a fresh 10^5-point map), their scans handed in as host clouds,
+   stacked on the host (the port's path) and moved one by one (the path of
+   scans that differ in channels), in turns, equal bit for bit, each path's
+   prep host ms and batch ms logged. ``PMTPU_CACHE_DIR``: a
+   subprocess with a fresh directory builds the five CUDA sources and the
+   native library there, and a second one loads all six with no compiler
+   run (``subprocess.run`` refused in it); both gated.
 
 The second-to-last line is the JSON of kernels, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
@@ -814,15 +836,17 @@ class InputRecorder:
 
 
 class PrepTimer:
-    """Host time of the serving batch's prep calls (``batch._prep_scans``)
-    while the context is open, summed in ``ms``."""
+    """Host time of the serving batch's prep calls (``batch._prep_scans``,
+    or the tile route's ``_prep_tile_scans``) while the context is open,
+    summed in ``ms``."""
 
-    def __init__(self, module):
+    def __init__(self, module, name="_prep_scans"):
         self.module = module
+        self.name = name
         self.ms = 0.0
 
     def __enter__(self):
-        self.orig = self.module._prep_scans
+        self.orig = getattr(self.module, self.name)
 
         def timed(*a, **k):
             t = time.perf_counter()
@@ -830,11 +854,11 @@ class PrepTimer:
             self.ms += 1e3 * (time.perf_counter() - t)
             return out
 
-        self.module._prep_scans = timed
+        setattr(self.module, self.name, timed)
         return self
 
     def __exit__(self, *exc):
-        self.module._prep_scans = self.orig
+        setattr(self.module, self.name, self.orig)
 
 
 # ------------------------------------------------------------ slice 3
@@ -3496,6 +3520,306 @@ def kernel_inputs(torch, world, scan_world, n, m, rng, device="cuda"):
     return t(q - c), b(qm), t(r - c), b(rm)
 
 
+# ------------------------------------------------------------ slice 17
+class switch:
+    """``os.environ[name] = value`` while the context is open, the earlier
+    state restored after it whatever happens inside (a failure still
+    propagates)."""
+
+    def __init__(self, name, value):
+        self.name, self.value = name, value
+
+    def __enter__(self):
+        self.old = os.environ.get(self.name)
+        os.environ[self.name] = self.value
+        return self
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            del os.environ[self.name]
+        else:
+            os.environ[self.name] = self.old
+
+
+#: phase 27's probe of PMTPU_CACHE_DIR, run as ``python -c PROBE build|load``
+#: with the variable set: it loads the five kernel libraries (one nvcc
+#: each, together, where one is missing) and the native IO library and
+#: prints where they lie and which this process built; ``load`` refuses
+#: any compiler run
+CACHE_PROBE = """
+import json, subprocess, sys, time
+from concurrent.futures import ThreadPoolExecutor
+from libpointmatcher_tpu_torch.io import native
+from libpointmatcher_tpu_torch.ops import (knn_cuda, knn_variants_cuda,
+                                           skip_cuda, sweep_cuda, tile_cuda)
+if sys.argv[1] == "load":
+    def refuse(*a, **k):
+        raise AssertionError("a compiler ran: " + str(a[0][0]))
+    subprocess.run = refuse
+libs = [m.LIBRARY for m in (knn_cuda, sweep_cuda, tile_cuda, skip_cuda,
+                            knn_variants_cuda)]
+t = time.perf_counter()
+with ThreadPoolExecutor(len(libs)) as pool:
+    list(pool.map(lambda lib: lib.load(), libs))
+assert native.available(), "the native library did not load"
+print(json.dumps({"s": time.perf_counter() - t,
+                  "paths": [str(lib.path()) for lib in libs]
+                  + [str(native._so_path())],
+                  "built": [bool(lib.build_log) for lib in libs]}))
+"""
+
+
+def cache_dir_probe():
+    """Phase 27's ``PMTPU_CACHE_DIR`` case → the two runs' seconds."""
+    import shutil
+    import tempfile
+
+    root = Path(__file__).resolve().parent
+    cache = Path(tempfile.mkdtemp(prefix="pmtpu_cache_")) / "libs"
+    env = dict(os.environ, PMTPU_CACHE_DIR=str(cache),
+               PYTHONPATH=os.pathsep.join(
+                   [str(root)] + ([os.environ["PYTHONPATH"]]
+                                  if os.environ.get("PYTHONPATH") else [])))
+    env.pop("PMTPU_NO_NATIVE", None)
+    runs = {}
+    try:
+        for mode in ("build", "load"):
+            proc = subprocess.run([sys.executable, "-c", CACHE_PROBE, mode],
+                                  cwd=root, env=env, capture_output=True,
+                                  text=True, timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"PMTPU_CACHE_DIR {mode} run failed:\n"
+                                     f"{proc.stderr[-3000:]}")
+            runs[mode] = json.loads(proc.stdout.strip().splitlines()[-1])
+            runs[mode]["mtimes"] = [Path(p).stat().st_mtime_ns
+                                    for p in runs[mode]["paths"]]
+        build, load = runs["build"], runs["load"]
+        if not all(Path(p).parent == cache for p in build["paths"]):
+            raise AssertionError(f"libraries outside {cache}: {build['paths']}")
+        if not all(build["built"]) or any(load["built"]):
+            raise AssertionError(f"nvcc ran {build['built']} (build) and "
+                                 f"{load['built']} (load)")
+        if load["paths"] != build["paths"] or load["mtimes"] != build["mtimes"]:
+            raise AssertionError("the load run did not reuse the built libraries")
+        if sorted(p.name for p in cache.iterdir()) != sorted(
+                Path(p).name for p in build["paths"]):
+            raise AssertionError(f"stray files in {cache}: "
+                                 f"{sorted(p.name for p in cache.iterdir())}")
+    finally:
+        shutil.rmtree(cache.parent, ignore_errors=True)
+    log(f"[switches] PMTPU_CACHE_DIR: 5 CUDA libraries and the native one "
+        f"built into a fresh directory in {build['s']:.2f} s, loaded by a "
+        f"second process with no compiler run in {load['s']:.2f} s")
+    return build["s"], load["s"]
+
+
+def k9_excess(torch, kc, calls):
+    """The relative excess of K9's pick over K1's d² (the exact distance of
+    K9's row over the exact optimum, minus 1) at every valid query of the
+    recorded searches → (maximum, 99th percentile, largest absolute d²
+    excess)."""
+    rel, absolute = [], 0.0
+    for q, qm, r, rm in (c[:4] for c in calls):
+        d1, _ = kc.knn1(q, qm, r, rm)
+        _, i9 = kc.knn1_mxu(q, qm, r, rm)
+        diff = q - r[i9.clamp(min=0).long()]
+        dj = ((diff[:, 0] * diff[:, 0] + diff[:, 1] * diff[:, 1])
+              + diff[:, 2] * diff[:, 2])
+        ok = qm & torch.isfinite(d1)
+        absolute = max(absolute, float((dj[ok] - d1[ok]).max()))
+        pos = ok & (d1 > 0)
+        rel.append(torch.sqrt(dj[pos] / d1[pos]) - 1.0)
+    rel = torch.cat(rel)
+    return (float(rel.max()), float(torch.quantile(rel.double(), 0.99)),
+            absolute)
+
+
+def switches(torch, pt, kc, world, poses, scans, cells, launches, smi, rng):
+    """Phase 27 (see the module docstring)."""
+    from libpointmatcher_tpu_torch.ops import dispatch
+    from libpointmatcher_tpu_torch.ops import tile_cuda as tc
+    from libpointmatcher_tpu_torch.parallel import batch as batch_mod
+    from libpointmatcher_tpu_torch.parallel import (register_batch_to_map,
+                                                    register_queue_to_map)
+
+    t_phase = time.perf_counter()
+    log(f"[switches] card: {smi}")
+
+    def counts():
+        return dict(launches(), K9=kc.knn1_mxu.launches,
+                    K7=tc.tile_sweep.launches, K8=tc.tile_sweep_k.launches)
+
+    def only(got, name, n, label):
+        want = {k: n if k == name else 0 for k in got}
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}, expected {want}")
+
+    def serve(cell, clouds=None):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        T, info = register_batch_to_map(
+            cell["seq"], clouds or [pt.PointCloud.from_numpy(x) for x in cell["scans"]],
+            T_inits=cell["T_inits"], seed=1)
+        return T, info, 1e3 * (time.perf_counter() - t), counts()
+
+    def same(a, b, label):
+        (Ta, ia), (Tb, ib) = a, b
+        if Ta.tobytes() != Tb.tobytes() or any(
+                not np.array_equal(ia[k], ib[k]) for k in ia):
+            raise AssertionError(f"{label}: results differ, largest |dT| "
+                                 f"{float(np.abs(Ta - Tb).max()):.3g}")
+
+    # ---- 27a. PMTPU_KNN_IMPL=mxu
+    seq = pt.ICPSequence()
+    seq.set_default()
+    seq.set_map(pt.PointCloud.from_numpy(world), seed=0)
+    inits = [perturb(rng) @ poses[i] for i in range(1, SEQ_SCANS + 1)]
+
+    def sequence(label):
+        reset_launch_counts()
+        iters, out = 0, []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i, T_init in zip(range(1, SEQ_SCANS + 1), inits):
+            out.append(seq.compute(pt.PointCloud.from_numpy(scans[i]),
+                                   T_init=T_init, seed=i).cpu().numpy())
+            iters += seq.last_iteration_count
+        ms = 1e3 * (time.perf_counter() - t)
+        worst = gates(out, poses[1:SEQ_SCANS + 1], label)
+        log(f"[switches] {label}: {SEQ_SCANS} scans, {iters} iterations, "
+            f"{ms / SEQ_SCANS:.2f} ms a scan, worst errors {worst[0]:.5f} rad "
+            f"{worst[1]:.5f} m, launches {counts()}")
+        return iters
+
+    # off, on, on, off: each side's time in both turns
+    rec = InputRecorder(dispatch, "knn1_mxu")
+    for turn, on in enumerate((False, True, True, False)):
+        label = ("sequence under PMTPU_KNN_IMPL=mxu" if on else
+                 "sequence, switch off") + f", turn {turn + 1}"
+        if not on:
+            it = sequence(label)
+            only(counts(), "K1", it, label)
+            continue
+        with switch("PMTPU_KNN_IMPL", "mxu"):
+            if turn == 1:
+                with rec:
+                    it = sequence(label)
+                if rec.count != it:
+                    raise AssertionError(f"{rec.count} K9 searches for {it} "
+                                         f"iterations")
+            else:
+                it = sequence(label)
+            only(counts(), "K9", it, label)
+    excess = k9_excess(torch, kc, rec.calls)
+    q, qm, r, rm = rec.calls[0][:4]
+    k9_ms = cuda_ms(torch, lambda: kc.knn1_mxu(q, qm, r, rm), 20)
+    k1_ms = cuda_ms(torch, lambda: kc.knn1(q, qm, r, rm), 20)
+    log(f"[switches] K9's pick over K1's d² on the sequence's {len(rec.calls)} "
+        f"searches: relative excess max {excess[0]:.4g}, 99th percentile "
+        f"{excess[1]:.4g}, largest absolute d² excess {excess[2]:.3g}; at the "
+        f"first ({q.shape[0]} x {r.shape[0]}) K9 {k9_ms:.4f} ms, K1 {k1_ms:.4f} ms")
+    del rec, q, qm, r, rm
+    seq = None
+    torch.cuda.empty_cache()
+
+    dense, big = cells["K1"], cells["K4"]
+    serve(dense)                                 # warm-up
+    times = {False: [], True: []}
+    for on in (False, True, True, False):
+        if not on:
+            base = serve(dense)
+            only(base[3], "K1", int(base[1]["iterations"].max()),
+                 "dense batch, switch off")
+            times[on].append(round(base[2], 2))
+            continue
+        with switch("PMTPU_KNN_IMPL", "mxu"):
+            T, info, ms, got = serve(dense)
+        times[on].append(round(ms, 2))
+        n = int(info["iterations"].max())
+        only(got, "K9", n, "dense batch under the switch")
+        worst = gates(T, dense["poses"], "dense batch under the switch")
+    log(f"[switches] dense batch under PMTPU_KNN_IMPL=mxu: {times[True]} ms "
+        f"(switch off {times[False]} ms; turns off, on, on, off), iterations "
+        f"{info['iterations'].tolist()}, worst errors {worst[0]:.5f} rad "
+        f"{worst[1]:.5f} m, launches {got}")
+    with switch("PMTPU_KNN_IMPL", "mxu"):
+        T, info, got, steps, _ = run_queue(
+            torch, register_queue_to_map, dense["seq"], dense, None,
+            counts, "dense route under PMTPU_KNN_IMPL=mxu")
+        only(got, "K9", steps, "dense queue under the switch")
+    off = serve(big)
+    with switch("PMTPU_KNN_IMPL", "mxu"):
+        on = serve(big)
+    if on[3]["K9"] or on[3]["K1"] or on[3]["K2"] != on[3]["K4"] or not on[3]["K4"]:
+        raise AssertionError(f"50 147-row batch under the switch: launches "
+                             f"{on[3]}, expected K2 = K4 > 0 and no K1, K9")
+    same(off[:2], on[:2], "50 147-row batch under the switch")
+    log(f"[switches] 50 147-row batch under PMTPU_KNN_IMPL=mxu: the survivor "
+        f"route, launches {on[3]}, equal to the batch without it bit for bit")
+
+    # ---- 27b. the switches the port does not read (Queue 3 #49, #52, #53)
+    host = [pt.PointCloud.from_numpy(x, device="cpu") for x in dense["scans"]]
+    base = serve(dense, host)
+    unread = (("PMTPU_SOLVE", "chol"), ("PMTPU_SELECT", "bisect"),
+              ("PMTPU_STACK_NUMPY", "0"))
+    with switch(*unread[0]), switch(*unread[1]), switch(*unread[2]):
+        got = serve(dense, host)
+    same(base[:2], got[:2], "dense batch under the unread switches")
+    if got[3] != base[3]:
+        raise AssertionError(f"the unread switches changed the launches: "
+                             f"{got[3]} vs {base[3]}")
+    log(f"[switches] dense batch of host clouds under "
+        f"{' '.join(f'{k}={v}' for k, v in unread)}: equal bit for bit to the "
+        f"batch without them, launches {got[3]}")
+
+    # ---- 27c. the upload of host clouds: one host stack against a copy a scan
+    rng_t = np.random.default_rng(7)
+    map_pts, side = make_terrain(TERRAIN_MAPS[0], rng_t)
+    t_scans, t_poses = make_terrain_scans(map_pts, side, rng_t)
+    tile = {"seq": terrain_sequence(pt), "scans": t_scans, "poses": t_poses,
+            "T_inits": None}
+    tile["seq"].set_map(pt.PointCloud.from_numpy(map_pts), seed=0)
+    t_host = [pt.PointCloud.from_numpy(x, device="cpu") for x in t_scans]
+    stacked = batch_mod._upload
+
+    def one_by_one(readings, dev):
+        return [rd.to(dev) for rd in readings]
+
+    for label, cell, clouds, prep in (("dense batch", dense, host, "_prep_scans"),
+                                      ("terrain tile batch", tile, t_host,
+                                       "_prep_tile_scans")):
+        serve(cell, clouds)                      # warm-up
+        out = {}
+        for path in ("stack", "per scan", "per scan", "stack"):
+            batch_mod._upload = one_by_one if path == "per scan" else stacked
+            try:
+                with PrepTimer(batch_mod, prep) as timer:
+                    T, info, ms, got = serve(cell, clouds)
+            finally:
+                batch_mod._upload = stacked
+            out.setdefault(path, []).append((T, info, ms, timer.ms, got))
+        for r in out["stack"][1:] + out["per scan"]:
+            same(out["stack"][0][:2], r[:2], f"{label}, host stack against per scan")
+            if r[4] != out["stack"][0][4]:
+                raise AssertionError(f"{label}: launches {r[4]} against "
+                                     f"{out['stack'][0][4]}")
+        worst = gates(out["stack"][0][0], cell["poses"], label)
+        log(f"[switches] {label} of host clouds, host stack against a copy a "
+            f"scan (turns stack, per scan, per scan, stack): equal bit for bit; "
+            f"prep ms stack {[round(r[3], 3) for r in out['stack']]}, per scan "
+            f"{[round(r[3], 3) for r in out['per scan']]}; batch ms stack "
+            f"{[round(r[2], 2) for r in out['stack']]}, per scan "
+            f"{[round(r[2], 2) for r in out['per scan']]}; worst errors "
+            f"{worst[0]:.5f} rad {worst[1]:.5f} m, launches {out['stack'][0][4]}")
+    del tile, t_host, host
+    torch.cuda.empty_cache()
+
+    # ---- 27d. PMTPU_CACHE_DIR
+    cache_dir_probe()
+    log(f"[switches] phase 27 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3906,6 +4230,8 @@ def main() -> int:
     k3 = serve["K3"]
     k3 = {k: k3[k] for k in ("world", "scans", "poses", "T_inits", "qclouds",
                              "qinits", "qposes")}
+    # phase 27's cells: the dense map and the 50 147-row one
+    switch_cells = {route: serve[route] for route in ("K1", "K4")}
     del serve
     torch.cuda.empty_cache()
 
@@ -3945,6 +4271,10 @@ def main() -> int:
     # ---- 26. multi-device on torch.distributed
     torch.cuda.empty_cache()
     multi_device(torch, multi_in, smi)
+
+    # ---- 27. the JAX package's switches
+    torch.cuda.empty_cache()
+    switches(torch, pt, kc, world, poses, scans, switch_cells, launches, smi, rng)
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -25,7 +25,8 @@ port compacts to the exact valid count.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+import math
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,7 +34,43 @@ import torch
 from .device import resolve_device
 from .errors import InvalidField
 
-__all__ = ["PointCloud"]
+__all__ = ["PointCloud", "bucket_size", "split_int64", "merge_int64"]
+
+
+def split_int64(arr) -> np.ndarray:
+    """int64 [N, k] → int32 [N, 2k], (high, low) interleaved: the JAX
+    package's device layout of a time channel (its ``cloud.split_int64``),
+    for converting to and from it; the port keeps int64."""
+    arr = np.asarray(arr, dtype=np.int64)
+    out = np.empty((arr.shape[0], arr.shape[1] * 2), np.int32)
+    out[:, 0::2] = (arr >> 32).astype(np.int32)
+    out[:, 1::2] = (arr & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    return out
+
+
+def merge_int64(arr) -> np.ndarray:
+    """int32 [N, 2k], (high, low) interleaved → int64 [N, k]: the inverse
+    of :func:`split_int64`."""
+    arr = np.asarray(arr, dtype=np.int32)
+    hi = arr[:, 0::2].astype(np.int64)
+    lo = arr[:, 1::2].view(np.uint32).astype(np.int64)
+    return (hi << 32) | lo
+
+
+def bucket_size(n: int, granule: int = 256) -> int:
+    """``n`` rounded up on the 1-1.5-2 ladder (granule, 1.5·granule,
+    2·granule, 3·granule, …): the JAX package's ``cloud.bucket_size``. The
+    port compacts to exact counts; the ladder sizes the tile and block axes
+    of an assignment and gives the row counts at which the JAX package
+    holds a cloud, for thresholds on a cloud's size."""
+    if n <= granule:
+        return granule
+    p = granule * (2 ** math.floor(math.log2(n / granule)))
+    if n <= p:
+        return p
+    if n <= (p * 3) // 2:
+        return (p * 3) // 2
+    return 2 * p
 
 
 class PointCloud:
@@ -103,7 +140,22 @@ class PointCloud:
                                f"for {self.num_points} rows")
         return self.replace(descriptors={**self.descriptors, name: value})
 
+    def without_descriptor(self, name: str) -> "PointCloud":
+        """New cloud without descriptor ``name`` (no error if absent)."""
+        return self.replace(descriptors={k: v for k, v in self.descriptors.items()
+                                         if k != name})
+
+    def descriptor_labels(self) -> Tuple[Tuple[str, int], ...]:
+        """``((name, span), ...)`` of the descriptors, in order."""
+        return tuple((k, int(v.shape[-1])) for k, v in self.descriptors.items())
+
     # ----------------------------------------------------------------- times
+    def time_labels(self) -> Tuple[Tuple[str, int], ...]:
+        """``((name, span), ...)`` of the time channels, each span the
+        logical one (the port holds int64, so it is not halved as the JAX
+        package's split layout is)."""
+        return tuple((k, int(v.shape[-1])) for k, v in self.times.items())
+
     def has_time(self, name: str) -> bool:
         return name in self.times
 
@@ -139,6 +191,22 @@ class PointCloud:
     def with_mask(self, mask: torch.Tensor) -> "PointCloud":
         """New cloud whose validity mask is ``self.mask & mask``."""
         return self.replace(mask=self.mask & mask)
+
+    def create_similar_empty(self, n: Optional[int] = None) -> "PointCloud":
+        """Cloud of ``n`` rows (default: this capacity) with the same
+        channels, spans, types and device, every row invalid (reference:
+        DataPoints.cpp:339)."""
+        n = self.num_points if n is None else n
+
+        def zeros(v):
+            return torch.zeros((n, v.shape[-1]), dtype=v.dtype, device=v.device)
+
+        out = PointCloud(zeros(self.points),
+                         torch.zeros(n, dtype=torch.bool, device=self.device),
+                         {k: zeros(v) for k, v in self.descriptors.items()},
+                         {k: zeros(v) for k, v in self.times.items()})
+        out._count_cache = 0
+        return out
 
     def to(self, device) -> "PointCloud":
         """The same cloud on ``device``."""
@@ -232,7 +300,6 @@ class PointCloud:
         return out
 
     def __repr__(self):
-        labels = tuple((k, v.shape[-1]) for k, v in self.descriptors.items())
-        times = tuple((k, v.shape[-1]) for k, v in self.times.items())
         return (f"PointCloud(N={self.num_points}, dim={self.dim}, "
-                f"device={self.device}, descriptors={labels}, times={times})")
+                f"device={self.device}, descriptors={self.descriptor_labels()}, "
+                f"times={self.time_labels()})")

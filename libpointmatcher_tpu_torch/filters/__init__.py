@@ -3,6 +3,7 @@
 Importing this package registers every one with
 ``DataPointsFilterRegistrar``."""
 
+from . import basic, descriptor, normals, sampling  # noqa: F401
 from .base import DataPointsFilter, DataPointsFilterRegistrar, apply_filter_chain
 from .basic import (BoundingBoxDataPointsFilter,
                     CutAtDescriptorThresholdDataPointsFilter,

@@ -11,10 +11,16 @@ device as segment sums (``index_add_``), segment extrema and batched
 ``eigh``. Time channels follow the JAX rules (the minimum per voxel or
 leaf, the kept rows', Elipsoids' [min, max, mean] per box) on the host.
 
-On the card ``index_add_`` adds in atomic order, so a segment's sum there
-differs from the CPU's in the last bits: means within 1e-6 of their
-magnitude on the test clouds (``chip_smoke.py`` phase 23 logs it). On the
-CPU the sums run in row order, as JAX's ``segment_sum`` does.
+On the CPU ``index_add_`` adds each segment's rows in row order, as JAX's
+``segment_sum`` does. On the card it adds in atomic order, whose rounding
+differs from run to run; :func:`segment_sum` therefore adds in row order
+there too where no segment is longer than ``ORDERED_MAX_ROWS`` (Elipsoids'
+boxes, OctreeGrid's leaves; one :func:`segment_plan` a filter call, shared
+by its sums), so both devices round alike: a box's density
+divides by the cube of its radius about its mean and magnifies a mean's
+last bits past 1e-4 of itself. Longer segments (a coarse VoxelGrid's
+voxels) keep the atomic order: within 1e-6 of their magnitude on the test
+clouds.
 """
 
 from __future__ import annotations
@@ -32,32 +38,91 @@ from .normals import _segment_extreme, batched_eigh, median_split_boxes
 
 __all__ = ["VoxelGridDataPointsFilter", "OctreeGridDataPointsFilter",
            "NormalSpaceDataPointsFilter", "CovarianceSamplingDataPointsFilter",
-           "ElipsoidsDataPointsFilter", "segment_sum", "segment_stats",
+           "ElipsoidsDataPointsFilter", "segment_plan", "segment_sum",
+           "ordered_segment_sum", "segment_stats",
            "octree_split", "covariance_greedy"]
 
 _I64_MAX = np.iinfo(np.int64).max
 
+#: the longest segment that :func:`segment_sum` adds in row order on the
+#: card, one launch a row of it
+ORDERED_MAX_ROWS = 64
 
-def segment_sum(values: torch.Tensor, seg: torch.Tensor, num: int) -> torch.Tensor:
-    """Sum of ``values`` [n, ...] per segment id ``seg`` [n] → [num, ...]."""
+
+def segment_plan(seg: torch.Tensor, num: int):
+    """How :func:`segment_sum` adds over the segment ids ``seg`` [n] →
+    (counts [num] int64, layout). ``layout`` is the row-order sum's
+    (order, rows, pos, width) on the card where no segment has more than
+    ``ORDERED_MAX_ROWS`` rows (one host read of the longest), else None:
+    ``index_add_``, whose order on the CPU is the rows'. A caller that sums
+    several fields over one ``seg`` makes one plan and hands it to each."""
+    counts = torch.bincount(seg, minlength=num)
+    if seg.device.type == "cpu" or not len(seg):
+        return counts, None
+    width = int(counts.max())
+    return counts, (_layout(seg, counts, width) if width <= ORDERED_MAX_ROWS
+                    else None)
+
+
+def _layout(seg, counts, width):
+    order = torch.argsort(seg, stable=True)
+    rows = seg[order]
+    pos = torch.arange(len(seg), device=seg.device) - (torch.cumsum(counts, 0)
+                                                       - counts)[rows]
+    return order, rows, pos, width
+
+
+def _row_order_sum(values, layout, num):
+    order, rows, pos, width = layout
+    table = values.new_zeros((num, width) + values.shape[1:])
+    table[rows, pos] = values[order]
+    out = values.new_zeros((num,) + values.shape[1:])
+    for j in range(width):
+        out = out + table[:, j]
+    return out
+
+
+def segment_sum(values: torch.Tensor, seg: torch.Tensor, num: int,
+                plan=None) -> torch.Tensor:
+    """Sum of ``values`` [n, ...] per segment id ``seg`` [n] → [num, ...],
+    each segment's rows added from 0 in row order, as ``index_add_`` adds
+    them on the CPU. On the card, where ``index_add_`` adds in atomic order,
+    the row-order sum runs where :func:`segment_plan` (``plan``, made here
+    when not given) lays one out."""
+    if plan is None and values.device.type != "cpu":
+        plan = segment_plan(seg, num)
+    if plan is not None and plan[1] is not None:
+        return _row_order_sum(values, plan[1], num)
     out = torch.zeros((num,) + values.shape[1:], dtype=values.dtype,
                       device=values.device)
     return out.index_add_(0, seg, values)
 
 
+def ordered_segment_sum(values: torch.Tensor, seg: torch.Tensor, num: int,
+                        counts: torch.Tensor) -> torch.Tensor:
+    """:func:`segment_sum` in row order on any device: the rows laid out
+    per segment (``counts`` [num] rows each, in row order) and added a
+    column at a time, one launch a row of the longest segment."""
+    width = int(counts.max()) if len(seg) else 0
+    return _row_order_sum(values, _layout(seg, counts, width), num)
+
+
 def segment_stats(pts: torch.Tensor, seg: torch.Tensor, num: int,
-                  covariance: bool = True):
+                  covariance: bool = True, plan=None):
     """Counts [num], means [num, d] and, with ``covariance``, the
     covariances [num, d, d] (sums of the centred outer products) per
-    segment; otherwise None in their place."""
+    segment; otherwise None in their place. ``plan``: :func:`segment_plan`
+    of ``seg``, made here when not given."""
     n, d = pts.shape
-    counts = segment_sum(torch.ones(n, device=pts.device), seg, num)
-    means = segment_sum(pts, seg, num) / torch.clamp(counts, min=1.0)[:, None]
+    if plan is None:
+        plan = segment_plan(seg, num)
+    counts = plan[0].to(pts.dtype)
+    means = segment_sum(pts, seg, num, plan) / torch.clamp(counts, min=1.0)[:, None]
     if not covariance:
         return counts, means, None
     centered = pts - means[seg]
     outer = (centered[:, :, None] * centered[:, None, :]).reshape(n, d * d)
-    return counts, means, segment_sum(outer, seg, num).reshape(num, d, d)
+    return counts, means, segment_sum(outer, seg, num, plan).reshape(num, d, d)
 
 
 def _valid(cloud: PointCloud) -> PointCloud:
@@ -90,8 +155,8 @@ def _min_times(c: PointCloud, seg: np.ndarray, num: int):
 
 
 def _average_descriptors(c: PointCloud, seg: torch.Tensor, num: int,
-                         counts: torch.Tensor):
-    return {k: segment_sum(v, seg, num) / torch.clamp(counts, min=1.0)[:, None]
+                         counts: torch.Tensor, plan):
+    return {k: segment_sum(v, seg, num, plan) / torch.clamp(counts, min=1.0)[:, None]
             for k, v in c.descriptors.items()}
 
 
@@ -136,13 +201,15 @@ class VoxelGridDataPointsFilter(DataPointsFilter):
                                        return_inverse=True)
         num = len(uniq)
         seg = torch.as_tensor(seg_h, device=c.device)
-        counts, means, _ = segment_stats(c.points, seg, num, covariance=False)
+        plan = segment_plan(seg, num)
+        counts, means, _ = segment_stats(c.points, seg, num, covariance=False,
+                                         plan=plan)
         if self.useCentroid:
             out_pts = means
         else:
             centers = (np.floor(host_pts[first] / vsize) + 0.5) * vsize
             out_pts = torch.as_tensor(centers.astype(np.float32), device=c.device)
-        descs = (_average_descriptors(c, seg, num, counts)
+        descs = (_average_descriptors(c, seg, num, counts, plan)
                  if self.averageExistingDescriptors else {})
         return _new_cloud(out_pts, descs, _min_times(c, seg_h, num))
 
@@ -229,9 +296,11 @@ class OctreeGridDataPointsFilter(DataPointsFilter):
             order = perm[np.argsort(leaf[perm], kind="stable")]
             return _rows(c, _segment_firsts(leaf, order, num))
         seg = torch.as_tensor(leaf, device=c.device)
-        counts, means, _ = segment_stats(c.points, seg, num, covariance=False)
+        plan = segment_plan(seg, num)
+        counts, means, _ = segment_stats(c.points, seg, num, covariance=False,
+                                         plan=plan)
         if self.samplingMethod == 2:                       # centroid
-            return _new_cloud(means, _average_descriptors(c, seg, num, counts),
+            return _new_cloud(means, _average_descriptors(c, seg, num, counts, plan),
                               _min_times(c, leaf, num))
         # medoid: the leaf's point nearest its centroid, d² on the device
         d2 = ((c.points - means[seg]) ** 2).sum(dim=1).cpu().numpy()
@@ -443,7 +512,8 @@ class ElipsoidsDataPointsFilter(DataPointsFilter):
         num = int(box.max()) + 1
         seg = torch.as_tensor(box, device=dev)
         pts = c.points
-        counts, means, C = segment_stats(pts, seg, num)
+        plan = segment_plan(seg, num)
+        counts, means, C = segment_stats(pts, seg, num, plan=plan)
         eigva, eigve = batched_eigh(C)
 
         box_dim = (_segment_extreme(pts, seg, num, "amax")
@@ -493,7 +563,7 @@ class ElipsoidsDataPointsFilter(DataPointsFilter):
         descs = dict(c.descriptors)
         if self.samplingMethod == 1 and self.averageExistingDescriptors:
             descs = {k: v[seg] for k, v in
-                     _average_descriptors(c, seg, num, counts).items()}
+                     _average_descriptors(c, seg, num, counts, plan).items()}
         if self.keepNormals:
             descs["normals"] = torch.clamp(eigve[:, :, 0], -1.0, 1.0)[seg]
         if self.keepDensities:

@@ -45,7 +45,7 @@ from .errors import ConvergenceError
 from .filters.base import apply_filter_chain, chain_is_traceable
 from .inspectors import NullInspector
 from .loggers import log_info, log_warning
-from .matchers import Matcher, Matches
+from .matchers import Matcher, Matches, has_host_tables
 from .minimizers import MinimizerStats, estimate_overlap
 from .outlierfilters import compute_outlier_weights, init_outlier_states
 from .transformations import RigidTransformation
@@ -911,7 +911,7 @@ class ICPSequence(ICP):
         if not self.has_map():
             raise RuntimeError("set_map first")
         t0 = time.perf_counter()
-        if self.device.type == "cuda" and hasattr(self.matcher, "prepare_loop_host"):
+        if self.device.type == "cuda" and has_host_tables(self.matcher):
             tile_cuda.build()
         scan = example
         if scan is None:

@@ -3,8 +3,9 @@ counterpart of ``libpointmatcher_tpu.io.native``, with the same symbols and
 signatures).
 
 The library is built from the checkout's ``native/pm_native.cpp`` at first
-use, one ``g++`` call, into ``.torch_ext_build/`` beside the package (the
-directory the CUDA kernels are built into); its name carries a hash of the
+use, one ``g++`` call, into ``ops.cuda_build.build_dir()`` (the directory
+the CUDA kernels are built into: ``PMTPU_CACHE_DIR`` when set, else
+``.torch_ext_build/`` beside the package); its name carries a hash of the
 source and the flags, so an edited source is never served a stale build, and
 ``native/`` is only read. Every entry point returns None when the library is
 unavailable (no compiler, no source, or ``PMTPU_NO_NATIVE`` set before the
@@ -25,12 +26,13 @@ from typing import Optional
 
 import numpy as np
 
+from ..ops.cuda_build import build_dir
+
 __all__ = ["available", "parse_floats", "parse_floats_n", "format_floats",
            "covariance_greedy", "CpuBaseline", "cpu_baseline"]
 
 _ROOT = Path(__file__).resolve().parent.parent.parent
 _SRC = _ROOT / "native" / "pm_native.cpp"
-_BUILD_DIR = _ROOT / ".torch_ext_build"
 _FLAGS = ["-O3", "-fPIC", "-shared"]
 
 _lock = threading.Lock()
@@ -41,14 +43,14 @@ _tried = False
 def _so_path() -> Path:
     tag = hashlib.sha256(_SRC.read_bytes()
                          + " ".join(_FLAGS).encode()).hexdigest()[:12]
-    return _BUILD_DIR / f"libpm_io_{tag}.so"
+    return build_dir() / f"libpm_io_{tag}.so"
 
 
 def _build(so: Path) -> None:
     """Compile into a temporary file and rename it into place, so that
     processes building at once never load a half-written library."""
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    so.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
     os.close(fd)
     try:
         subprocess.run(["g++", *_FLAGS, "-o", tmp, str(_SRC)], check=True,

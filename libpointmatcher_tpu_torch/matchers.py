@@ -83,6 +83,13 @@ class Matcher(Parametrizable):
         engine's, the valid count's bucket (:func:`jax_rows`)."""
         self._reference = reference
 
+    def find_closests(self, reading: PointCloud) -> Matches:
+        """Match ``reading`` against the reference stored by :meth:`init`
+        (reference: Matcher::findClosests)."""
+        if self._reference is None:
+            raise RuntimeError("matcher not initialized: call init first")
+        return self.find_closests_in(reading, self._reference)
+
     def touched_per_iteration(self, reading: PointCloud,
                               reference: PointCloud) -> int:
         """The (query, candidate) pairs one search inspects (reference:
@@ -121,8 +128,26 @@ class Matcher(Parametrizable):
         tables :meth:`serving_aux` returns. Default: no such route."""
         return False
 
+    def serving_reference(self, reference: PointCloud) -> PointCloud:
+        """The reference the serving loop runs against. Default:
+        ``reference`` itself."""
+        return reference
+
+    def prepare_loop_host(self, pts, mask):
+        """Host (numpy) tables of one scan's rows ``pts [n, d]`` at its
+        initial pose, which the serving drivers stack, or None. Default:
+        none; a matcher that overrides it serves from host tables
+        (:func:`has_host_tables`)."""
+        return None
+
 
 MatcherRegistrar = Registrar("Matcher")
+
+
+def has_host_tables(matcher: Matcher) -> bool:
+    """True when ``matcher`` builds per-scan host tables for serving (it
+    overrides :meth:`Matcher.prepare_loop_host`)."""
+    return type(matcher).prepare_loop_host is not Matcher.prepare_loop_host
 
 
 def jax_rows(reference: PointCloud, rows: Optional[int] = None) -> int:

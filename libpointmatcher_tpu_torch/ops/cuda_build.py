@@ -1,11 +1,13 @@
 """Build the port's CUDA sources into shared libraries at first use.
 
 Each source in ``csrc/`` has a plain C interface. ``nvcc`` compiles it for
-``sm_90a`` into ``.torch_ext_build/`` beside the package, and ``ctypes``
-loads it: no PyTorch header is compiled, so a build takes seconds. The
-library's name carries a hash of the source and the flags, so an edited
-source is never served a stale build. ``nvcc`` runs outside the GIL, so
-libraries loaded from several threads build in parallel.
+``sm_90a`` into :func:`build_dir` and ``ctypes`` loads it: no PyTorch header
+is compiled, so a build takes seconds. The library's name carries a hash of
+the source and the flags, so an edited source is never served a stale
+build, and it is compiled into a temporary file renamed into place, so
+that processes building at once never load a half-written one. ``nvcc``
+runs outside the GIL, so libraries loaded from several threads build in
+parallel.
 """
 
 from __future__ import annotations
@@ -19,12 +21,23 @@ import threading
 from pathlib import Path
 from typing import Callable, Optional
 
-__all__ = ["KernelLibrary"]
+__all__ = ["KernelLibrary", "build_dir"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent.parent.parent / ".torch_ext_build"
 _NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
+
+
+def build_dir() -> Path:
+    """The directory of the port's compiled libraries (the CUDA kernels and
+    the native IO parser): ``PMTPU_CACHE_DIR`` when set, read when a
+    library is first built or loaded, so that a restarted server loads what
+    an earlier process built; else ``.torch_ext_build/`` beside the
+    package. The JAX package points its compilation cache at the same
+    variable."""
+    cache = os.environ.get("PMTPU_CACHE_DIR")
+    return Path(cache) if cache else _BUILD_DIR
 
 
 def _nvcc() -> str:
@@ -56,7 +69,7 @@ class KernelLibrary:
     def path(self) -> Path:
         tag = hashlib.sha256(self.source.read_bytes()
                              + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:12]
-        return _BUILD_DIR / f"libpm_{self.source.stem}_{tag}.so"
+        return build_dir() / f"libpm_{self.source.stem}_{tag}.so"
 
     def load(self) -> ctypes.CDLL:
         """Compile (once per source hash) and load the library."""
@@ -64,7 +77,7 @@ class KernelLibrary:
             if self._lib is None:
                 out = self.path()
                 if not out.exists():
-                    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                    out.parent.mkdir(parents=True, exist_ok=True)
                     tmp = out.with_suffix(f".{os.getpid()}.tmp")
                     proc = subprocess.run(
                         [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(self.source)],

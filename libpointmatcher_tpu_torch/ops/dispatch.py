@@ -3,8 +3,20 @@
 
 - k = 1, ε < MXU_EPSILON_FLOOR → K1 (exact difference form);
 - k = 1, ε ≥ MXU_EPSILON_FLOOR → K9 (expansion form, (1+ε)-exact);
+- k = 1, ``PMTPU_KNN_IMPL=mxu`` → K9 at any ε;
 - 2 ≤ k ≤ KNNK_MAX             → K5;
 - k > KNNK_MAX                 → the plain tiled sweep.
+
+``PMTPU_KNN_IMPL`` is the JAX package's switch, read at each call: ``mxu``
+sends every k = 1 search to K9, any other value (the default ``vpu``)
+leaves the choice to ε. It is the user's explicit choice of K9's absolute
+error, about 2^-20·(q²+r²) in d²: the (1+ε) contract does not hold under
+it, since near-coincident points make K9's relative excess large. Every
+caller of :func:`knn_search` inherits it (the dense matcher route of every
+driver and the sharded search); the route choice of the serving drivers
+does not read it, so the survivor, skip and tile routes stay exact. The
+JAX package reads the switch only on a TPU; the port honours it on the CPU
+too, where K9's plain version runs.
 
 The device comes from the tensors: on CUDA tensors each route launches its
 hand-written kernel, on CPU tensors it runs that kernel's plain version.
@@ -13,6 +25,8 @@ Results follow the invalid conventions dist = +inf, id = −1
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -41,7 +55,8 @@ def knn_search(query, query_mask, ref, ref_mask, k: int = 1,
     pair axis (``query`` [B, N, d], ``ref`` [B, M, d]) each pair searches
     its own reference, in one launch → [B, N, k]."""
     if k == 1:
-        fn = knn1_mxu if epsilon >= MXU_EPSILON_FLOOR else knn1
+        fn = (knn1_mxu if epsilon >= MXU_EPSILON_FLOOR
+              or os.environ.get("PMTPU_KNN_IMPL", "vpu") == "mxu" else knn1)
         d, i = fn(query, query_mask, ref, ref_mask)
         return d[..., None], i[..., None]
     if k <= KNNK_MAX:

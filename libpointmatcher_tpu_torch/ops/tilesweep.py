@@ -30,12 +30,12 @@ it was assigned (the matcher's ``motionBound``).
 
 from __future__ import annotations
 
-import math
 from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
+from ..cloud import bucket_size
 from .tile_cuda import (CID_ROW, DPAD, PEN_ROW, TILE_KNN_MAX,  # noqa: F401
                         _by_parent, _combine_min, _merge_rows, _merge_sorted_k,
                         tile_sweep_k_parents, tile_sweep_parents)
@@ -51,20 +51,6 @@ SB = 8        # sub-block rows
 #: more padded candidates. A unit's extra rows lie in cells outside the
 #: tile's union, hence beyond maxDist, and the radius mask drops them.
 GATHER_G = 8
-
-
-def bucket_size(n: int, granule: int = 256) -> int:
-    """``n`` rounded up on the 1-1.5-2 ladder (granule, 1.5·granule,
-    2·granule, 3·granule, …): the JAX package's ``cloud.bucket_size``,
-    which sizes the tile and block axes of an assignment."""
-    if n <= granule:
-        return granule
-    p = granule * (2 ** math.floor(math.log2(n / granule)))
-    if n <= p:
-        return p
-    if n <= (p * 3) // 2:
-        return (p * 3) // 2
-    return 2 * p
 
 
 class SubBlocks(NamedTuple):

@@ -46,7 +46,7 @@ from ..filters.base import ScanKeys, apply_filter_chain, chain_is_traceable
 from ..icp import _apply_transform, _center_cloud
 from ..loggers import log_warning
 from ..matchers import (BlockGridMatcher, KDTreeMatcher, Matcher,
-                        tile_aux_to_device)
+                        has_host_tables, tile_aux_to_device)
 from ..ops.morton import morton_argsort_device
 from ..utils import prng, se3
 from .sharding import all_gather, all_reduce, shard_cloud
@@ -103,6 +103,52 @@ def _stack(clouds: Sequence[PointCloud], rows: int = 1) -> PointCloud:
         {k: torch.stack([pad(c.descriptors[k]) for c in clouds]) for k in names})
 
 
+def _channels(c: PointCloud) -> tuple:
+    return (tuple((k, v.shape[-1], v.dtype) for k, v in c.descriptors.items()),
+            tuple((k, v.shape[-1]) for k, v in c.times.items()))
+
+
+def _upload(readings: Sequence[PointCloud], dev) -> list:
+    """Each scan's raw cloud on ``dev``. Where every scan lies in host
+    memory with the same channels, their rows are padded and stacked in
+    numpy and copied to ``dev`` once (one copy per field for the whole
+    batch), each scan then a view of its rows of the stack; otherwise each
+    scan is moved on its own. The values are the same either way
+    (``chip_smoke.py`` phase 27 times both paths). The stack's rows are a
+    multiple of 64, so that every view starts on an aligned address."""
+    if not (all(rd.device.type == "cpu" for rd in readings)
+            and len({_channels(rd) for rd in readings}) == 1):
+        return [rd.to(dev) for rd in readings]
+    first = readings[0]
+    b, d = len(readings), first.dim
+    rows = 64 * -(-max(rd.num_points for rd in readings) // 64)
+
+    def zeros(t):
+        return np.zeros((b, rows, t.shape[-1]), t.numpy().dtype)
+
+    pts, mask = np.zeros((b, rows, d), np.float32), np.zeros((b, rows), bool)
+    descs = {k: zeros(v) for k, v in first.descriptors.items()}
+    times = {k: zeros(v) for k, v in first.times.items()}
+    for i, rd in enumerate(readings):
+        n = rd.num_points
+        pts[i, :n], mask[i, :n] = rd.host_rows()
+        for out, src in ((descs, rd.descriptors), (times, rd.times)):
+            for k, v in src.items():
+                out[k][i, :n] = v.numpy()
+    stack = PointCloud(torch.from_numpy(pts), torch.from_numpy(mask),
+                       {k: torch.from_numpy(v) for k, v in descs.items()},
+                       {k: torch.from_numpy(v) for k, v in times.items()}).to(dev)
+    out = []
+    for i, rd in enumerate(readings):
+        n = rd.num_points
+        c = PointCloud(stack.points[i, :n], stack.mask[i, :n],
+                       {k: v[i, :n] for k, v in stack.descriptors.items()},
+                       {k: v[i, :n] for k, v in stack.times.items()})
+        c._count_cache = rd._count_cache
+        out.append(c)
+    return out
+
+
 def _initial_poses(T_inits, b: int, dim: int, dev) -> torch.Tensor:
     if T_inits is None:
         T_inits = [np.eye(dim + 1, dtype=np.float32)] * b
@@ -156,11 +202,11 @@ def _prep_scans(seq, readings: Sequence[PointCloud], T_rmd: torch.Tensor,
     dev = seq.device
     rows = max(rd.num_points for rd in readings)
     keys = scan_keys(seed, len(readings), rows, dev)
-    filtered = [apply_filter_chain(seq.reading_filters, rd.to(dev), keys,
+    filtered = [apply_filter_chain(seq.reading_filters, rd, keys,
                                    scan=i, allow_empty=True,
                                    compact=host_orders is None,
                                    traced=_traceable(seq) and seq._fused())
-                for i, rd in enumerate(readings)]
+                for i, rd in enumerate(_upload(readings, dev))]
     keep_rate = filtered[0].count_host() / max(readings[0].count_host(), 1)
     cap = _serve_compact_cap(keep_rate, rows, compact_rows)
     prepped = []
@@ -199,7 +245,7 @@ def _host_path(seq) -> bool:
     per-scan serving form (``KDTreeVarDistMatcher``)."""
     m = seq.matcher
     return not seq._fused() or (type(m).prepare_loop is not Matcher.prepare_loop
-                                and not hasattr(m, "prepare_loop_host"))
+                                and not has_host_tables(m))
 
 
 def _tile_route(seq) -> bool:
@@ -210,7 +256,7 @@ def _tile_route(seq) -> bool:
     fallback, as the JAX package's host path does."""
     m = seq.matcher
     return (getattr(m, "units", None) is not None
-            and hasattr(m, "prepare_loop_host") and _traceable(seq))
+            and has_host_tables(m) and _traceable(seq))
 
 
 def _pad_tile_aux_np(pers, sentinel: int) -> dict:
@@ -285,8 +331,8 @@ def _prep_tile_scans(seq, readings: Sequence[PointCloud], T_inits,
     scans = []
     keys = scan_keys(seed, len(readings),
                      max(rd.num_points for rd in readings), dev)
-    for i, rd in enumerate(readings):
-        c = apply_filter_chain(seq.reading_filters, rd.to(dev), keys,
+    for i, rd in enumerate(_upload(readings, dev)):
+        c = apply_filter_chain(seq.reading_filters, rd, keys,
                                scan=i, allow_empty=True, compact=False)
         safe = q_rows[i].clamp(min=0)
         scans.append(PointCloud(c.points[safe], (q_rows[i] >= 0) & c.mask[safe],

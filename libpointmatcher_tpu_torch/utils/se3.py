@@ -6,12 +6,31 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["identity", "inverse", "from_rt", "apply", "rodrigues",
-           "log_rotation", "rot2d", "rotation_angle_between", "orthogonalize"]
+__all__ = ["identity", "rotation", "translation", "compose", "inverse",
+           "from_rt", "apply", "rodrigues", "log_rotation", "rot2d",
+           "rotation_angle_between", "orthogonalize", "normalize_angle",
+           "pose_to_vec", "vec_to_pose"]
 
 
 def identity(dim: int, device=None) -> torch.Tensor:
     return torch.eye(dim + 1, dtype=torch.float32, device=device)
+
+
+def rotation(T: torch.Tensor) -> torch.Tensor:
+    """The rotation block [..., d, d] of T."""
+    d = T.shape[-1] - 1
+    return T[..., :d, :d]
+
+
+def translation(T: torch.Tensor) -> torch.Tensor:
+    """The translation [..., d] of T."""
+    d = T.shape[-1] - 1
+    return T[..., :d, d]
+
+
+def compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A·B: B first, then A."""
+    return A @ B
 
 
 def _eye_like(R: torch.Tensor, d: int) -> torch.Tensor:
@@ -132,3 +151,26 @@ def orthogonalize(T: torch.Tensor) -> torch.Tensor:
     out = T.clone()
     out[..., :d, :d] = (U * D[..., None, :]) @ Vh
     return out
+
+
+def normalize_angle(a: torch.Tensor) -> torch.Tensor:
+    """Angles wrapped to (−π, π] (reference: Functions.h:43-60)."""
+    return torch.atan2(torch.sin(a), torch.cos(a))
+
+
+def pose_to_vec(T: torch.Tensor) -> torch.Tensor:
+    """Homogeneous T [..., d+1, d+1] → the minimal pose vector, [θ, t]
+    [..., 3] in 2D and [ω, t] [..., 6] in 3D (rotation and translation
+    decoupled)."""
+    d = T.shape[-1] - 1
+    if d == 2:
+        theta = torch.atan2(T[..., 1, 0], T[..., 0, 0])
+        return torch.cat([theta[..., None], T[..., :2, 2]], dim=-1)
+    return torch.cat([log_rotation(T[..., :3, :3]), T[..., :3, 3]], dim=-1)
+
+
+def vec_to_pose(v: torch.Tensor, dim: int) -> torch.Tensor:
+    """The inverse of :func:`pose_to_vec`."""
+    if dim == 2:
+        return from_rt(rot2d(v[..., 0]).to(v.dtype), v[..., 1:3])
+    return from_rt(rodrigues(v[..., :3]), v[..., 3:6])

@@ -1520,3 +1520,193 @@ def test_sharded_ops_gloo_world_two_on_card(cuda, tmp_path):
                                     120.0), timeout_s=300.0)
     got = dict(np.load(tmp_path / "card_2.npz"))
     _same_as_single(got, w.card_single("cuda"), "gloo world 2")
+
+
+# ------------------------------------------------------- the PMTPU switches
+def _switch_sequence(world):
+    """A default-chain sequence on the card (its draws from the seeds)."""
+    seq = pt.ICPSequence(device="cuda")
+    seq.set_default()
+    seq.set_map(pt.PointCloud.from_numpy(world, device="cuda"))
+    return seq
+
+
+@pytest.mark.parametrize("driver", ["sequence", "batch", "queue"])
+def test_mxu_switch_on_card(cuda, monkeypatch, driver):
+    """``PMTPU_KNN_IMPL=mxu`` on a dense map: K9 once an iteration (a lane
+    iteration for the queue), K1 never, and the poses of the ε = 10 route
+    (K9 by ε) bit for bit, on one map (two card ``set_map``s of one cloud
+    may part in the last bits, Queue 3 #26)."""
+    world, scans, _, _ = _serving_scene(11, scans=4)
+
+    def run(seq):
+        kc.reset_launch_counts()
+        clouds = [pt.PointCloud.from_numpy(s, device="cuda") for s in scans]
+        if driver == "sequence":
+            T = [seq.compute(c, seed=i).cpu().numpy() for i, c in enumerate(clouds[:2])]
+            return np.stack(T), None
+        if driver == "batch":
+            return register_batch_to_map(seq, clouds)
+        steps = [0]
+        step = seq._step
+
+        def counted(*a, **k):
+            steps[0] += 1
+            return step(*a, **k)
+
+        seq._step = counted
+        out = register_queue_to_map(seq, clouds, lanes=2)
+        del seq._step
+        return out[0], steps[0]
+
+    seq = _switch_sequence(world)
+    seq.matcher.epsilon = dispatch.MXU_EPSILON_FLOOR
+    want, _ = run(seq)
+    seq.matcher.epsilon = 0.0
+    monkeypatch.setenv("PMTPU_KNN_IMPL", "mxu")
+    if driver == "sequence":
+        iters = 0
+        kc.reset_launch_counts()
+        for i, s in enumerate(scans[:2]):
+            T = seq.compute(pt.PointCloud.from_numpy(s, device="cuda"), seed=i)
+            assert np.array_equal(T.cpu().numpy(), want[i])
+            iters += seq.last_iteration_count
+        n = iters
+    else:
+        T, extra = run(seq)
+        assert np.array_equal(T, want)
+        n = extra if driver == "queue" else int(extra["iterations"].max())
+    assert (kc.knn1.launches, kc.knn1_mxu.launches) == (0, n) and n > 0
+
+
+def test_chol_solve_on_card_matches_cpu(cuda, monkeypatch):
+    """``PMTPU_SOLVE=chol`` set on [8, 6, 6] normal equations: the port
+    does not read it (ROADMAP Queue 3 #52), so the card's eigensolve equals
+    its own without the switch bit for bit, and the CPU's within 1e-5
+    relative (two ``eigh`` implementations)."""
+    rng = np.random.default_rng(3)
+    F = rng.normal(size=(8, 200, 6)).astype(np.float32)
+    A = torch.from_numpy(np.einsum("bni,bnj->bij", F, F).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(8, 6)).astype(np.float32))
+    from libpointmatcher_tpu_torch.minimizers import solve_possibly_underdetermined
+    want = solve_possibly_underdetermined(A.to(cuda), b.to(cuda)).cpu()
+    monkeypatch.setenv("PMTPU_SOLVE", "chol")
+    cpu = solve_possibly_underdetermined(A, b)
+    card = solve_possibly_underdetermined(A.to(cuda), b.to(cuda)).cpu()
+    assert torch.equal(card, want)
+    torch.testing.assert_close(card, cpu, rtol=1e-5, atol=1e-5 * float(cpu.abs().max()))
+
+
+def test_bisect_select_on_card(cuda, monkeypatch):
+    """``PMTPU_SELECT=bisect`` set: the port does not read it (Queue 3
+    #53), so the card's select equals its own without the switch bit for
+    bit, and the CPU's, ties, ±inf and NaN included (−0 and +0 taken as
+    equal, #50)."""
+    from libpointmatcher_tpu_torch.utils.masked import masked_quantile
+
+    rng = np.random.default_rng(4)
+    v = rng.choice(np.float32([0.0, -0.0, 1.5, -1.5, np.inf, -np.inf, np.nan]),
+                   size=(8, 20992)).astype(np.float32)
+    v = np.where(rng.random(v.shape) < 0.5, rng.normal(size=v.shape), v)
+    t = torch.from_numpy(v.astype(np.float32))
+    for q in (0.0, 0.5, 0.75, 1.0):
+        sort = masked_quantile(t.to(cuda), q, batch_dims=1).cpu()
+        monkeypatch.setenv("PMTPU_SELECT", "bisect")
+        got = masked_quantile(t.to(cuda), q, batch_dims=1).cpu()
+        cpu = masked_quantile(t, q, batch_dims=1)
+        monkeypatch.delenv("PMTPU_SELECT")
+        assert got.numpy().tobytes() == sort.numpy().tobytes()
+        assert np.array_equal(got.numpy(), cpu.numpy())
+
+
+def test_stack_numpy_on_card(cuda, monkeypatch):
+    """Scans handed in as host clouds are stacked on the host and copied
+    once: the card's batch bit for bit equal to the one with each scan
+    moved on its own and to the one given card clouds, and unmoved by
+    ``PMTPU_STACK_NUMPY=0`` (unread, Queue 3 #49)."""
+    from libpointmatcher_tpu_torch.parallel import batch
+
+    world, scans, _, _ = _serving_scene(12, scans=4)
+    seq = _switch_sequence(world)
+    clouds = [pt.PointCloud.from_numpy(s, device="cpu") for s in scans]
+    out = [register_batch_to_map(seq, clouds),
+           register_batch_to_map(seq, [c.to(cuda) for c in clouds])]
+    monkeypatch.setenv("PMTPU_STACK_NUMPY", "0")
+    out.append(register_batch_to_map(seq, clouds))
+    monkeypatch.setattr(batch, "_upload",
+                        lambda rs, dev: [rd.to(dev) for rd in rs])
+    out.append(register_batch_to_map(seq, clouds))
+    (T0, i0), *rest = out
+    for T, info in rest:
+        assert np.array_equal(T0, T)
+        assert all(np.array_equal(i0[k], info[k]) for k in i0)
+
+
+_CACHE_PROBE = """
+import subprocess, sys
+from libpointmatcher_tpu_torch.ops import knn_cuda
+if sys.argv[1] == "load":
+    def refuse(*a, **k):
+        raise AssertionError("nvcc ran")
+    subprocess.run = refuse
+knn_cuda.LIBRARY.load()
+print(knn_cuda.LIBRARY.path(), bool(knn_cuda.LIBRARY.build_log))
+"""
+
+
+def test_cache_dir_builds_and_reloads_kernels(cuda, tmp_path):
+    """``PMTPU_CACHE_DIR``: a process builds ``csrc/knn.cu`` into a fresh
+    directory, a second one loads it from there with no nvcc run."""
+    import os
+    import subprocess
+
+    repo = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PMTPU_CACHE_DIR=str(tmp_path / "libs"),
+               PYTHONPATH=str(repo))
+    out = []
+    for mode in ("build", "load"):
+        proc = subprocess.run([sys.executable, "-c", _CACHE_PROBE, mode],
+                              cwd=repo, env=env, capture_output=True, text=True,
+                              timeout=600)
+        assert proc.returncode == 0, proc.stderr
+        out.append(proc.stdout.split())
+    (path, built), (path2, built2) = out
+    assert Path(path).parent == tmp_path / "libs" and path2 == path
+    assert (built, built2) == ("True", "False")
+
+
+@pytest.mark.parametrize("num", [9000, 40])
+def test_segment_sums_on_card(cuda, num):
+    """``filters/sampling.py::segment_sum`` on the card: segments of at most
+    ``ORDERED_MAX_ROWS`` rows add in row order and equal the CPU bit for bit;
+    longer ones (``num`` 40: ~500 rows each) take ``index_add_``'s atomic
+    order, within 1e-5 of their magnitude."""
+    from libpointmatcher_tpu_torch.filters import sampling
+
+    rng = np.random.default_rng(num)
+    values = torch.from_numpy((rng.normal(size=(20000, 3)) * 10 + 5).astype(np.float32))
+    seg = torch.from_numpy(rng.integers(0, num, 20000))
+    cpu = sampling.segment_sum(values, seg, num)
+    card = sampling.segment_sum(values.to(cuda), seg.to(cuda), num).cpu()
+    if int(torch.bincount(seg).max()) <= sampling.ORDERED_MAX_ROWS:
+        assert torch.equal(card, cpu)
+    else:
+        torch.testing.assert_close(card, cpu, rtol=1e-5, atol=1e-5 * float(cpu.abs().max()))
+
+
+@pytest.mark.parametrize("method", ["0", "1"])
+def test_elipsoids_densities_on_card_equal_cpu(cuda, method):
+    """Elipsoids' densities, count/((4/3)π·r³) about each box's mean, which
+    magnify a mean's last bits, on the card within 1e-6 of the CPU's."""
+    rng = np.random.default_rng(5)
+    pts = _room(rng, 40000) + 0.003 * rng.standard_normal((40000, 3)).astype(np.float32)
+    from libpointmatcher_tpu_torch.filters import ElipsoidsDataPointsFilter
+
+    params = {"samplingMethod": method, "keepDensities": "1"}
+    key = prng.fold_in(prng.prng_key(23), 1)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        c = ElipsoidsDataPointsFilter(params).filter(
+            pt.PointCloud.from_numpy(pts, device=dev), key=key)
+        out[dev] = c.to_numpy()[1]["densities"]
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-6)

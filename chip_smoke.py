@@ -125,9 +125,12 @@ Phases, each fatal on failure:
    transported bound alone and tightened by K10) equal to dense K1 (d², and
    ids through the Morton order where the neighbour is unique), every valid
    query's true neighbour in a super-chunk its tile does not skip, and K10's
-   bound above K1's d² on every valid query; the effective error constant of
-   K10 is logged and must leave 8x headroom under ``BOUND_ERR_C``; the
-   skipped shares are logged;
+   bound above K1's d² on every valid query; K10 also equal to its schedule
+   emulated in torch (tests/torch_skip_emulation.py), whose swept share of
+   the (query, column) pairs is logged; the same checks cold with the scans
+   and the map translated by 10³ m; the effective error constant of
+   K10 is logged and must leave 8x headroom under ``BOUND_ERR_C`` at the
+   scene's own coordinates; the skipped shares are logged;
 18. serving through the v1 routes on that map: ``register_batch_to_map`` of
    the 8 scans of phase 7 under ``PMTPU_SKIP_V1=1``, under it with
    ``PMTPU_SKIP_MXU_BOUND=1``, and under it with ``PMTPU_SKIP_HOST_MORTON=1``;
@@ -141,7 +144,8 @@ Phases, each fatal on failure:
    at the bound-switch batch's second lockstep iteration beside their plain
    versions and their yardsticks, one call per scan: ``(qa @ ra).amin(-1)``
    in fp32 (TF32 off) for K10, ``torch.cdist`` + ``min`` against the sorted
-   map for K11;
+   map for K11; K10's bound is the pruned work its emulation counts there
+   (the brute-force bound logged beside it);
 19. K7's ablations T4 and T5 (tools_torch/tile_kernel_micro.py) at phase
    14's recorded K7 call, its queries gathered per virtual tile (the
    per-tile form), and through the tool itself at its shape (2048 tiles ×
@@ -484,7 +488,9 @@ KERNELS = {
     # are not counted
     "K7 tile_sweep": ("libpointmatcher_tpu/ops/tilesweep.py:460", 9),
     "K8 tile_sweep_k": ("libpointmatcher_tpu/ops/tilesweep.py:737", 9),
-    # per (valid query, valid map row): five products, four sums, one min
+    # per (valid query, valid map row) of the brute force: five products,
+    # four sums, one min; the bound counts the pruned work instead
+    # (K10_TEST_OPS, K10_PAIR_OPS), this only the figure logged beside it
     "K10 approx_min_sorted": ("libpointmatcher_tpu/ops/knn_skip.py:270", 10),
     # per (valid query, valid row of a super-chunk its tile does not skip)
     "K11 nn1_sorted_skip": ("libpointmatcher_tpu/ops/knn_skip.py:377", 9),
@@ -503,6 +509,14 @@ KERNELS = {
 # the lhs, the compares
 K2_QUERY_OPS = (13, 20)
 K2_WARP_OPS = (22, 20)
+# K10's work at its inputs (csrc/skip.cu::approx_min): fp32 operations per
+# (warp, chunk) box test and per (query, chunk) lane test (three gaps, their
+# squares' sum, the shaved bound, the limit, two compares) and per
+# (query, map column) pair that a lane failing its own test needs (three
+# products, three sums, a min); the pairs a sweep by all lanes forms for
+# the other lanes are the kernel's choice, logged but not counted
+K10_TEST_OPS = 23
+K10_PAIR_OPS = 7
 QUEUE_SCANS = 64
 QUEUE_LANES = 8
 COARSE = (4, 16, 1.0)
@@ -678,6 +692,28 @@ def check_survivor_step(torch, sc, sweep, kc, qs, qm, ub_t, tab, label):
         f"both flag folds; K2 prefilter {json.dumps(shares)}; lists "
         f"{json.dumps(list_stats(torch, qp, surv, ct, nch))}")
     return d2
+
+
+def k10_work(torch, qa, ra, want, label):
+    """K10's work at these inputs, from its schedule emulated in torch on
+    the card (tests/torch_skip_emulation.py), whose output is held to the
+    kernel's ``want`` → (fp32 operations, bytes, counts)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                    "tests"))
+    import torch_skip_emulation as skem
+
+    got, c = skem.emulate_k10(qa, ra)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{label}: K10 differs from its emulated schedule")
+    ops = (K10_TEST_OPS * (c["box_tests"] + c["lane_tests"])
+           + K10_PAIR_OPS * c["swept_pairs"])
+    nch = -(-ra.shape[1] // skem.CHUNK)
+    # qa's four read columns and the output per query row, ra's rows 0..3
+    # per column, the chunk table written and read
+    nbytes = 20 * c["dense_pairs"] // max(ra.shape[1], 1) + 16 * ra.shape[1] + 72 * nch
+    c["per_warp"] = {"max": int(c["per_warp"].max()),
+                     "mean": float(c["per_warp"].float().mean())}
+    return ops, nbytes, {**c, "swept_share": c["swept_pairs"] / max(c["dense_pairs"], 1)}
 
 
 def k2_work(torch, qp, ct, k, nch, want, label):
@@ -1473,6 +1509,7 @@ def check_v1_step(torch, kc, skc, skip, qs, qm, ub2, vt, tab, label):
     torch.cuda.synchronize()
     if not torch.equal(amin, aminp):
         raise AssertionError(f"{label}: K10 differs from its plain version")
+    _, _, work = k10_work(torch, qa, ra, amin, label)
     amin = amin[:, :n]
     margin = skip.bound_margin(q2, amin)
     flat_q, flat_m = qs.reshape(-1, 3), qm.reshape(-1)
@@ -1515,7 +1552,13 @@ def check_v1_step(torch, kc, skc, skip, qs, qm, ub2, vt, tab, label):
     log(f"[v1] {label}: {b} x {n} query rows x {rt.shape[1]} map columns "
         f"({cbox.shape[0]} super-chunks), skipped share {shares}, "
         f"{int(unique.sum())} unique neighbours compared, K10's effective "
-        f"error constant {c_eff:.4f}; K10 and K11 equal their plain versions")
+        f"error constant {c_eff:.4f}, K10's swept share "
+        f"{work['swept_share']:.5f} of {work['dense_pairs']} pairs "
+        f"({work['swept_chunks']} (warp, chunk) sweeps, {work['few_sweeps']} "
+        f"of them lane by lane, {work['lane_tests']} lane tests, "
+        f"{work['formed_pairs']} pairs formed, chunks swept "
+        f"a warp {work['per_warp']}); K10 and K11 equal "
+        f"their plain versions and K10 its emulated schedule")
     return d2, c_eff
 
 
@@ -1532,7 +1575,9 @@ def record_v1_kernels(torch, skc, skip, call, tab, launches):
     nq = float(qm.sum())
     valid = rpen[0] == 0
     mv = float(valid.sum())
-    amin = skc.approx_min_sorted(qa, ra)[:, :n]
+    amin = skc.approx_min_sorted(qa, ra)
+    k10_ops, k10_bytes, work = k10_work(torch, qa, ra, amin, "K10's record")
+    amin = amin[:, :n]
     flags = skip.build_skip_mask(
         qs, qm, torch.minimum(ub2, amin + skip.bound_margin(q2, amin)), cbox)
     nsg = flags.shape[-1]
@@ -1551,11 +1596,9 @@ def record_v1_kernels(torch, skc, skip, call, tab, launches):
                 .min(dim=1) for q, m in zip(qs, qm)]
 
     kernels = (
+        # the pruned work of its emulation at these inputs
         ("K10 approx_min_sorted", lambda: skc.approx_min_sorted(qa, ra),
-         lambda: skc.approx_min_sorted_plain(qa, ra), k10_lib,
-         # five products, four sums and a min per pair; 5 floats of qa and
-         # ra, and one output, per valid query and map column
-         KERNELS["K10 approx_min_sorted"][1] * nq * mv, 24 * nq + 20 * mv),
+         lambda: skc.approx_min_sorted_plain(qa, ra), k10_lib, k10_ops, k10_bytes),
         ("K11 nn1_sorted_skip", lambda: skc.nn1_sorted_skip(qs, qm, rt, rpen, flags),
          lambda: skc.nn1_sorted_skip_plain(qs, qm, rt, rpen, flags), k11_lib,
          # per pair of a super-chunk the tile sweeps; the queries in and the
@@ -1588,9 +1631,20 @@ def record_v1_kernels(torch, skc, skip, call, tab, launches):
                    "launches": launches[name.split()[0]],
                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bms, "bound_by": by, "library_ms": None}
+            if name.startswith("K10"):
+                dense, _ = bound_of(KERNELS[name][1] * nq * mv, 24 * nq + 20 * mv)
+                what = (f"{work['box_tests']} (warp, chunk) box tests, "
+                        f"{work['lane_tests']} (query, chunk) lane tests, "
+                        f"chunks swept a warp {work['per_warp']}, "
+                        f"{work['swept_pairs']} (query, column) pairs needed "
+                        f"(share {work['swept_share']:.5f}), "
+                        f"{work['formed_pairs']} formed, brute-force bound "
+                        f"{dense:.4f} ms")
+            else:
+                what = (f"skipped share {float(flags.float().mean()):.4f}, "
+                        f"{pairs:.0f} pairs swept")
             log(f"[kernel] main path {name} {b} x {n} query rows ({nq:.0f} valid) "
-                f"x {rt.shape[1]} map columns ({mv:.0f} valid), skipped share "
-                f"{float(flags.float().mean()):.4f}, {pairs:.0f} pairs swept, "
+                f"x {rt.shape[1]} map columns ({mv:.0f} valid), {what}, "
                 f"yardstick one call per scan x{b}: {lib_ms:.2f} ms: "
                 + json.dumps(rec))
             out.append(rec)
@@ -1616,10 +1670,18 @@ def v1_serving(torch, pt, kc, skc, skip, morton, cell, launches, route_launches)
     ub = torch.sqrt(d2) + torch.linalg.norm(shift)
     _, c_warm = check_v1_step(torch, kc, skc, skip, qs + shift, qm,
                               (ub * ub) * sweep.UP, vt, tab, "warm")
+    # the same scans and map translated by 10^3 m, where the expansion form
+    # cancels hardest (its effective constant is logged, not gated)
+    far = torch.tensor([1.0e3, -0.7e3, 0.3e3], device="cuda")
+    ftab = tuple(x + far if j in (2, 5) else x for j, x in enumerate(tab))
+    fvt = v1_tables(torch, skip, ftab)
+    _, c_far = check_v1_step(torch, kc, skc, skip, qs + far, qm, ub2, fvt, ftab,
+                             "cold, 10^3 m")
+    del fvt, ftab
     c_eff = max(c_cold, c_warm)
     headroom = skip.BOUND_ERR_C / c_eff if c_eff > 0 else float("inf")
     log(f"[v1] K10's effective error constant {c_eff:.4f} against BOUND_ERR_C "
-        f"{skip.BOUND_ERR_C}: headroom {headroom:.2f}x")
+        f"{skip.BOUND_ERR_C}: headroom {headroom:.2f}x (at 10^3 m: {c_far:.4f})")
     if headroom < HEADROOM:
         raise AssertionError(f"K10's bound keeps {headroom:.2f}x headroom, "
                              f"below {HEADROOM}x")

@@ -14,9 +14,14 @@ tables are those of :mod:`.skip`: ``qa [..., n_pad, 8]``, ``ra [8,
 m_pad]``, ``rt [8, m_pad]``, ``rpen [1, m_pad]``, ``skip [B, ni, nsg]``
 int32 per (``TILE_Q``-query tile, ``128·GROUP``-row super-chunk).
 
+Each wrapper call launches two kernels: K10 its chunk table (per
+``BOUND_CHUNK`` map columns) and its pruned sweep, K11 its segment sweep
+(``SEGMENTS`` segments of each tile's list) and their merge; the scratch
+of both is allocated here with ``torch.empty``.
+
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel or raises. There is no fallback between the two. Each
-wrapper counts its kernel launches in ``<wrapper>.launches``.
+launches the kernels or raises. There is no fallback between the two. Each
+wrapper counts its calls that launch in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -29,26 +34,33 @@ from .cuda_build import KernelLibrary
 
 __all__ = ["approx_min_sorted", "nn1_sorted_skip", "approx_min_sorted_plain",
            "nn1_sorted_skip_plain", "build", "LIBRARY", "TILE_Q", "GROUP",
-           "SUPER", "reset_launch_counts"]
+           "SUPER", "SEGMENTS", "BOUND_CHUNK", "reset_launch_counts"]
 
 #: queries per K11 tile (one row of skip flags each)
 TILE_Q = 256
 #: 128-row chunks per super-chunk (one skip flag each)
 GROUP = 4
 SUPER = 128 * GROUP
+#: segments of a tile's list in K11 (csrc/skip.cu kSegments)
+SEGMENTS = 8
+#: map columns per chunk of K10's table and prune (csrc/skip.cu kChunk)
+BOUND_CHUNK = 128
 _DPAD = 8
 _TERMS = 5         # non-zero columns of the augmented dot product
+_MAX_SUPER = 48 * 1024 // 4     # K11's list in 48 KB of shared memory
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pm_approx_min.argtypes = [p, ctypes.c_longlong, p, i, p, p]
+    lib.pm_approx_min.argtypes = [p, ctypes.c_longlong, p, i, p, p, p]
     lib.pm_approx_min.restype = i
-    lib.pm_nn1_skip.argtypes = [p, p, i, i, p, p, i, p, i, i, p, p, p]
+    lib.pm_nn1_skip.argtypes = [p, p, i, i, p, p, i, p, i, i, p, p, p, p, p]
     lib.pm_nn1_skip.restype = i
-    lib.pm_skip_tile.restype = i
-    lib.pm_skip_group.restype = i
-    if (lib.pm_skip_tile(), lib.pm_skip_group()) != (TILE_Q, GROUP):
+    for fn in ("pm_skip_tile", "pm_skip_group", "pm_skip_segments",
+               "pm_bound_chunk"):
+        getattr(lib, fn).restype = i
+    if ((lib.pm_skip_tile(), lib.pm_skip_group(), lib.pm_skip_segments(),
+         lib.pm_bound_chunk()) != (TILE_Q, GROUP, SEGMENTS, BOUND_CHUNK)):
         raise RuntimeError("csrc/skip.cu tiles differ from ops/skip_cuda.py")
 
 
@@ -99,15 +111,25 @@ def approx_min_sorted(qa, ra):
     """K10: ``qa [..., n_pad, 8]`` augmented queries, ``ra [8, m_pad]`` the
     augmented sorted map → ``[..., n_pad]``, each query's minimum of the
     expansion-form distance over the map: a bound's ingredient only (see
-    :func:`.skip.bound_margin`)."""
+    :func:`.skip.bound_margin`).
+
+    Precondition: column 3 of ``qa`` and row 4 of ``ra`` are 1 everywhere,
+    padding rows and columns included, as :func:`.skip.augment_queries` and
+    :func:`.skip.augmented_ref_table` build them. The kernel then takes
+    a3·r3 = r3 and a4·r4 = a4 exactly and returns the plain version's bits;
+    on other tables its result differs from the plain version's, unchecked.
+    On the CPU the plain version computes the general five-term form."""
     _check_bound(qa, ra)
     if qa.device.type == "cpu":
         return approx_min_sorted_plain(qa, ra)
     lib = build()
     qa, ra = qa.contiguous(), ra.contiguous()
     out = torch.empty(qa.shape[:-1], dtype=torch.float32, device=qa.device)
+    nch = -(-ra.shape[1] // BOUND_CHUNK)
+    tab = torch.empty(9 * max(nch, 1), dtype=torch.float32, device=qa.device)
     err = lib.pm_approx_min(qa.data_ptr(), out.numel(), ra.data_ptr(),
-                            ra.shape[1], out.data_ptr(), _stream(qa))
+                            ra.shape[1], tab.data_ptr(), out.data_ptr(),
+                            _stream(qa))
     LIBRARY.check(err, "K10 approx_min_sorted")
     approx_min_sorted.launches += 1
     return out
@@ -181,18 +203,26 @@ def nn1_sorted_skip(qs, qm, rt, rpen, skip):
     _check_skip(qs, qm, rt, rpen, skip)
     if qs.device.type == "cpu":
         return nn1_sorted_skip_plain(qs, qm, rt, rpen, skip)
+    if skip.shape[2] > _MAX_SUPER:
+        raise ValueError(f"K11 lists at most {_MAX_SUPER} super-chunks "
+                         f"({_MAX_SUPER * SUPER} map rows), got {skip.shape[2]}")
     lib = build()
     B, n, d = qs.shape
     if d == 2:       # rt's row 2 is zero: a zero z adds 0 to every d²
         qs = torch.nn.functional.pad(qs, (0, 1))
     qs, qm8 = qs.contiguous(), qm.contiguous().view(torch.uint8)
     rt, rpen, skip = rt.contiguous(), rpen.contiguous(), skip.contiguous()
+    ni = skip.shape[1]
+    part_d = torch.empty((SEGMENTS, B, ni * TILE_Q), dtype=torch.float32,
+                         device=qs.device)
+    part_i = torch.empty((SEGMENTS, B, ni * TILE_Q), dtype=torch.int32,
+                         device=qs.device)
     out_d = torch.empty((B, n), dtype=torch.float32, device=qs.device)
     out_i = torch.empty((B, n), dtype=torch.int32, device=qs.device)
     err = lib.pm_nn1_skip(qs.data_ptr(), qm8.data_ptr(), B, n, rt.data_ptr(),
-                          rpen.data_ptr(), rt.shape[1], skip.data_ptr(),
-                          skip.shape[1], skip.shape[2], out_d.data_ptr(),
-                          out_i.data_ptr(), _stream(qs))
+                          rpen.data_ptr(), rt.shape[1], skip.data_ptr(), ni,
+                          skip.shape[2], part_d.data_ptr(), part_i.data_ptr(),
+                          out_d.data_ptr(), out_i.data_ptr(), _stream(qs))
     LIBRARY.check(err, "K11 nn1_sorted_skip")
     nn1_sorted_skip.launches += 1
     return out_d, out_i

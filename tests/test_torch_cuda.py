@@ -69,6 +69,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools_torch"))
 import loop_modules  # noqa: E402
 import tile_micro  # noqa: E402
 import torch_survivor_emulation as em  # noqa: E402
+import torch_skip_emulation as skem  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -875,6 +876,44 @@ def test_k10_k11_equal_plain(cuda, n, m):
         assert bool((bound[qm] >= d[qm]).all())
         ub2 = (torch.sqrt(d) + 0.01) ** 2 * sweep.UP
         qs = qs + torch.tensor([0.006, -0.006, 0.0048], device=cuda)
+
+
+@pytest.mark.parametrize("offset", [1e3, 1e4])
+@pytest.mark.parametrize("n,m", [(3000, 5000), (700, 1000)])
+def test_k10_k11_offsets_equal_plain(cuda, n, m, offset):
+    """K10 (pruned on its exact lower bound) and K11 bit for bit against
+    their plain versions with the scene translated far from the origin,
+    where the expansion form cancels hardest: cold, with K10's bound and
+    with a transported bound; K10 also equal to its emulation on the card,
+    and K11 to its emulation."""
+    qs, qm, rs, rsm, _, _, _, _ = _skip_inputs(n + m + 7, n, m, "cpu")
+    shift = torch.tensor([offset, -0.7 * offset, 0.3 * offset])
+    qs, rs = qs + shift, (rs + shift).numpy()
+    m_pad = 128 * -(-m // 128)
+    rt, rpen = skip.v1_tables(rs, rsm.numpy(), m_pad)
+    ra, _ = skip.augmented_ref_table(rs, rsm.numpy(), m_pad)
+    cbox = skip.chunk_bboxes(rs, rsm.numpy(), skip_cuda.SUPER)
+    qs, qm, rt, rpen, ra, cbox = (torch.as_tensor(x).to(cuda)
+                                  for x in (qs, qm, rt, rpen, ra, cbox))
+    n_pad = -(-n // skip_cuda.TILE_Q) * skip_cuda.TILE_Q
+    qa, q2 = skip.augment_queries(qs, n_pad)
+    amin = skip_cuda.approx_min_sorted(qa, ra)
+    torch.cuda.synchronize()
+    assert torch.equal(amin, skip_cuda.approx_min_sorted_plain(qa, ra))
+    assert torch.equal(amin, skem.emulate_k10(qa, ra)[0])
+    amin = amin[:, :n]
+    d = None
+    for ub2 in (torch.full(qm.shape, float("inf"), device=cuda),
+                amin + skip.bound_margin(q2, amin), None):
+        if ub2 is None:                     # transported from the last step
+            ub2 = (torch.sqrt(d) + 0.01) ** 2 * sweep.UP
+        flags = skip.build_skip_mask(qs, qm, ub2, cbox)
+        d, i = skip_cuda.nn1_sorted_skip(qs, qm, rt, rpen, flags)
+        dp, ip = skip_cuda.nn1_sorted_skip_plain(qs, qm, rt, rpen, flags)
+        de, ie, _ = skem.emulate_k11(qs, qm, rt, rpen, flags)
+        torch.cuda.synchronize()
+        assert torch.equal(d, dp) and torch.equal(i, ip)
+        assert torch.equal(d, de) and torch.equal(i, ie)
 
 
 @pytest.mark.parametrize("T,tq,m,dim", [(37, 64, 1024, 3), (5, 300, 640, 3),

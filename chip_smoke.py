@@ -1755,24 +1755,35 @@ def v1_serving(torch, pt, kc, skc, skip, morton, cell, launches, route_launches)
 
 
 def cdist_min_ms(torch, q, cand_t, dim, label):
-    """ms of one batched ``torch.cdist`` + ``amin`` over the tiles (pen
-    added), T4's and T5's function; None, logged, where cdist's grid
-    refuses the shape."""
+    """(ms, calls) of ``torch.cdist`` + ``amin`` over the tiles (pen added),
+    T4's and T5's function: one batched call, or, where cdist's grid
+    refuses the shape (logged), the same call over chunks of tiles of at
+    most 2^28 distances each; (None, 0) where that is refused too."""
     pen = cand_t[:, 6]
     qq = q[..., :dim].contiguous()
     cc = cand_t[:, :dim].transpose(1, 2).contiguous()
 
-    def lib():
-        dist = torch.cdist(qq, cc, compute_mode="donot_use_mm_for_euclid_dist")
-        return dist.square_().add_(pen[:, None, :]).amin(dim=2)
+    def lib(t0=0, t1=None):
+        dist = torch.cdist(qq[t0:t1], cc[t0:t1],
+                           compute_mode="donot_use_mm_for_euclid_dist")
+        return dist.square_().add_(pen[t0:t1, None, :]).amin(dim=2)
 
+    tiles = q.shape[0]
+    step = max(1, (1 << 28) // max(1, q.shape[1] * cand_t.shape[2]))
+    chunks = [(t, t + step) for t in range(0, tiles, step)]
     torch.cuda.empty_cache()
     try:
-        return cuda_ms(torch, lib, 1)
-    except RuntimeError as e:          # a batch cdist's grid may refuse it
-        log(f"[kernel] {label}: batched cdist refused at {tuple(q.shape)} x "
-            f"{tuple(cand_t.shape)}: {e}")
-        return None
+        try:
+            return cuda_ms(torch, lib, 1), 1
+        except RuntimeError as e:      # a batch cdist's grid may refuse it
+            log(f"[kernel] {label}: batched cdist refused at {tuple(q.shape)} x "
+                f"{tuple(cand_t.shape)}: {e}; timing it over {len(chunks)} "
+                f"calls of {step} tiles")
+        torch.cuda.empty_cache()
+        return cuda_ms(torch, lambda: [lib(*c) for c in chunks], 1), len(chunks)
+    except RuntimeError as e:
+        log(f"[kernel] {label}: chunked cdist refused too: {e}")
+        return None, 0
     finally:
         torch.cuda.empty_cache()
 
@@ -1792,7 +1803,7 @@ def record_min_kernel(torch, tc, name, fn, q, cand_t, dim, launches):
     ms = cuda_ms(torch, lambda: fn(q, cand_t, dim), 20)
     k7_ms = cuda_ms(torch, lambda: tc.tile_sweep(q, cand_t, dim), 20)
     plain_ms = cuda_ms(torch, lambda: tc.tile_min_plain(q, cand_t, dim), 2)
-    library_ms = cdist_min_ms(torch, q, cand_t, dim, name)
+    library_ms, calls = cdist_min_ms(torch, q, cand_t, dim, name)
     pen = cand_t[:, 6]
     ncand = (pen == 0).sum(dim=1).double()
     nq = float(q.shape[0] * q.shape[1])
@@ -1807,7 +1818,8 @@ def record_min_kernel(torch, tc, name, fn, q, cand_t, dim, launches):
            "bound_ms": bms, "bound_by": by, "library_ms": library_ms}
     log(f"[kernel] main path {name} {q.shape[0]} tiles x {q.shape[1]} queries x "
         f"{cand_t.shape[2]} candidates, {pairs:.0f} pairs, K7 at the same "
-        f"inputs {k7_ms:.4f} ms: " + json.dumps(rec))
+        f"inputs {k7_ms:.4f} ms, the yardstick in {calls} cdist calls: "
+        + json.dumps(rec))
     return rec
 
 
@@ -1826,7 +1838,8 @@ def tile_ablations(torch, tc, k7_call):
             raise AssertionError(f"{name} at K7's recorded inputs differs from its "
                                  f"plain version or K7's d²")
         times[name] = cuda_ms(torch, lambda: fn(q7, cand7, dim7), 20)
-    times["cdist + amin"] = cdist_min_ms(torch, q7, cand7, dim7, "K7's inputs")
+    times["cdist + amin"], times["cdist calls"] = cdist_min_ms(
+        torch, q7, cand7, dim7, "K7's inputs")
     log(f"[tile] T4 and T5 at phase 14's K7 inputs ({q7.shape[0]} tiles x "
         f"{q7.shape[1]} queries x {cand7.shape[2]} candidates) equal their plain "
         f"version and K7's d²; ms {json.dumps(times)}")

@@ -89,18 +89,35 @@
 // (+inf, -1) for a masked query and past the candidates.
 //
 // The ablations of tools/tile_kernel_micro.py, which measure what K7's id
-// tracking and its schedule cost, are one min-only template (tile_min<TILES>)
-// on K7's own table: per query the minimum d2 over its tile's candidates, no
-// id read or kept, d2 formed as ((pen + dx*dx) + dy*dy) + dz*dz, so both
-// equal K7's d2 bit for bit.
-//   T4  tile_min<8>  <- _min_only  (tile_kernel_micro.py:79, main.min_only)
-//       eight tiles per block, candidates staged 2048 columns at a time,
-//       each stage of each tile in turn (the Pallas grid step's schedule);
-//   T5  tile_min<1>  <- _one       (tile_kernel_micro.py:131, main.one)
-//       one tile per block, its whole candidate list staged in one pass
-//       (dynamic shared memory, 16 bytes a column, so M <= 14528).
-// They read 16 bytes per candidate column (x, y, z, pen) and do 9
-// operations per pair: bound by the fp32 issue rate on full tiles.
+// tracking and its schedule cost, compute per query the minimum d2 over its
+// tile's candidates (any M) on K7's own table, no id read or kept:
+//   T4  tile_min_staged  <- _min_only  (tile_kernel_micro.py:79, main.min_only)
+//       4 queries a thread, the fewest threads a tile (8..256, a power of
+//       two: tile_cuda.t4_team) whose queries cover TQ, 256 / team tiles a
+//       block (the tool's TQ 256: 64 threads, 4 tiles; K7's 64: 16, 16), a
+//       tile of more than 1024 queries in slices on gridDim.y. The tables
+//       are staged 4 * team columns each, 1024 a block, as four arrays x, y,
+//       z, pen, by 16-byte cp.async (4-byte copies where a row is not
+//       16-byte aligned, M % 4 != 0; columns past M zero-filled) into two
+//       buffers, 32 KB in all: the copy of stage s + 1 is in flight while
+//       stage s is swept, one barrier a stage. Each thread copies four
+//       columns of its tile and, once they land, folds the penalty into
+//       their x (x + pen, +inf past M) before the barrier, so the sweep
+//       reads three arrays: six 16-byte loads a group of kGroup columns for
+//       the thread's four queries, each folding the group's d2 with fminf
+//       and its minimum into the query's with one more: 9 instructions a
+//       pair.
+//   T5  tile_min<1>      <- _one       (tile_kernel_micro.py:131, main.one)
+//       one tile per block, a query a thread, its whole candidate list
+//       staged in one pass as float4 (x, y, z, pen) (dynamic shared memory,
+//       16 bytes a column, so M <= 14528), ((pen + dx*dx) + dy*dy) + dz*dz
+//       and a fminf a pair.
+// Both equal K7's d2 bit for bit (T4 in K7's form against x + pen, T5 in
+// the plain version's order; the two agree for pen 0 and +inf, as the
+// header above says). They read 16 bytes per candidate column (x, y, z,
+// pen) and do 9 operations per pair: bound by the fp32 issue rate on full
+// tiles, at least 9 instructions a pair, twice the 67 TFLOP/s bound (the
+// issue floor).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -119,7 +136,11 @@ constexpr int kLoaders = kStage / 4;  // threads that load a stage's float4s
 constexpr int kPenRow = 6;
 constexpr int kCidRow = 7;
 constexpr int kRows = 8;
-constexpr int kMinStage = 2048;   // T4's candidate columns per stage
+constexpr int kT4Threads = 256;   // T4's threads a block
+constexpr int kT4Q = 4;           // T4's queries a thread, of one tile
+constexpr int kT4Cols = 1024;     // T4's columns a block stages, over its tiles
+constexpr int kT4MinTeamLog2 = 3; // T4's fewest threads a tile: 8 (32 columns)
+static_assert(kT4Cols == 4 * kT4Threads, "a T4 thread copies four columns a stage");
 // T5's largest candidate list: 232,448 bytes of shared memory a block, at 16
 // bytes a column
 constexpr int kMinOneMax = 232448 / 16;
@@ -662,8 +683,8 @@ cudaError_t launch_nnk(const Sweep& s, int parents, int tile_major,
 
 // ------------------------------------------------------------------ T4, T5
 
-// T4 (TILES = 8) and T5 (TILES = 1): the minimum d2 of each query over its
-// tile's candidates, `stage_cols` columns of one tile staged at a time.
+// T5 (TILES = 1): the minimum d2 of each query over its tile's candidates,
+// `stage_cols` columns of one tile staged at a time.
 template <int TILES>
 __global__ void __launch_bounds__(kMaxThreads)
 tile_min(const float* __restrict__ q, const float* __restrict__ cand, int T,
@@ -703,6 +724,153 @@ tile_min(const float* __restrict__ q, const float* __restrict__ cand, int T,
 #pragma unroll
     for (int s = 0; s < TILES; ++s)
       if (t0 + s < T) out_d[(t0 + s) * tq + qi] = best[s];
+  }
+}
+
+// 16 or 4 bytes from device to shared memory without registers; the
+// bytes past src_bytes (0..size) are zero-filled and not read.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int src_bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int src_bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
+}
+
+// T4's stage of one tile: columns [m0, m0 + 4 * team) in four arrays (x, y,
+// z, pen), each thread of the tile's team copying its own four columns.
+struct T4Stage {
+  float *x, *y, *z, *pen;
+};
+
+// Starts the copy of this thread's four columns c0.. of rows x, y, z (dim
+// 3) and pen of table `tab`; columns at or past `valid` zero-filled.
+// `vec`: every row 16-byte aligned (M % 4 == 0), one 16-byte copy a row.
+__device__ __forceinline__ void t4_copy(const T4Stage& st, int lane,
+                                        const float* __restrict__ tab,
+                                        int64_t M, int c0, int valid, int dim,
+                                        bool vec) {
+  float* dst[4] = {st.x + 4 * lane, st.y + 4 * lane, st.z + 4 * lane,
+                   st.pen + 4 * lane};
+  const int rows[4] = {0, 1, 2, kPenRow};
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int v = (r == 2 && dim != 3) ? 0 : valid;   // 2-D: z = 0
+    const float* src = tab + rows[r] * M + c0;
+    if (vec) {
+      cp_async16(dst[r], v > 0 ? src : tab, v > 0 ? 4 * v : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        cp_async4(dst[r] + e, e < v ? src + e : tab, e < v ? 4 : 0);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// T4: per query, the minimum d2 over its tile's candidates. A block holds
+// kT4Threads / team tiles, `team` (8..256, a power of two) threads each,
+// kT4Q queries a thread (query slot lane + k * team of the block's slice on
+// gridDim.y). The tiles' tables are staged 4 * team columns each, kT4Cols
+// in all, through two buffers by cp.async: the copy of stage s + 1 is in
+// flight while stage s is swept, one barrier a stage. Each thread folds the
+// penalty into x over the four columns it copied (x + pen; +inf past M),
+// so the sweep reads three arrays and forms K7's d2; each query folds a
+// group of kGroup columns with fminf.
+__global__ void __launch_bounds__(kT4Threads)
+tile_min_staged(const float* __restrict__ q, const float* __restrict__ cand,
+                int T, int tq, int M, int dim, int team_log2, int vec,
+                float* __restrict__ out_d) {
+  __shared__ __align__(16) float s_tab[2][4][kT4Cols];
+  const int team = 1 << team_log2;
+  const int cols = 4 * team;                       // a tile's stage
+  const int tl = threadIdx.x >> team_log2;         // the block's tile
+  const int lane = threadIdx.x & (team - 1);
+  const int64_t tile = (int64_t)blockIdx.x * (kT4Threads >> team_log2) + tl;
+  const bool tile_ok = tile < T;
+  const float* tab = cand + (tile_ok ? tile : 0) * kRows * (int64_t)M;
+  const int q0 = blockIdx.y * team * kT4Q + lane;
+  float qx[kT4Q], qy[kT4Q], qz[kT4Q], best[kT4Q];
+#pragma unroll
+  for (int k = 0; k < kT4Q; ++k) {
+    load_query(q, tile * tq + q0 + k * team, tile_ok && q0 + k * team < tq,
+               dim, qx[k], qy[k], qz[k]);
+    best[k] = CUDART_INF_F;
+  }
+  auto stage = [&](int b) {
+    return T4Stage{s_tab[b][0] + tl * cols, s_tab[b][1] + tl * cols,
+                   s_tab[b][2] + tl * cols, s_tab[b][3] + tl * cols};
+  };
+  auto valid_from = [&](int c0) {
+    const int v = tile_ok ? M - c0 : 0;
+    return v < 0 ? 0 : (v > 4 ? 4 : v);
+  };
+  const int stages = (M + cols - 1) / cols;
+  if (stages > 0)
+    t4_copy(stage(0), lane, tab, M, 4 * lane, valid_from(4 * lane), dim, vec);
+  for (int s = 0; s < stages; ++s) {
+    const T4Stage st = stage(s & 1);
+    const int m0 = s * cols;
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    {  // fold the penalty into this thread's own four columns
+      float4 x = reinterpret_cast<float4*>(st.x)[lane];
+      const float4 p = reinterpret_cast<const float4*>(st.pen)[lane];
+      const int v = valid_from(m0 + 4 * lane);
+      x.x = v > 0 ? __fadd_rn(x.x, p.x) : CUDART_INF_F;
+      x.y = v > 1 ? __fadd_rn(x.y, p.y) : CUDART_INF_F;
+      x.z = v > 2 ? __fadd_rn(x.z, p.z) : CUDART_INF_F;
+      x.w = v > 3 ? __fadd_rn(x.w, p.w) : CUDART_INF_F;
+      reinterpret_cast<float4*>(st.x)[lane] = x;
+    }
+    // stage s is in place and folded; every thread has swept stage s - 1,
+    // whose buffer the next copy fills
+    __syncthreads();
+    if (s + 1 < stages) {
+      const int c0 = m0 + cols + 4 * lane;
+      t4_copy(stage((s + 1) & 1), lane, tab, M, c0, valid_from(c0), dim, vec);
+    }
+    const int cnt = M - m0 < cols ? M - m0 : cols;
+    const int groups = (cnt + kGroup - 1) / kGroup;
+#pragma unroll 1
+    for (int g = 0; g < groups; ++g) {
+      float x[kGroup], y[kGroup], z[kGroup];
+#pragma unroll
+      for (int v = 0; v < kGroup / 4; ++v) {
+        const int o = g * (kGroup / 4) + v;
+        const float4 a = reinterpret_cast<const float4*>(st.x)[o];
+        const float4 b = reinterpret_cast<const float4*>(st.y)[o];
+        const float4 c = reinterpret_cast<const float4*>(st.z)[o];
+        x[4 * v] = a.x, x[4 * v + 1] = a.y, x[4 * v + 2] = a.z, x[4 * v + 3] = a.w;
+        y[4 * v] = b.x, y[4 * v + 1] = b.y, y[4 * v + 2] = b.z, y[4 * v + 3] = b.w;
+        z[4 * v] = c.x, z[4 * v + 1] = c.y, z[4 * v + 2] = c.z, z[4 * v + 3] = c.w;
+      }
+#pragma unroll
+      for (int k = 0; k < kT4Q; ++k) {
+        float d[kGroup];
+#pragma unroll
+        for (int r = 0; r < kGroup; ++r)
+          d[r] = __fadd_rn(__fadd_rn(sq(__fsub_rn(qx[k], x[r])),
+                                     sq(__fsub_rn(qy[k], y[r]))),
+                           sq(__fsub_rn(qz[k], z[r])));
+#pragma unroll
+        for (int w = kGroup / 2; w >= 1; w /= 2) {
+#pragma unroll
+          for (int r = 0; r < w; ++r) d[r] = fminf(d[r], d[r + w]);
+        }
+        best[k] = fminf(best[k], d[0]);
+      }
+    }
+  }
+  if (tile_ok) {
+#pragma unroll
+    for (int k = 0; k < kT4Q; ++k)
+      if (q0 + k * team < tq) out_d[tile * tq + q0 + k * team] = best[k];
   }
 }
 
@@ -771,23 +939,31 @@ int pm_tile_nnk(const float* pts, int qstride, const uint8_t* qmask,
 }
 
 int pm_tile_max_teams() { return kMaxTeams; }
-int pm_tile_min_stage() { return kMinStage; }
+int pm_tile_min_cols() { return kT4Cols; }
 int pm_tile_min_one_max() { return kMinOneMax; }
 
-// T4 (tiles_per_block 8) or T5 (1): q [T, tq, 8], cand [T, 8, M]; out_d
-// [T, tq]. T5 takes M <= pm_tile_min_one_max().
+// T4 (kernel 4) or T5 (kernel 5): q [T, tq, 8], cand [T, 8, M]; out_d
+// [T, tq]. T4 takes `team` threads a tile (a power of two, 8..kT4Threads;
+// tile_cuda.t4_team), a tile of more than kT4Q * team queries in slices on
+// gridDim.y; T5 takes M <= pm_tile_min_one_max() and ignores `team`.
 int pm_tile_min(const float* q, const float* cand, int T, int tq, int M,
-                int dim, int tiles_per_block, float* out_d, void* stream) {
+                int dim, int kernel, int team, float* out_d, void* stream) {
   if (T == 0 || tq == 0) return cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  int threads;
-  dim3 grid = grid_of(T, tq, threads);
-  if (tiles_per_block == 8) {
-    grid.x = (unsigned)((T + 7) / 8);
-    const int stage = M < kMinStage ? M : kMinStage;
-    tile_min<8><<<grid, threads, stage * sizeof(float4), st>>>(
-        q, cand, T, tq, M, dim, kMinStage, out_d);
-  } else if (tiles_per_block == 1) {
+  if (kernel == 4) {
+    int team_log2 = kT4MinTeamLog2;
+    while ((1 << team_log2) < team) ++team_log2;
+    if ((1 << team_log2) != team || team > kT4Threads) return cudaErrorInvalidValue;
+    const int per_block = kT4Threads >> team_log2;
+    const int slice = kT4Q << team_log2;
+    const dim3 grid((unsigned)((T + per_block - 1) / per_block),
+                    (unsigned)((tq + slice - 1) / slice));
+    const int vec = M % 4 == 0 && (uintptr_t)cand % 16 == 0;
+    tile_min_staged<<<grid, kT4Threads, 0, st>>>(q, cand, T, tq, M, dim,
+                                                 team_log2, vec, out_d);
+  } else if (kernel == 5) {
+    int threads;
+    const dim3 grid = grid_of(T, tq, threads);
     if (M > kMinOneMax) return cudaErrorInvalidValue;
     const size_t bytes = (size_t)(M > 0 ? M : 1) * sizeof(float4);
     const cudaError_t e = cudaFuncSetAttribute(

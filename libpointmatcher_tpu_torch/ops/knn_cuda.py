@@ -108,13 +108,15 @@ def block_queries(kk: int = 0) -> int:
 
 
 def _split(n: int, m: int, sms: int, pairs: int = 1, kk: int = 0,
-           aim: int = 4) -> tuple:
+           aim: int = 4, block: int = 0, rows: int = TILE_ROWS) -> tuple:
     """Reference chunks over gridDim.y → ``(splits, chunk)``: enough blocks
-    for ~``aim`` per SM, each chunk a whole number of ``TILE_ROWS``,
-    ``splits * chunk >= m``."""
-    qblocks = max(1, -(-n // block_queries(kk))) * max(pairs, 1)
-    splits = max(1, min(-(-aim * sms // qblocks), -(-m // TILE_ROWS)))
-    chunk = TILE_ROWS * -(-max(m, 1) // (TILE_ROWS * splits))
+    for ~``aim`` per SM, each chunk a whole number of ``rows``,
+    ``splits * chunk >= m``. ``block`` and ``rows``: the queries a block
+    takes and the chunks' granularity where not :func:`block_queries` and
+    ``TILE_ROWS`` (T2's, ``knn_variants_cuda.t2_split``)."""
+    qblocks = max(1, -(-n // (block or block_queries(kk)))) * max(pairs, 1)
+    splits = max(1, min(-(-aim * sms // qblocks), -(-m // rows)))
+    chunk = rows * -(-max(m, 1) // (rows * splits))
     splits = max(1, -(-m // chunk))
     return splits, chunk
 

@@ -36,21 +36,38 @@ import torch
 
 from .cuda_build import KernelLibrary
 from .knn import knn_brute_force
-from .knn_cuda import _check_inputs, _sms, _split
+from .knn_cuda import GROUP_ROWS, TILE_ROWS, _check_inputs, _sms, _split
 
 __all__ = ["knn1_chunked", "knn1_transposed", "knn1_mxu", "knn1_mxu3_plain",
-           "build", "LIBRARY", "reset_launch_counts"]
+           "t2_split", "build", "LIBRARY", "T2_BLOCK_QUERIES",
+           "reset_launch_counts"]
+
+
+#: T2's queries a block (csrc/knn_variants.cu: 128 threads, 4 queries each)
+T2_BLOCK_QUERIES = 512
+#: T2's split rule, K1's (:func:`.knn_cuda._split`) for T2's block: its aim,
+#: blocks per SM over queries × chunks, and its chunks' granularity, one
+#: shared stage (csrc/knn_variants.cu kT2Stage)
+T2_BLOCKS_PER_SM = 16
+T2_CHUNK_ROWS = 512
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pm_nn1_chunked.argtypes = [p, p, i, p, p, i, i, i, i, p, p, p, p, p]
-    lib.pm_nn1_chunked.restype = i
-    for fn in (lib.pm_nn1_transposed, lib.pm_nn1_mxu):
-        fn.argtypes = [p, p, i, p, p, i, i, p, p, p]
+    for fn in (lib.pm_nn1_chunked, lib.pm_nn1_transposed):
+        fn.argtypes = [p, p, i, p, p, i, i, i, i, p, p, p, p, p]
         fn.restype = i
-    lib.pm_tile_rows.argtypes = []
-    lib.pm_tile_rows.restype = i
+    lib.pm_nn1_mxu.argtypes = [p, p, i, p, p, i, i, p, p, p]
+    lib.pm_nn1_mxu.restype = i
+    for fn in (lib.pm_tile_rows, lib.pm_t2_block_queries, lib.pm_t2_stage_rows,
+               lib.pm_t2_group_rows):
+        fn.argtypes = []
+        fn.restype = i
+    if ((lib.pm_tile_rows(), lib.pm_t2_block_queries(), lib.pm_t2_stage_rows(),
+         lib.pm_t2_group_rows())
+            != (TILE_ROWS, T2_BLOCK_QUERIES, T2_CHUNK_ROWS, GROUP_ROWS)):
+        raise RuntimeError("csrc/knn_variants.cu chunks, or T2's block, stage "
+                           "or group, differ from ops/knn_variants_cuda.py")
 
 
 LIBRARY = KernelLibrary("knn_variants.cu", _declare)
@@ -72,6 +89,14 @@ def _plain_nn1(query, query_mask, ref, ref_mask):
     return d[:, 0], i[:, 0]
 
 
+def t2_split(n: int, m: int, sms: int) -> tuple:
+    """T2's reference chunks over gridDim.y → ``(splits, chunk)``: K1's
+    rule for T2's block of ``T2_BLOCK_QUERIES`` queries, aiming at
+    ``T2_BLOCKS_PER_SM``, chunks of whole ``T2_CHUNK_ROWS``."""
+    return _split(n, m, sms, aim=T2_BLOCKS_PER_SM, block=T2_BLOCK_QUERIES,
+                  rows=T2_CHUNK_ROWS)
+
+
 def _launch(name, query, query_mask, ref, ref_mask):
     lib = build()
     q = query.contiguous()
@@ -85,16 +110,16 @@ def _launch(name, query, query_mask, ref, ref_mask):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     head = (q.data_ptr(), qm.data_ptr(), n, r.data_ptr(), rm.data_ptr(), m, dim)
     tail = (out_d.data_ptr(), out_i.data_ptr(), stream)
-    if name == "chunked":
-        splits, chunk = _split(n, m, _sms(q.device))
+    if name == "mxu":
+        err = lib.pm_nn1_mxu(*head, *tail)
+    else:       # T1 and T2: partials per reference chunk, merged in order
+        chunked = name == "chunked"
+        splits, chunk = (_split if chunked else t2_split)(n, m, _sms(q.device))
         part_d = torch.empty((splits, n), dtype=torch.float32, device=q.device)
         part_i = torch.empty((splits, n), dtype=torch.int32, device=q.device)
-        err = lib.pm_nn1_chunked(*head, splits, chunk, part_d.data_ptr(),
-                                 part_i.data_ptr(), *tail)
-    elif name == "transposed":
-        err = lib.pm_nn1_transposed(*head, *tail)
-    else:
-        err = lib.pm_nn1_mxu(*head, *tail)
+        launch = lib.pm_nn1_chunked if chunked else lib.pm_nn1_transposed
+        err = launch(*head, splits, chunk, part_d.data_ptr(), part_i.data_ptr(),
+                     *tail)
     LIBRARY.check(err, f"1-NN {name} kernel")
     return out_d, out_i
 
@@ -111,7 +136,8 @@ def knn1_chunked(query, query_mask, ref, ref_mask):
 
 
 def knn1_transposed(query, query_mask, ref, ref_mask):
-    """T2: exact 1-NN, eight queries a thread, 2048 a block →
+    """T2: exact 1-NN, four queries a thread, 512 a block, the reference
+    cut into chunks over the grid (:func:`t2_split`) and merged in order →
     ``(d2 [N], id [N])``, K1's result bit for bit."""
     _check(query, query_mask, ref, ref_mask)
     if query.device.type == "cpu":

@@ -34,8 +34,10 @@ position wins among equal distances, the XLA fallback's ``argmin`` /
 
 T4 and T5 are the ablations of ``tools_torch/tile_kernel_micro.py``: K7's
 per-tile function without the id (per query, the minimum d² over its
-tile's candidates) on K7's own table, eight tiles per block in 2048-column
-stages (T4) or one tile per block over its whole list at once (T5).
+tile's candidates) on K7's own table, of any M: T4 with four queries a
+thread and the tables staged in double-buffered ``cp.async`` stages
+(:func:`t4_team` sets its tiles a block), T5 one tile per block over its
+whole list at once.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises. There is no fallback between the two. Each
@@ -58,7 +60,8 @@ __all__ = ["tile_sweep", "tile_sweep_k", "tile_sweep_plain",
            "tile_sweep_parents_plain", "tile_sweep_k_parents_plain",
            "tile_min_only", "tile_min_one", "tile_min_plain", "build",
            "LIBRARY", "TILE_KNN_MAX", "DPAD", "PEN_ROW", "CID_ROW", "TEAMS",
-           "MIN_ONE_MAX", "reset_launch_counts"]
+           "MIN_ONE_MAX", "T4_THREADS", "T4_QUERIES", "T4_COLS", "t4_team",
+           "reset_launch_counts"]
 
 #: largest k of the top-k tile sweep K8 (as ``tilesweep.TILE_KNN_MAX``)
 TILE_KNN_MAX = 32
@@ -68,8 +71,9 @@ CID_ROW = 7      # candidate-table row of the original row id
 #: K7's warps a block that share a parent's virtual tiles, at TQ <= 64 (one
 #: warp for the parent's queries; csrc/tile.cu allows 1..4)
 TEAMS = 4
-#: T4's candidate columns per stage
-MIN_STAGE = 2048
+#: T4's threads a block, queries a thread and table columns a block stages
+#: over its tiles (csrc/tile.cu kT4Threads, kT4Q, kT4Cols)
+T4_THREADS, T4_QUERIES, T4_COLS = 256, 4, 1024
 #: T5's largest candidate list (its shared memory holds the whole list)
 MIN_ONE_MAX = 232448 // 16
 
@@ -81,12 +85,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pm_tile_nn1.restype = i
     lib.pm_tile_nnk.argtypes = [*sweep, i, i, p, p, p]
     lib.pm_tile_nnk.restype = i
-    lib.pm_tile_min.argtypes = [p, p, i, i, i, i, i, p, p]
+    lib.pm_tile_min.argtypes = [p, p, i, i, i, i, i, i, p, p]
     lib.pm_tile_min.restype = i
-    for name in ("pm_tile_max_teams", "pm_tile_min_stage", "pm_tile_min_one_max"):
+    for name in ("pm_tile_max_teams", "pm_tile_min_cols", "pm_tile_min_one_max"):
         getattr(lib, name).restype = i
-    if (lib.pm_tile_min_stage(), lib.pm_tile_min_one_max()) != (MIN_STAGE,
-                                                                MIN_ONE_MAX):
+    if (lib.pm_tile_min_cols(), lib.pm_tile_min_one_max()) != (T4_COLS,
+                                                               MIN_ONE_MAX):
         raise RuntimeError("csrc/tile.cu stages differ from ops/tile_cuda.py")
     if not 1 <= TEAMS <= lib.pm_tile_max_teams():
         raise RuntimeError(f"TEAMS {TEAMS} outside csrc/tile.cu's 1.."
@@ -101,14 +105,16 @@ def build() -> ctypes.CDLL:
     return LIBRARY.load()
 
 
-def _check(q, cand_t, dim: int) -> None:
+def _check(q, cand_t, dim: int, multiple: int = 128) -> None:
+    """Per-tile inputs: ``q [T, TQ, 8]``, ``cand_t [T, 8, M]``, M a
+    multiple of ``multiple`` (K7, K8: 128; T4, T5 take any M)."""
     if q.dtype != torch.float32 or q.ndim != 3 or q.shape[2] != DPAD:
         raise ValueError(f"q must be float32 [T, TQ, {DPAD}], got {q.dtype} "
                          f"{tuple(q.shape)}")
     if (cand_t.dtype != torch.float32 or cand_t.ndim != 3
-            or cand_t.shape[:2] != (q.shape[0], DPAD) or cand_t.shape[2] % 128):
+            or cand_t.shape[:2] != (q.shape[0], DPAD) or cand_t.shape[2] % multiple):
         raise ValueError(f"cand_t must be float32 [{q.shape[0]}, {DPAD}, M] "
-                         f"with M a multiple of 128, got {cand_t.dtype} "
+                         f"with M a multiple of {multiple}, got {cand_t.dtype} "
                          f"{tuple(cand_t.shape)}")
     if dim not in (2, 3):
         raise ValueError(f"dim must be 2 or 3, got {dim}")
@@ -508,8 +514,19 @@ def tile_min_plain(q, cand_t, dim: int):
     return out
 
 
-def _launch_min(fn, q, cand_t, dim: int, tiles_per_block: int):
-    _check(q, cand_t, dim)
+def t4_team(tq: int) -> int:
+    """T4's threads a tile: the fewest of 8, 16, .., ``T4_THREADS`` whose
+    ``T4_QUERIES`` queries each cover ``tq``; a block holds
+    ``T4_THREADS // team`` tiles, and a tile of more queries is cut into
+    slices of ``T4_QUERIES * T4_THREADS`` on the grid."""
+    team = 8
+    while team * T4_QUERIES < tq and team < T4_THREADS:
+        team *= 2
+    return team
+
+
+def _launch_min(fn, q, cand_t, dim: int, kernel: int):
+    _check(q, cand_t, dim, multiple=1)
     if q.device.type == "cpu":
         return tile_min_plain(q, cand_t, dim)
     lib = build()
@@ -517,17 +534,19 @@ def _launch_min(fn, q, cand_t, dim: int, tiles_per_block: int):
     T, tq, _ = q.shape
     out = torch.empty((T, tq), dtype=torch.float32, device=q.device)
     err = lib.pm_tile_min(q.data_ptr(), cand_t.data_ptr(), T, tq,
-                          cand_t.shape[2], dim, tiles_per_block, out.data_ptr(),
+                          cand_t.shape[2], dim, kernel, t4_team(tq),
+                          out.data_ptr(),
                           torch.cuda.current_stream(q.device).cuda_stream)
-    LIBRARY.check(err, f"tile min-only kernel ({tiles_per_block} tiles a block)")
+    LIBRARY.check(err, f"tile min-only kernel T{kernel}")
     fn.launches += 1
     return out
 
 
 def tile_min_only(q, cand_t, dim: int):
-    """T4: each query's minimum d² over its tile's candidates, eight tiles
-    a block, 2048 candidate columns a stage → ``d2 [T, TQ]``."""
-    return _launch_min(tile_min_only, q, cand_t, dim, 8)
+    """T4: each query's minimum d² over its tile's candidates, four queries
+    a thread, the tables staged by ``cp.async`` through two buffers →
+    ``d2 [T, TQ]``."""
+    return _launch_min(tile_min_only, q, cand_t, dim, 4)
 
 
 def tile_min_one(q, cand_t, dim: int):
@@ -536,7 +555,7 @@ def tile_min_one(q, cand_t, dim: int):
     if cand_t.shape[-1] > MIN_ONE_MAX:
         raise ValueError(f"T5 takes at most {MIN_ONE_MAX} candidates a tile, "
                          f"got {cand_t.shape[-1]}")
-    return _launch_min(tile_min_one, q, cand_t, dim, 1)
+    return _launch_min(tile_min_one, q, cand_t, dim, 5)
 
 
 def reset_launch_counts() -> None:

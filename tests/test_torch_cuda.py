@@ -917,15 +917,27 @@ def test_k10_k11_offsets_equal_plain(cuda, n, m, offset):
 
 
 @pytest.mark.parametrize("T,tq,m,dim", [(37, 64, 1024, 3), (5, 300, 640, 3),
-                                        (9, 50, 1152, 2), (20, 256, 4096, 3)])
+                                        (9, 50, 1152, 2), (20, 256, 4096, 3),
+                                        (11, 24, 1001, 3), (6, 20, 30, 2),
+                                        (3, 1100, 130, 3), (13, 64, 100, 2),
+                                        (17, 5, 4, 3)])
 def test_t4_t5_equal_plain_and_k7(cuda, T, tq, m, dim):
+    """T4 and T5 equal their plain version and, where K7 takes the table
+    (M a multiple of 128), K7's d²: T4 at M % 4 != 0 (its 4-byte copies),
+    M under one stage, T not a multiple of its tiles a block, TQ under a
+    warp and over one slice (1024), 2-D, and a table not 16-byte aligned."""
     q, cand = _tile_inputs(T + tq, T, tq, m, dim, cuda)
     d4 = tile_cuda.tile_min_only(q, cand, dim)
     d5 = tile_cuda.tile_min_one(q, cand, dim)
     dp = tile_cuda.tile_min_plain(q, cand, dim)
-    d7, _ = tile_cuda.tile_sweep(q, cand, dim)
+    shifted = torch.empty(cand.numel() + 1, device=cuda)[1:].view(cand.shape)
+    shifted.copy_(cand)
+    d4u = tile_cuda.tile_min_only(q, shifted, dim)
     torch.cuda.synchronize()
-    assert torch.equal(d4, dp) and torch.equal(d5, dp) and torch.equal(d7, dp)
+    assert torch.equal(d4, dp) and torch.equal(d5, dp) and torch.equal(d4u, dp)
+    if m % 128 == 0:
+        d7, _ = tile_cuda.tile_sweep(q, cand, dim)
+        assert torch.equal(d7, dp)
 
 
 def test_v1_batch_equals_survivor_route(cuda, monkeypatch):
@@ -971,14 +983,24 @@ def test_v1_batch_equals_survivor_route(cuda, monkeypatch):
         np.testing.assert_allclose(T, Ts, atol=1e-6)
 
 
-@pytest.mark.parametrize("n,m,dim", [(3000, 5003, 3), (20480, 12459, 3),
-                                     (333, 1234, 2), (1, 1, 3), (0, 7, 3),
-                                     (7, 0, 3), (2049, 300, 3)])
-def test_t1_t2_t3_equal_plain(cuda, n, m, dim):
+@pytest.mark.parametrize("n,m,dim,edges", [
+    (3000, 5003, 3, False), (20480, 12459, 3, False), (333, 1234, 2, False),
+    (1, 1, 3, False), (0, 7, 3, False), (7, 0, 3, False), (2049, 300, 3, False),
+    (4000, 9000, 3, True), (700, 5000, 2, True), (60000, 7003, 3, True)])
+def test_t1_t2_t3_equal_plain(cuda, n, m, dim, edges):
     """T1 and T2 equal K1 and their plain version bit for bit, ties
-    included; T3 equals its plain version bit for bit."""
+    included; T3 equals its plain version bit for bit. With ``edges``, at
+    T2's own chunks (``t2_split``; several, the last partial): rows at the
+    start of the second chunk repeat the first chunk's last rows (ties
+    across a chunk boundary) and the third chunk is all masked."""
     q, qm, r, rm = _inputs(n, m, n + m + dim, cuda)
     q, r = q[:, :dim].contiguous(), r[:, :dim].contiguous()
+    if edges:
+        splits, chunk = kv.t2_split(n, m, kc._sms(q.device))
+        assert splits >= 3 and m % chunk
+        r[chunk:chunk + 200] = r[chunk - 200:chunk]
+        rm[chunk:chunk + 200] = rm[chunk - 200:chunk]
+        rm[2 * chunk:3 * chunk] = False
     d1, i1 = kc.knn1(q, qm, r, rm)
     for fn in (kv.knn1_chunked, kv.knn1_transposed):
         d, i = fn(q, qm, r, rm)

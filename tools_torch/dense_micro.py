@@ -96,14 +96,16 @@ def _stable_merge(ld, li, d, i):
     return sd[..., :kk], torch.gather(torch.cat([li, i], -1), -1, order)[..., :kk]
 
 
-def _emulate_pair(q, qm, r, rm, k, splits, chunk):
+def _emulate_pair(q, qm, r, rm, k, splits, chunk, block=0):
     """One (query set, reference) pair → (d [N, k], i [N, k], taken,
-    units): the kernels' partials per chunk, merged in chunk order."""
+    units): the kernels' partials per chunk, merged in chunk order.
+    ``block``: the queries a block of ``THREADS`` threads takes, where not
+    ``kc.block_queries`` (T2's, tools_torch/knn_micro.py)."""
     dev = q.device
     inf = float("inf")
     n, m = q.shape[0], r.shape[0]
     kk = 0 if k == 1 else kc.knnk_list(k)
-    qb = kc.block_queries(kk)
+    qb = block or kc.block_queries(kk)
     g_rows = kc.GROUP_ROWS
     n_pad = max(qb, -(-n // qb) * qb)
     q3 = torch.zeros((n_pad, 3), dtype=torch.float32, device=dev)

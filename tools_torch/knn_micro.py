@@ -24,6 +24,9 @@ reported once.
 Needs a CUDA device. ``--device cpu`` runs the wrappers' plain versions, at
 2048 x 1246 unless N M are given, to check the script; its times are the
 host's clock and no measure of the card.
+
+:func:`emulate_t2` is T2's schedule in plain torch, which
+tests/test_torch_variant_schedule.py holds to the plain version bit for bit.
 """
 
 from __future__ import annotations
@@ -89,6 +92,23 @@ def check(torch, name, d, i, ref, q, qm, r, rm) -> dict:
             "id_agreement": float((i[v] == i1[v]).float().mean()),
             "id_agreement_unique": float((i[unique] == i1[unique]).float().mean()),
             "unique_share": float(unique[v].float().mean())}
+
+
+def emulate_t2(q, qm, r, rm, sms: int = 132):
+    """T2's schedule in plain torch, on any device → ``(d [N], id [N])``:
+    the reference cut into chunks by ``knn_variants_cuda.t2_split`` for
+    ``sms`` SMs, blocks of ``T2_BLOCK_QUERIES`` queries (a warp whose
+    queries are all masked does not sweep), ``x + pen`` staging, groups of
+    8 rows folded with fminf, the best group's first row equal to its
+    minimum, the chunks merged in order with a strict '<'. It is K1's
+    schedule (tools_torch/dense_micro.py) at T2's block and split."""
+    from libpointmatcher_tpu_torch.ops import knn_variants_cuda as kv
+    from tools_torch import dense_micro
+
+    splits, chunk = kv.t2_split(q.shape[0], r.shape[0], sms)
+    d, i, _, _ = dense_micro._emulate_pair(q, qm, r, rm, 1, splits, chunk,
+                                           block=kv.T2_BLOCK_QUERIES)
+    return d[:, 0], i[:, 0]
 
 
 def _time(torch, fn, reps, device) -> float:

@@ -9,7 +9,7 @@ The default shape is the JAX tool's: T = 2048 tiles of TQ = 256 queries,
 each against its own M = 4096 candidates (the 4·10^5-point assignment),
 uniform in [-5, 5]^3 from a seed, every candidate real (pen 0). The control
 is K1 over the T·TQ query rows against M references, the same number of
-(query, candidate) cells. T4 (eight tiles a block, 2048-column stages) and
+(query, candidate) cells. T4 (four queries a thread, ``cp.async`` stages) and
 T5 (one tile a block, its whole list at once) compute K7's d² without the
 id; the script checks that both equal K7's d² bit for bit before it times
 anything. Each kernel is timed with CUDA events over ``--reps`` launches
@@ -19,6 +19,9 @@ the shape, and per kernel its ms and cells per second.
 Needs a CUDA device. ``--device cpu`` runs the wrappers' plain versions at
 the given shape, to check the script; its times are the host's clock and no
 measure of the card.
+
+:func:`emulate_t4` is T4's schedule in plain torch, which
+tests/test_torch_variant_schedule.py holds to the plain version bit for bit.
 """
 
 from __future__ import annotations
@@ -52,6 +55,50 @@ def make_inputs(torch, tiles, tq, m, device, seed=0):
     rd = rng.uniform(-5, 5, (m, 3)).astype(np.float32)
     t = lambda a: torch.as_tensor(a, device=device)
     return t(q), t(cand), t(qd), t(rd)
+
+
+def emulate_t4(q, cand, dim):
+    """T4's schedule in plain torch, on any device → ``d2 [T, TQ]``: the
+    tiles in blocks of ``T4_THREADS // team`` (``tile_cuda.t4_team``; the
+    last block's missing tiles and each tile's query slots past TQ swept
+    as dead), each table staged ``4 * team`` columns at a time, every four
+    columns copied with the columns past M zero-filled and then folded (x +
+    pen, +inf past M), the stage swept over whole groups of 8 columns, each
+    group folded with fminf and each query's minimum kept with fminf."""
+    import torch
+
+    from libpointmatcher_tpu_torch.ops import tile_cuda as tc
+
+    T, tq, _ = q.shape
+    m = cand.shape[2]
+    team = tc.t4_team(tq)
+    per_block, cols = tc.T4_THREADS // team, 4 * team
+    t_pad = -(-T // per_block) * per_block
+    slots = -(-tq // (tc.T4_QUERIES * team)) * tc.T4_QUERIES * team
+    inf = float("inf")
+    qs = torch.zeros((t_pad, slots, 3), dtype=torch.float32, device=q.device)
+    qs[:T, :tq, :dim] = q[..., :dim]
+    best = torch.full((t_pad, slots), inf, device=q.device)
+    for m0 in range(0, m, cols):
+        span = -(-min(cols, m - m0) // 8) * 8          # whole groups
+        tab = torch.zeros((t_pad, 4, span), dtype=torch.float32, device=q.device)
+        valid = min(span, m - m0)                      # zero-filled past M
+        tab[:T, :, :valid] = cand[:, [0, 1, 2, tc.PEN_ROW], m0:m0 + valid]
+        if dim == 2:
+            tab[:, 2] = 0.0
+        live = torch.zeros((t_pad, span), dtype=torch.bool, device=q.device)
+        live[:T, :valid] = True
+        x = torch.where(live, tab[:, 0] + tab[:, 3], inf)
+        dx = qs[..., 0, None] - x[:, None, :]
+        dy = qs[..., 1, None] - tab[:, None, 1]
+        dz = qs[..., 2, None] - tab[:, None, 2]
+        d = (dx * dx + dy * dy) + dz * dz               # [t_pad, slots, span]
+        for g in range(0, span, 8):
+            gm = d[..., g:g + 8]
+            for w in (4, 2, 1):
+                gm = torch.fmin(gm[..., :w], gm[..., w:2 * w])
+            best = torch.fmin(best, gm[..., 0])
+    return best[:T, :tq]
 
 
 def _time(torch, fn, reps, device) -> float:

@@ -1944,6 +1944,10 @@ def knn_variants(torch, kc, kv, seq_k1_inputs):
     for name in names:
         check_variant(torch, kc, kv, name, *seq_k1_inputs, "sequence K1 inputs")
     tool_inputs = knn_micro.make_inputs(torch, knn_micro.N, knn_micro.M, "cuda")
+    sms = kc._sms(tool_inputs[0].device)
+    log(f"[variants] reference chunks (splits, chunk) at the tool's shape: T2 "
+        f"{kv.t2_split(knn_micro.N, knn_micro.M, sms)}, T3 "
+        f"{kv.t3_split(knn_micro.N, knn_micro.M, sms)}")
     res = {name: check_variant(torch, kc, kv, name, *tool_inputs, "tool's shape")
            for name in names}
     reset_launch_counts()

@@ -13,8 +13,9 @@
 // fp32 issue rate bounds them, not memory: T1 and T2 issue at least 9
 // instructions a pair (the exact form may not fuse into FMAs; T2's eight
 // and the fminf of its group fold), twice the 67 TFLOP/s bound, the issue
-// floor. Each keeps every pair in registers; they differ in the schedule,
-// which is what the TPU variants explored:
+// floor; T3 at least 8 (its 7 and the fminf). Each keeps every pair in
+// registers; they differ in the schedule, which is what the TPU variants
+// explored:
 //
 // T1, per-lane accumulators with one reduction at the end. One thread owns
 //   one query; reference rows are staged through shared memory as float4
@@ -43,15 +44,37 @@
 //   device memory and takes the first whose d2 equals its best. A block
 //   whose queries are all masked does not sweep; a warp whose queries are
 //   all masked joins the barriers only.
-// T3, the matrix-product shape: a block owns 128 query rows and sweeps the
-//   reference in tiles of 128 columns. Query rows (transposed) and reference
-//   columns sit in shared memory; each thread forms an 8 x 8 register
-//   micro-tile of q.r over the d columns (a SIMT fp32 GEMM tile, no tensor
-//   cores: TF32 and bf16 would break the error bound), then d2 = (q2 + r2pen)
-//   - 2 q.r, each row's min and argmin over the tile by warp shuffles, and a
-//   strict '<' merge across tiles; clamped at 0 at the end. The TPU kernel's
-//   zero columns up to K = 128 add exact zeros and are not formed.
-//
+// T3, the matrix-product shape: a block owns 64 query rows, each thread
+//   (ty, tx) of its 16 x 16 the rows ty + 16 i (i < 4) in registers, and
+//   sweeps one chunk of the reference, cut over gridDim.y by K1's split rule
+//   for T3's block in whole 256-column stages (ops/knn_variants_cuda.py
+//   t3_split, aiming at 8 blocks an SM), so that a few thousand queries fill
+//   all 132 SMs. The chunk is staged 256 columns at a time as four float
+//   arrays x, y, z and r2pen through two buffers (the next stage loaded into
+//   registers while the current one is swept, stored into the other buffer
+//   after it, one barrier a stage). Each 128-column tile of a stage meets
+//   the rows in a 4 x 8 register micro-tile of q.r over the d columns (a
+//   SIMT fp32 GEMM tile, no tensor cores: TF32 and bf16 would not give the
+//   plain version's bits), the thread's columns 4 tx .. 4 tx + 3 and 64 +
+//   4 tx .. (two 16-byte loads an array); d2 = (q2 + r2pen) - 2 q.r. Per
+//   row the thread's 8 columns of a tile are one group: folded with fminf
+//   (one instruction a pair) and kept as (best, best tile) with a strict
+//   '<' once a group, no id per pair. After the chunk each row's best group
+//   is recomputed from device memory through the same functions and its
+//   first column equal to the best taken; the 16 threads of a row then
+//   reduce their (d2, id) lexicographically by shuffles, once a chunk. The
+//   per-chunk partials, unclamped, go to scratch the wrapper allocates; T1's
+//   merge takes them in chunk order with a strict '<' and only then clamps
+//   at 0 (a clamp per chunk would tie two negative minima at 0 and let the
+//   lower chunk win). A block whose queries are all masked does not sweep;
+//   a warp whose rows are all masked joins the barriers only. The TPU
+//   kernel's zero columns up to K = 128 add exact zeros and are not formed.
+//   Bound: 8 fp32 operations a pair (the 5 of the dot product, q2 + r2pen,
+//   and 2 dot folded into one fma with the subtraction) and the fminf; the
+//   inner loop issues 8.69 instructions a pair. Rows of 8 a thread (128 a
+//   block, 128 registers, two blocks an SM) were 13-15% slower at the
+//   tool's shape and 1% at K1's inputs (PERF.md, "Findings").
+
 // Exactness: T1 forms d2 = ((pen + dx*dx) + dy*dy) + dz*dz, T2 (dx*dx +
 // dy*dy) + dz*dz with dx taken against x + pen (K1's form), with explicitly
 // rounded intrinsics (no FMA contraction); for pen 0 both are the order of
@@ -60,8 +83,12 @@
 // that holds the chunk's minimum and its first row equal to it the lowest
 // index; fminf ignores NaN as '<' does. T3 forms
 // dot = (q0*r0 + q1*r1) + q2*r2 and d2 = (q2 + r2pen) - 2*dot with rounded
-// intrinsics in the order of knn_variants_cuda.knn1_mxu3_plain, and equals it
-// bit for bit. Every comparison is a strict '<' in increasing reference
+// intrinsics in the order of knn_variants_cuda.knn1_mxu3_plain, the last
+// step as fma(-2, dot, q2 + r2pen): 2 dot is exact (doubling rounds nothing,
+// subnormals included), so the fma's one rounding is the subtraction's, and
+// T3 equals the plain version bit for bit wherever 2 dot does not overflow
+// (|dot| < 2^127, coordinates below ~10^19; beyond it the plain version's
+// d2 is -inf or NaN). Every comparison is a strict '<' in increasing reference
 // order, or a (d2, id) lexicographic merge, so the lowest index wins a tie.
 // pen = +inf at a masked reference row keeps every sum at +inf. Outputs: d2
 // and id, (+inf, -1) for a masked query or one with no valid reference.
@@ -72,7 +99,7 @@
 
 namespace {
 
-constexpr int kBlock = 256;  // threads per block
+constexpr int kBlock = 256;  // T1: threads per block
 constexpr int kTile = 1024;  // reference rows per shared-memory stage (16 KB)
 constexpr int kAcc = 8;      // T1: accumulators per thread
 constexpr int kT2Threads = 128;  // T2: threads a block
@@ -81,8 +108,16 @@ constexpr int kT2Stage = 512;    // T2: rows per shared stage (2 x 6 KB)
 constexpr int kT2Group = 8;      // T2: rows per group (one fminf fold)
 constexpr int kT2RowsPerThread = kT2Stage / kT2Threads;
 static_assert(kT2Stage % kT2Group == 0 && kT2Group % 4 == 0, "whole float4 groups");
-constexpr int kT3 = 128;     // T3: query rows and reference columns per tile
-constexpr int kMicro = 8;    // T3: rows and columns of a thread's micro-tile
+constexpr int kT3Threads = 256;  // T3: threads a block, 16 x 16
+constexpr int kT3RowsPer = 4;    // T3: query rows of a thread's micro-tile
+constexpr int kT3Cols = 8;       // T3: its columns of a tile, one group
+constexpr int kT3MinBlocks = 3;  // T3: blocks an SM (launch bounds: 80 registers)
+constexpr int kT3Rows = 16 * kT3RowsPer;  // T3: query rows a block
+constexpr int kT3Tile = 16 * kT3Cols;     // T3: reference columns a tile
+constexpr int kT3Stage = 256;    // T3: columns a shared stage (2 x 4 KB)
+static_assert(kT3Cols == 8, "a thread's group: two runs of four columns");
+static_assert(kT3Stage == kT3Threads && kT3Stage % kT3Tile == 0,
+              "a thread stages one column, a stage whole tiles");
 
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
   return a < b ? a : b;
@@ -189,10 +224,11 @@ nn1_chunked_partial(const float* __restrict__ q, int n,
   }
 }
 
-// T1 and T2: merge the chunks in increasing order with a strict '<'.
+// T1, T2 and T3: merge the chunks in increasing order with a strict '<',
+// then (T3, `clamp`) clamp the minimum at 0.
 __global__ void nn1_chunked_combine(const float* __restrict__ part_d,
                                     const int* __restrict__ part_i, int n,
-                                    int splits,
+                                    int splits, int clamp,
                                     const uint8_t* __restrict__ qmask,
                                     float* __restrict__ out_d,
                                     int* __restrict__ out_i) {
@@ -207,6 +243,7 @@ __global__ void nn1_chunked_combine(const float* __restrict__ part_d,
       besti = part_i[(int64_t)s * n + qi];
     }
   }
+  if (clamp) best = fmaxf(best, 0.0f);
   const bool qv = qmask[qi] != 0;
   out_d[qi] = qv ? best : CUDART_INF_F;
   out_i[qi] = (qv && isfinite(best)) ? besti : -1;
@@ -399,110 +436,156 @@ __device__ __forceinline__ float dot3(float x0, float x1, float x2, float y0,
   return DIM == 3 ? __fadd_rn(s, __fmul_rn(x2, y2)) : s;
 }
 
-// T3: thread (ty, tx) = (threadIdx.x / 16, threadIdx.x % 16) owns the tile's
-// rows ty + 16 i and columns tx + 16 j, i, j < 8; the 16 threads of a row
-// group are one half of a warp.
+// T3's d2 of one pair: dot = (q0 r0 + q1 r1) + q2 r2 and (q2 + r2pen) -
+// 2 dot, each step rounded, the last as one fma (see the header).
 template <int DIM>
-__global__ void __launch_bounds__(kBlock)
+__device__ __forceinline__ float mxu_d2(float qx, float qy, float qz, float q2,
+                                        float rx, float ry, float rz, float rp) {
+  return __fmaf_rn(-2.0f, dot3<DIM>(qx, qy, qz, rx, ry, rz), __fadd_rn(q2, rp));
+}
+
+// Reference column j as T3 stages it: (x, y, z, r2pen), r2pen = r.r or
+// +inf at a masked row; (0, 0, 0, +inf) at or past j1.
+template <int DIM>
+__device__ __forceinline__ float4 mxu_column(const float* __restrict__ ref,
+                                             const uint8_t* __restrict__ rmask,
+                                             int64_t j, int64_t j1) {
+  float4 c = make_float4(0.0f, 0.0f, 0.0f, CUDART_INF_F);
+  if (j < j1) {
+    c.x = ref[j * DIM];
+    c.y = ref[j * DIM + 1];
+    if (DIM == 3) c.z = ref[j * DIM + 2];
+    if (rmask[j] != 0) c.w = dot3<DIM>(c.x, c.y, c.z, c.x, c.y, c.z);
+  }
+  return c;
+}
+
+// Column e (0..7) of thread tx's group in the tile at t0: 4 tx + e, then
+// 64 + 4 tx + e - 4, in increasing order.
+__device__ __forceinline__ int64_t micro_column(int64_t t0, int tx, int e) {
+  return t0 + (e < 4 ? 4 * tx + e : kT3Tile / 2 + 4 * tx + e - 4);
+}
+
+// T3: (min, argmin) of each of the block's kT3Rows query rows over one
+// reference chunk per blockIdx.y, unclamped: thread (ty, tx) = (threadIdx.x
+// / 16, threadIdx.x % 16) holds rows ty + 16 i (i < kT3RowsPer); the 16
+// threads of a row group are one half of a warp.
+template <int DIM>
+__global__ void __launch_bounds__(kT3Threads, kT3MinBlocks)
 nn1_mxu(const float* __restrict__ q, const uint8_t* __restrict__ qmask, int n,
         const float* __restrict__ ref, const uint8_t* __restrict__ rmask, int m,
-        float* __restrict__ out_d, int* __restrict__ out_i) {
-  __shared__ float qs[4][kT3];  // x, y, z, q2 of the block's rows
-  __shared__ float rs[4][kT3];  // x, y, z, r2pen of the tile's columns
+        int chunk, float* __restrict__ part_d, int* __restrict__ part_i) {
+  __shared__ __align__(16) float s_r[2][4][kT3Stage];  // x, y, z, r2pen
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
-  const int64_t row0 = (int64_t)blockIdx.x * kT3;
-  if (threadIdx.x < kT3) {
-    const int64_t i = row0 + threadIdx.x;
-    float x = 0.0f, y = 0.0f, z = 0.0f;
-    if (i < n) {
-      x = q[i * DIM];
-      y = q[i * DIM + 1];
-      if (DIM == 3) z = q[i * DIM + 2];
-    }
-    qs[0][threadIdx.x] = x;
-    qs[1][threadIdx.x] = y;
-    qs[2][threadIdx.x] = z;
-    qs[3][threadIdx.x] = dot3<DIM>(x, y, z, x, y, z);
-  }
-  __syncthreads();
-  float qx[kMicro], qy[kMicro], qz[kMicro], q2[kMicro], best[kMicro];
-  int besti[kMicro];
+  const int64_t row0 = (int64_t)blockIdx.x * kT3Rows;
+  float qx[kT3RowsPer], qy[kT3RowsPer], qz[kT3RowsPer], q2[kT3RowsPer];
+  float best[kT3RowsPer];
+  int grp[kT3RowsPer];                // the best group's tile
+  bool live = false;
 #pragma unroll
-  for (int i = 0; i < kMicro; ++i) {
-    const int r = ty + 16 * i;
-    qx[i] = qs[0][r];
-    qy[i] = qs[1][r];
-    qz[i] = qs[2][r];
-    q2[i] = qs[3][r];
+  for (int i = 0; i < kT3RowsPer; ++i) {
+    const int64_t r = row0 + ty + 16 * i;
+    qx[i] = qy[i] = qz[i] = 0.0f;
+    if (r < n) {
+      qx[i] = q[r * DIM];
+      qy[i] = q[r * DIM + 1];
+      if (DIM == 3) qz[i] = q[r * DIM + 2];
+      live |= qmask[r] != 0;
+    }
+    q2[i] = dot3<DIM>(qx[i], qy[i], qz[i], qx[i], qy[i], qz[i]);
     best[i] = CUDART_INF_F;
-    besti[i] = -1;
+    grp[i] = -1;
   }
-  for (int64_t t0 = 0; t0 < m; t0 += kT3) {
+  const int64_t j0 = (int64_t)blockIdx.y * chunk;
+  const int64_t j1 = min64(m, j0 + chunk);
+  const int stages = j1 > j0 ? (int)((j1 - j0 + kT3Stage - 1) / kT3Stage) : 0;
+  if (__syncthreads_or(live) && stages > 0) {
+    const bool warp_live = __any_sync(0xffffffffu, live);
+    auto store = [&](float4 c, int b) {
+      s_r[b][0][threadIdx.x] = c.x;
+      s_r[b][1][threadIdx.x] = c.y;
+      s_r[b][2][threadIdx.x] = c.z;
+      s_r[b][3][threadIdx.x] = c.w;
+    };
+    float4 col = mxu_column<DIM>(ref, rmask, j0 + threadIdx.x, j1);
+    store(col, 0);
     __syncthreads();
-    if (threadIdx.x < kT3) {
-      const int64_t j = t0 + threadIdx.x;
-      float x = 0.0f, y = 0.0f, z = 0.0f, w = CUDART_INF_F;
-      if (j < m) {
-        x = ref[j * DIM];
-        y = ref[j * DIM + 1];
-        if (DIM == 3) z = ref[j * DIM + 2];
-        if (rmask[j] != 0) w = dot3<DIM>(x, y, z, x, y, z);
-      }
-      rs[0][threadIdx.x] = x;
-      rs[1][threadIdx.x] = y;
-      rs[2][threadIdx.x] = z;
-      rs[3][threadIdx.x] = w;
-    }
-    __syncthreads();
-    float rx[kMicro], ry[kMicro], rz[kMicro], rp[kMicro];
+    for (int s = 0; s < stages; ++s) {
+      const int64_t t0 = j0 + (int64_t)s * kT3Stage;
+      // the next stage's loads are in flight while this one is swept
+      const bool more = s + 1 < stages;
+      if (more) col = mxu_column<DIM>(ref, rmask, t0 + kT3Stage + threadIdx.x, j1);
+      if (warp_live) {
+#pragma unroll 1
+        for (int h = 0; h < kT3Stage / kT3Tile; ++h) {
+          // the thread's 8 columns of the tile, two 16-byte loads an array
+          auto load = [&](int a, float (&v)[kT3Cols]) {
+            const float4* src =
+                reinterpret_cast<const float4*>(s_r[s & 1][a] + h * kT3Tile);
+            const float4 lo = src[tx], hi = src[kT3Tile / 8 + tx];
+            v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
+            v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
+          };
+          float rx[kT3Cols], ry[kT3Cols], rz[kT3Cols], rp[kT3Cols];
+          load(0, rx);
+          load(1, ry);
+          load(2, rz);
+          load(3, rp);
 #pragma unroll
-    for (int j = 0; j < kMicro; ++j) {
-      const int c = tx + 16 * j;
-      rx[j] = rs[0][c];
-      ry[j] = rs[1][c];
-      rz[j] = rs[2][c];
-      rp[j] = rs[3][c];
-    }
+          for (int i = 0; i < kT3RowsPer; ++i) {
+            float d[kT3Cols];
 #pragma unroll
-    for (int i = 0; i < kMicro; ++i) {
-      float tb = CUDART_INF_F;
-      int tj = -1;
+            for (int j = 0; j < kT3Cols; ++j)
+              d[j] = mxu_d2<DIM>(qx[i], qy[i], qz[i], q2[i], rx[j], ry[j], rz[j],
+                                 rp[j]);
 #pragma unroll
-      for (int j = 0; j < kMicro; ++j) {
-        const float dot = dot3<DIM>(qx[i], qy[i], qz[i], rx[j], ry[j], rz[j]);
-        const float d = __fsub_rn(__fadd_rn(q2[i], rp[j]), __fmul_rn(2.0f, dot));
-        if (d < tb) {
-          tb = d;
-          tj = (int)(t0 + tx + 16 * j);
+            for (int w = kT3Cols / 2; w >= 1; w /= 2) {
+#pragma unroll
+              for (int j = 0; j < w; ++j) d[j] = fminf(d[j], d[j + w]);
+            }
+            if (d[0] < best[i]) {
+              best[i] = d[0];
+              grp[i] = (int)(t0 + h * kT3Tile);
+            }
+          }
         }
       }
-      // the row's min over the tile, across its 16 threads
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) {
-        const float od = __shfl_xor_sync(0xffffffffu, tb, off, 16);
-        const int oj = __shfl_xor_sync(0xffffffffu, tj, off, 16);
-        if (before(od, oj, tb, tj)) {
-          tb = od;
-          tj = oj;
-        }
-      }
-      if (tb < best[i]) {
-        best[i] = tb;
-        besti[i] = tj;
-      }
+      // the other buffer was last read before the previous barrier
+      if (more) store(col, (s + 1) & 1);
+      __syncthreads();
     }
   }
-  if (tx == 0) {
+  // each row's first column of its best group equal to its best, then the
+  // lowest (d2, id) of the row's 16 threads (unrolled: the rows' registers
+  // are indexed by constants only)
 #pragma unroll
-    for (int i = 0; i < kMicro; ++i) {
-      const int64_t r = row0 + ty + 16 * i;
-      if (r < n) {
-        const float d = fmaxf(best[i], 0.0f);
-        const bool qv = qmask[r] != 0;
-        out_d[r] = qv ? d : CUDART_INF_F;
-        out_i[r] = (qv && isfinite(d)) ? besti[i] : -1;
+  for (int i = 0; i < kT3RowsPer; ++i) {
+    int id = -1;
+    if (grp[i] >= 0) {
+      for (int e = 0; e < kT3Cols; ++e) {
+        const int64_t j = micro_column(grp[i], tx, e);
+        const float4 c = mxu_column<DIM>(ref, rmask, j, j1);
+        if (mxu_d2<DIM>(qx[i], qy[i], qz[i], q2[i], c.x, c.y, c.z, c.w) == best[i]) {
+          id = (int)j;
+          break;
+        }
       }
+    }
+    float bd = best[i];
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) {
+      const float od = __shfl_xor_sync(0xffffffffu, bd, off, 16);
+      const int oi = __shfl_xor_sync(0xffffffffu, id, off, 16);
+      if (before(od, oi, bd, id)) {
+        bd = od;
+        id = oi;
+      }
+    }
+    const int64_t r = row0 + ty + 16 * i;
+    if (tx == 0 && r < n) {
+      part_d[(int64_t)blockIdx.y * n + r] = bd;
+      part_i[(int64_t)blockIdx.y * n + r] = id;
     }
   }
 }
@@ -529,7 +612,7 @@ int pm_nn1_chunked(const float* q, const uint8_t* qmask, int n,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   nn1_chunked_combine<<<(n + 255) / 256, 256, 0, st>>>(
-      part_d, part_i, n, splits, qmask, out_d, out_i);
+      part_d, part_i, n, splits, 0, qmask, out_d, out_i);
   return cudaGetLastError();
 }
 
@@ -553,24 +636,36 @@ int pm_nn1_transposed(const float* q, const uint8_t* qmask, int n,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   nn1_chunked_combine<<<(n + 255) / 256, 256, 0, st>>>(
-      part_d, part_i, n, splits, qmask, out_d, out_i);
+      part_d, part_i, n, splits, 0, qmask, out_d, out_i);
   return cudaGetLastError();
 }
 
+// T3's queries a block and columns a shared stage (its chunks'
+// granularity); splits * chunk >= m; part_d and part_i hold splits * n
+// entries.
+int pm_t3_block_queries() { return kT3Rows; }
+int pm_t3_stage_cols() { return kT3Stage; }
+
 int pm_nn1_mxu(const float* q, const uint8_t* qmask, int n, const float* ref,
-               const uint8_t* rmask, int m, int dim, float* out_d, int* out_i,
+               const uint8_t* rmask, int m, int dim, int splits, int chunk,
+               float* part_d, int* part_i, float* out_d, int* out_i,
                void* stream) {
   if (n == 0) return cudaSuccess;
-  const unsigned blocks = (unsigned)((n + kT3 - 1) / kT3);
+  if (chunk % kT3Stage != 0) return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid((unsigned)((n + kT3Rows - 1) / kT3Rows), (unsigned)splits);
   if (dim == 3)
-    nn1_mxu<3><<<blocks, kBlock, 0, st>>>(q, qmask, n, ref, rmask, m, out_d,
-                                          out_i);
+    nn1_mxu<3><<<grid, kT3Threads, 0, st>>>(q, qmask, n, ref, rmask, m, chunk,
+                                            part_d, part_i);
   else if (dim == 2)
-    nn1_mxu<2><<<blocks, kBlock, 0, st>>>(q, qmask, n, ref, rmask, m, out_d,
-                                          out_i);
+    nn1_mxu<2><<<grid, kT3Threads, 0, st>>>(q, qmask, n, ref, rmask, m, chunk,
+                                            part_d, part_i);
   else
     return cudaErrorInvalidValue;
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  nn1_chunked_combine<<<(n + 255) / 256, 256, 0, st>>>(
+      part_d, part_i, n, splits, 1, qmask, out_d, out_i);
   return cudaGetLastError();
 }
 

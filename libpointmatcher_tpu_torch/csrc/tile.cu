@@ -107,17 +107,30 @@
 //       the thread's four queries, each folding the group's d2 with fminf
 //       and its minimum into the query's with one more: 9 instructions a
 //       pair.
-//   T5  tile_min<1>      <- _one       (tile_kernel_micro.py:131, main.one)
-//       one tile per block, a query a thread, its whole candidate list
-//       staged in one pass as float4 (x, y, z, pen) (dynamic shared memory,
-//       16 bytes a column, so M <= 14528), ((pen + dx*dx) + dy*dy) + dz*dz
-//       and a fminf a pair.
-// Both equal K7's d2 bit for bit (T4 in K7's form against x + pen, T5 in
-// the plain version's order; the two agree for pen 0 and +inf, as the
-// header above says). They read 16 bytes per candidate column (x, y, z,
-// pen) and do 9 operations per pair: bound by the fp32 issue rate on full
-// tiles, at least 9 instructions a pair, twice the 67 TFLOP/s bound (the
-// issue floor).
+//   T5  tile_min_one     <- _one       (tile_kernel_micro.py:131, main.one)
+//       one tile a block, its whole candidate list in one step: kT5Threads
+//       threads as `team` x `slices` (team the fewest threads, 8..256, a
+//       power of two, whose four queries each cover TQ, slices = 256 /
+//       team: tile_cuda.t5_shape; the tool's TQ 256: 64 x 4, K7's 64: 16 x
+//       16); a tile of more than 1024 queries in slices on gridDim.y. Slice
+//       s owns a contiguous run of whole groups of the tile's columns. Its
+//       team copies that run's x, y and z rows by 16-byte cp.async (4-byte
+//       where M % 4 != 0 or the table is not 16-byte aligned; zero-filled
+//       past M) into three arrays of dynamic shared memory, 12 bytes a
+//       column, in one commit group (two, the second half in flight while
+//       the first is swept, were no faster: PERF.md, "Findings"), folds the
+//       penalty into its x (x + pen read from device memory, +inf past M)
+//       and, after one team barrier, sweeps the run. The sweep is T4's: six
+//       16-byte loads a group for the thread's four queries, 9 instructions
+//       a pair. Each query's minima over the slices are then taken with
+//       fminf through shared memory. The list and the scratch of that
+//       reduction fit in 232,448 bytes up to M = 19024 (kMinOneMax); at the
+//       tool's M = 4096 a block takes 52 KB, four blocks an SM.
+// Both equal K7's d2 bit for bit (in K7's form against x + pen; it agrees
+// with the plain version's order for pen 0 and +inf, as the header above
+// says). They read 16 bytes per candidate column (x, y, z, pen) and do 9
+// operations per pair: bound by the fp32 issue rate on full tiles, at least
+// 9 instructions a pair, twice the 67 TFLOP/s bound (the issue floor).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -125,7 +138,7 @@
 
 namespace {
 
-constexpr int kMaxThreads = 256;  // K8's, T4's and T5's threads a block
+constexpr int kMaxThreads = 256;  // K8's threads a block
 constexpr int kMaxTeams = 4;      // K7's teams of threads a block
 constexpr int kTeamThreads = 128; // K7's threads a block (a parent's queries
                                   // two a thread, or its teams of a warp)
@@ -137,27 +150,20 @@ constexpr int kPenRow = 6;
 constexpr int kCidRow = 7;
 constexpr int kRows = 8;
 constexpr int kT4Threads = 256;   // T4's threads a block
-constexpr int kT4Q = 4;           // T4's queries a thread, of one tile
+constexpr int kT4Q = 4;           // T4's and T5's queries a thread, of one tile
 constexpr int kT4Cols = 1024;     // T4's columns a block stages, over its tiles
-constexpr int kT4MinTeamLog2 = 3; // T4's fewest threads a tile: 8 (32 columns)
+constexpr int kT4MinTeamLog2 = 3; // T4's and T5's fewest threads a tile: 8
 static_assert(kT4Cols == 4 * kT4Threads, "a T4 thread copies four columns a stage");
-// T5's largest candidate list: 232,448 bytes of shared memory a block, at 16
-// bytes a column
-constexpr int kMinOneMax = 232448 / 16;
+constexpr int kT5Threads = 256;   // T5's threads a block, team x slices
+// T5's largest candidate list: three arrays of round_up(M, kGroup) floats and
+// the cross-slice scratch (kT5Q floats a thread) in the 232,448 bytes of
+// shared memory a block can hold
+constexpr int kT5Scratch = kT4Q * kT5Threads;
+constexpr int kMinOneMax = (232448 / 4 - kT5Scratch) / 3 / kGroup * kGroup;
 static_assert(64 % kGroup == 0 && kStage % 64 == 0, "live prefixes are whole groups");
 static_assert(kLoaders <= 32, "the first warp loads a stage");
 
 // ------------------------------------------------------------ T4, T5 helpers
-
-__device__ __forceinline__ float pair_d2(float qx, float qy, float qz,
-                                         float4 r) {
-  const float dx = __fsub_rn(qx, r.x);
-  const float dy = __fsub_rn(qy, r.y);
-  const float dz = __fsub_rn(qz, r.z);
-  return __fadd_rn(__fadd_rn(__fadd_rn(r.w, __fmul_rn(dx, dx)),
-                             __fmul_rn(dy, dy)),
-                   __fmul_rn(dz, dz));
-}
 
 __device__ __forceinline__ void load_query(const float* __restrict__ q,
                                            int64_t row, bool live, int dim,
@@ -683,50 +689,6 @@ cudaError_t launch_nnk(const Sweep& s, int parents, int tile_major,
 
 // ------------------------------------------------------------------ T4, T5
 
-// T5 (TILES = 1): the minimum d2 of each query over its tile's candidates,
-// `stage_cols` columns of one tile staged at a time.
-template <int TILES>
-__global__ void __launch_bounds__(kMaxThreads)
-tile_min(const float* __restrict__ q, const float* __restrict__ cand, int T,
-         int tq, int M, int dim, int stage_cols, float* __restrict__ out_d) {
-  extern __shared__ float4 s_dyn[];    // stage_cols entries
-  const int64_t t0 = (int64_t)blockIdx.x * TILES;
-  const int qi = blockIdx.y * blockDim.x + threadIdx.x;
-  const bool live = qi < tq;
-  float qx[TILES], qy[TILES], qz[TILES], best[TILES];
-#pragma unroll
-  for (int s = 0; s < TILES; ++s) {
-    load_query(q, (t0 + s) * tq + qi, live && t0 + s < T, dim, qx[s], qy[s],
-               qz[s]);
-    best[s] = CUDART_INF_F;
-  }
-  for (int m0 = 0; m0 < M; m0 += stage_cols) {
-    const int cnt = M - m0 < stage_cols ? M - m0 : stage_cols;
-#pragma unroll
-    for (int s = 0; s < TILES; ++s) {
-      if (t0 + s < T) {                // the same for every thread
-        const float* tab = cand + (t0 + s) * kRows * (int64_t)M;
-        __syncthreads();
-        for (int l = threadIdx.x; l < cnt; l += blockDim.x) {
-          const int m = m0 + l;
-          s_dyn[l] = make_float4(tab[m], tab[(int64_t)M + m],
-                                 dim == 3 ? tab[2 * (int64_t)M + m] : 0.0f,
-                                 tab[kPenRow * (int64_t)M + m]);
-        }
-        __syncthreads();
-#pragma unroll 8
-        for (int l = 0; l < cnt; ++l)
-          best[s] = fminf(best[s], pair_d2(qx[s], qy[s], qz[s], s_dyn[l]));
-      }
-    }
-  }
-  if (live) {
-#pragma unroll
-    for (int s = 0; s < TILES; ++s)
-      if (t0 + s < T) out_d[(t0 + s) * tq + qi] = best[s];
-  }
-}
-
 // 16 or 4 bytes from device to shared memory without registers; the
 // bytes past src_bytes (0..size) are zero-filled and not read.
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
@@ -772,6 +734,47 @@ __device__ __forceinline__ void t4_copy(const T4Stage& st, int lane,
     }
   }
   asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// T5's sweep, T4's group loop: the thread's kT4Q queries against `groups`
+// groups of kGroup columns of three arrays (x + pen, y, z), six 16-byte
+// loads a group, each query folding the group's d2 with fminf and its
+// minimum into `best` with one more.
+__device__ __forceinline__ void sweep_min(const float* sx, const float* sy,
+                                          const float* sz, int groups,
+                                          const float (&qx)[kT4Q],
+                                          const float (&qy)[kT4Q],
+                                          const float (&qz)[kT4Q],
+                                          float (&best)[kT4Q]) {
+#pragma unroll 1
+  for (int g = 0; g < groups; ++g) {
+    float x[kGroup], y[kGroup], z[kGroup];
+#pragma unroll
+    for (int v = 0; v < kGroup / 4; ++v) {
+      const int o = g * (kGroup / 4) + v;
+      const float4 a = reinterpret_cast<const float4*>(sx)[o];
+      const float4 b = reinterpret_cast<const float4*>(sy)[o];
+      const float4 c = reinterpret_cast<const float4*>(sz)[o];
+      x[4 * v] = a.x, x[4 * v + 1] = a.y, x[4 * v + 2] = a.z, x[4 * v + 3] = a.w;
+      y[4 * v] = b.x, y[4 * v + 1] = b.y, y[4 * v + 2] = b.z, y[4 * v + 3] = b.w;
+      z[4 * v] = c.x, z[4 * v + 1] = c.y, z[4 * v + 2] = c.z, z[4 * v + 3] = c.w;
+    }
+#pragma unroll
+    for (int k = 0; k < kT4Q; ++k) {
+      float d[kGroup];
+#pragma unroll
+      for (int r = 0; r < kGroup; ++r)
+        d[r] = __fadd_rn(__fadd_rn(sq(__fsub_rn(qx[k], x[r])),
+                                   sq(__fsub_rn(qy[k], y[r]))),
+                         sq(__fsub_rn(qz[k], z[r])));
+#pragma unroll
+      for (int w = kGroup / 2; w >= 1; w /= 2) {
+#pragma unroll
+        for (int r = 0; r < w; ++r) d[r] = fminf(d[r], d[r + w]);
+      }
+      best[k] = fminf(best[k], d[0]);
+    }
+  }
 }
 
 // T4: per query, the minimum d2 over its tile's candidates. A block holds
@@ -874,10 +877,121 @@ tile_min_staged(const float* __restrict__ q, const float* __restrict__ cand,
   }
 }
 
-dim3 grid_of(int T, int tq, int& threads) {
-  const int warps = (tq + 31) / 32 * 32;
-  threads = warps < kMaxThreads ? warps : kMaxThreads;
-  return dim3((unsigned)T, (unsigned)((tq + threads - 1) / threads));
+// T5's copy of this thread's four columns c0.. of rows x, y and z (dim 3)
+// of table `tab` into the three arrays at c0; columns at or past M
+// zero-filled. `vec`: every row 16-byte aligned (M % 4 == 0).
+__device__ __forceinline__ void t5_copy(float* sx, float* sy, float* sz,
+                                        const float* __restrict__ tab,
+                                        int64_t M, int c0, int dim, bool vec) {
+  const int64_t left = M - c0;
+  const int valid = left < 0 ? 0 : (left > 4 ? 4 : (int)left);
+  float* dst[3] = {sx + c0, sy + c0, sz + c0};
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    const int v = (r == 2 && dim != 3) ? 0 : valid;   // 2-D: z = 0
+    const float* src = tab + r * M + c0;
+    if (vec) {
+      cp_async16(dst[r], v > 0 ? src : tab, 4 * v);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        cp_async4(dst[r] + e, e < v ? src + e : tab, e < v ? 4 : 0);
+    }
+  }
+}
+
+// T5's fold of this thread's four columns c0.. once they have landed: x +
+// pen, +inf at or past M.
+__device__ __forceinline__ void t5_fold(float* sx, const float* __restrict__ tab,
+                                        int64_t M, int c0, bool vec) {
+  const float* pen = tab + kPenRow * M + c0;
+  const int64_t left = M - c0;
+  float p[4];
+  if (vec && left >= 4) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(pen));
+    p[0] = v.x, p[1] = v.y, p[2] = v.z, p[3] = v.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) p[e] = e < left ? __ldg(pen + e) : 0.0f;
+  }
+  float4 x = reinterpret_cast<float4*>(sx)[c0 / 4];
+  x.x = left > 0 ? __fadd_rn(x.x, p[0]) : CUDART_INF_F;
+  x.y = left > 1 ? __fadd_rn(x.y, p[1]) : CUDART_INF_F;
+  x.z = left > 2 ? __fadd_rn(x.z, p[2]) : CUDART_INF_F;
+  x.w = left > 3 ? __fadd_rn(x.w, p[3]) : CUDART_INF_F;
+  reinterpret_cast<float4*>(sx)[c0 / 4] = x;
+}
+
+// The barrier of slice s's team of `team` threads: a named barrier of its
+// warps, or its warp's when several teams share one.
+__device__ __forceinline__ void t5_team_sync(int s, int team) {
+  if (team >= 32)
+    asm volatile("bar.sync %0, %1;\n" ::"r"(s + 1), "r"(team) : "memory");
+  else
+    __syncwarp();
+}
+
+// T5: per query, the minimum d2 over its tile's candidates, one tile a
+// block (a slice of kT4Q * team of its queries on gridDim.y), its whole list
+// in one step. The block's kT5Threads threads are `slices` teams of `team`
+// (a power of two, 8..kT5Threads; slices = kT5Threads / team), thread lane
+// of team s holding queries lane + k * team and sweeping the columns [s *
+// span, (s + 1) * span) of the tile (span whole groups; the last slices may
+// hold none). The team copies its columns into the three arrays by
+// cp.async, folds the penalty into them once they have landed, and sweeps
+// them after its team barrier. Each query's slice minima are then folded
+// with fminf through the scratch.
+__global__ void __launch_bounds__(kT5Threads)
+tile_min_one(const float* __restrict__ q, const float* __restrict__ cand,
+             int tq, int M, int dim, int team_log2, int span, int vec,
+             float* __restrict__ out_d) {
+  extern __shared__ __align__(16) float s_dyn[];
+  const int team = 1 << team_log2;
+  const int s = threadIdx.x >> team_log2;          // the thread's slice
+  const int lane = threadIdx.x & (team - 1);
+  const int mp = (M + kGroup - 1) / kGroup * kGroup;
+  float* sx = s_dyn;
+  float* sy = s_dyn + mp;
+  float* sz = s_dyn + 2 * mp;
+  float* s_best = s_dyn + 3 * mp;                  // kT5Scratch floats
+  const int64_t tile = blockIdx.x;
+  const float* tab = cand + tile * kRows * (int64_t)M;
+  const int q0 = blockIdx.y * team * kT4Q + lane;
+  float qx[kT4Q], qy[kT4Q], qz[kT4Q], best[kT4Q];
+#pragma unroll
+  for (int k = 0; k < kT4Q; ++k) {
+    load_query(q, tile * tq + q0 + k * team, q0 + k * team < tq, dim, qx[k],
+               qy[k], qz[k]);
+    best[k] = CUDART_INF_F;
+  }
+  // this slice's columns [a, a + cols), whole groups, four a thread a step
+  const int a = s * span;
+  const int cols = a < mp ? (mp - a < span ? mp - a : span) : 0;
+  const int step = 4 * team;
+  for (int c = 4 * lane; c < cols; c += step)
+    t5_copy(sx, sy, sz, tab, M, a + c, dim, vec);
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  for (int c = 4 * lane; c < cols; c += step) t5_fold(sx, tab, M, a + c, vec);
+  t5_team_sync(s, team);                           // the run is in place, folded
+  sweep_min(sx + a, sy + a, sz + a, cols / kGroup, qx, qy, qz, best);
+#pragma unroll
+  for (int k = 0; k < kT4Q; ++k) s_best[(s * kT4Q + k) * team + lane] = best[k];
+  __syncthreads();
+  const int slices = kT5Threads >> team_log2;
+  for (int i = threadIdx.x; i < kT4Q * team; i += kT5Threads) {
+    float v = s_best[i];
+    for (int t = 1; t < slices; ++t) v = fminf(v, s_best[t * kT4Q * team + i]);
+    const int qi = blockIdx.y * team * kT4Q + i;
+    if (qi < tq) out_d[tile * tq + qi] = v;
+  }
+}
+
+// The log2 of `team` threads (a power of two, 8..most), or -1.
+int team_log2_of(int team, int most) {
+  int log2 = kT4MinTeamLog2;
+  while ((1 << log2) < team) ++log2;
+  return (1 << log2) == team && team <= most ? log2 : -1;
 }
 
 }  // namespace
@@ -941,36 +1055,41 @@ int pm_tile_nnk(const float* pts, int qstride, const uint8_t* qmask,
 int pm_tile_max_teams() { return kMaxTeams; }
 int pm_tile_min_cols() { return kT4Cols; }
 int pm_tile_min_one_max() { return kMinOneMax; }
+int pm_tile_t5_threads() { return kT5Threads; }
 
 // T4 (kernel 4) or T5 (kernel 5): q [T, tq, 8], cand [T, 8, M]; out_d
-// [T, tq]. T4 takes `team` threads a tile (a power of two, 8..kT4Threads;
-// tile_cuda.t4_team), a tile of more than kT4Q * team queries in slices on
-// gridDim.y; T5 takes M <= pm_tile_min_one_max() and ignores `team`.
+// [T, tq]. `team` threads a tile (a power of two, 8..256;
+// tile_cuda.t4_team, t5_shape), a tile of more than kT4Q * team queries in
+// slices on gridDim.y. T4 packs kT4Threads / team tiles a block; T5 takes
+// one tile a block in kT5Threads / team column slices, and M <=
+// pm_tile_min_one_max().
 int pm_tile_min(const float* q, const float* cand, int T, int tq, int M,
                 int dim, int kernel, int team, float* out_d, void* stream) {
   if (T == 0 || tq == 0) return cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
+  const int vec = M % 4 == 0 && (uintptr_t)cand % 16 == 0;
+  const int most = kernel == 4 ? kT4Threads : kT5Threads;
+  const int team_log2 = team_log2_of(team, most);
+  if (team_log2 < 0) return cudaErrorInvalidValue;
+  const int slice = kT4Q << team_log2;
   if (kernel == 4) {
-    int team_log2 = kT4MinTeamLog2;
-    while ((1 << team_log2) < team) ++team_log2;
-    if ((1 << team_log2) != team || team > kT4Threads) return cudaErrorInvalidValue;
     const int per_block = kT4Threads >> team_log2;
-    const int slice = kT4Q << team_log2;
     const dim3 grid((unsigned)((T + per_block - 1) / per_block),
                     (unsigned)((tq + slice - 1) / slice));
-    const int vec = M % 4 == 0 && (uintptr_t)cand % 16 == 0;
     tile_min_staged<<<grid, kT4Threads, 0, st>>>(q, cand, T, tq, M, dim,
                                                  team_log2, vec, out_d);
   } else if (kernel == 5) {
-    int threads;
-    const dim3 grid = grid_of(T, tq, threads);
     if (M > kMinOneMax) return cudaErrorInvalidValue;
-    const size_t bytes = (size_t)(M > 0 ? M : 1) * sizeof(float4);
+    const int groups = (M + kGroup - 1) / kGroup;
+    const int slices = kT5Threads >> team_log2;
+    const int span = (groups + slices - 1) / slices * kGroup;
+    const size_t bytes = (3 * (size_t)groups * kGroup + kT5Scratch) * sizeof(float);
     const cudaError_t e = cudaFuncSetAttribute(
-        tile_min<1>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        tile_min_one, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return e;
-    tile_min<1><<<grid, threads, bytes, st>>>(q, cand, T, tq, M, dim,
-                                              M > 0 ? M : 1, out_d);
+    const dim3 grid((unsigned)T, (unsigned)((tq + slice - 1) / slice));
+    tile_min_one<<<grid, kT5Threads, bytes, st>>>(q, cand, tq, M, dim,
+                                                  team_log2, span, vec, out_d);
   } else {
     return cudaErrorInvalidValue;
   }

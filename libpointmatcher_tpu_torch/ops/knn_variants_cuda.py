@@ -11,8 +11,11 @@ T3        knn_variants.py::knn1_mxu             :func:`knn1_mxu3_plain`
 
 T1 and T2 compute K1's function, the exact difference-form 1-NN, with
 other schedules; T3 the expansion form ‖q‖² + ‖r‖² − 2 q·r in a matrix
-product's tiling. The kernels are CUDA C++ in ``csrc/knn_variants.cu`` (see
-its header for each design), built at first use by :mod:`.cuda_build`.
+product's tiling. T1, T2 and T3 cut the reference into chunks over the
+grid (:func:`t2_split`, :func:`t3_split` and K1's rule for T1) and merge
+the chunks' partials in order in a second kernel. The kernels are CUDA C++
+in ``csrc/knn_variants.cu`` (see its header for each design), built at
+first use by :mod:`.cuda_build`.
 ``tools_torch/knn_micro.py`` times them against K1 and K9; nothing in the
 engine calls them.
 
@@ -39,8 +42,8 @@ from .knn import knn_brute_force
 from .knn_cuda import GROUP_ROWS, TILE_ROWS, _check_inputs, _sms, _split
 
 __all__ = ["knn1_chunked", "knn1_transposed", "knn1_mxu", "knn1_mxu3_plain",
-           "t2_split", "build", "LIBRARY", "T2_BLOCK_QUERIES",
-           "reset_launch_counts"]
+           "t2_split", "t3_split", "build", "LIBRARY", "T2_BLOCK_QUERIES",
+           "T3_BLOCK_QUERIES", "reset_launch_counts"]
 
 
 #: T2's queries a block (csrc/knn_variants.cu: 128 threads, 4 queries each)
@@ -50,24 +53,29 @@ T2_BLOCK_QUERIES = 512
 #: shared stage (csrc/knn_variants.cu kT2Stage)
 T2_BLOCKS_PER_SM = 16
 T2_CHUNK_ROWS = 512
+#: T3's query rows a block (csrc/knn_variants.cu kT3Rows: 256 threads, a
+#: 4 x 8 micro-tile each), its split rule's aim (blocks per SM over queries ×
+#: chunks) and its chunks' granularity, one shared stage (kT3Stage)
+T3_BLOCK_QUERIES = 64
+T3_BLOCKS_PER_SM = 8
+T3_CHUNK_COLS = 256
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.pm_nn1_chunked, lib.pm_nn1_transposed):
+    for fn in (lib.pm_nn1_chunked, lib.pm_nn1_transposed, lib.pm_nn1_mxu):
         fn.argtypes = [p, p, i, p, p, i, i, i, i, p, p, p, p, p]
         fn.restype = i
-    lib.pm_nn1_mxu.argtypes = [p, p, i, p, p, i, i, p, p, p]
-    lib.pm_nn1_mxu.restype = i
-    for fn in (lib.pm_tile_rows, lib.pm_t2_block_queries, lib.pm_t2_stage_rows,
-               lib.pm_t2_group_rows):
+    consts = (lib.pm_tile_rows, lib.pm_t2_block_queries, lib.pm_t2_stage_rows,
+              lib.pm_t2_group_rows, lib.pm_t3_block_queries, lib.pm_t3_stage_cols)
+    for fn in consts:
         fn.argtypes = []
         fn.restype = i
-    if ((lib.pm_tile_rows(), lib.pm_t2_block_queries(), lib.pm_t2_stage_rows(),
-         lib.pm_t2_group_rows())
-            != (TILE_ROWS, T2_BLOCK_QUERIES, T2_CHUNK_ROWS, GROUP_ROWS)):
-        raise RuntimeError("csrc/knn_variants.cu chunks, or T2's block, stage "
-                           "or group, differ from ops/knn_variants_cuda.py")
+    if (tuple(fn() for fn in consts)
+            != (TILE_ROWS, T2_BLOCK_QUERIES, T2_CHUNK_ROWS, GROUP_ROWS,
+                T3_BLOCK_QUERIES, T3_CHUNK_COLS)):
+        raise RuntimeError("csrc/knn_variants.cu chunks, or T2's or T3's block, "
+                           "stage or group, differ from ops/knn_variants_cuda.py")
 
 
 LIBRARY = KernelLibrary("knn_variants.cu", _declare)
@@ -97,6 +105,18 @@ def t2_split(n: int, m: int, sms: int) -> tuple:
                   rows=T2_CHUNK_ROWS)
 
 
+def t3_split(n: int, m: int, sms: int) -> tuple:
+    """T3's reference chunks over gridDim.y → ``(splits, chunk)``: K1's
+    rule for T3's block of ``T3_BLOCK_QUERIES`` queries, aiming at
+    ``T3_BLOCKS_PER_SM``, chunks of whole ``T3_CHUNK_COLS``."""
+    return _split(n, m, sms, aim=T3_BLOCKS_PER_SM, block=T3_BLOCK_QUERIES,
+                  rows=T3_CHUNK_COLS)
+
+
+#: each variant's split rule; its launch is ``pm_nn1_<name>``
+_SPLITS = {"chunked": _split, "transposed": t2_split, "mxu": t3_split}
+
+
 def _launch(name, query, query_mask, ref, ref_mask):
     lib = build()
     q = query.contiguous()
@@ -110,16 +130,12 @@ def _launch(name, query, query_mask, ref, ref_mask):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     head = (q.data_ptr(), qm.data_ptr(), n, r.data_ptr(), rm.data_ptr(), m, dim)
     tail = (out_d.data_ptr(), out_i.data_ptr(), stream)
-    if name == "mxu":
-        err = lib.pm_nn1_mxu(*head, *tail)
-    else:       # T1 and T2: partials per reference chunk, merged in order
-        chunked = name == "chunked"
-        splits, chunk = (_split if chunked else t2_split)(n, m, _sms(q.device))
-        part_d = torch.empty((splits, n), dtype=torch.float32, device=q.device)
-        part_i = torch.empty((splits, n), dtype=torch.int32, device=q.device)
-        launch = lib.pm_nn1_chunked if chunked else lib.pm_nn1_transposed
-        err = launch(*head, splits, chunk, part_d.data_ptr(), part_i.data_ptr(),
-                     *tail)
+    # partials per reference chunk, merged in order
+    splits, chunk = _SPLITS[name](n, m, _sms(q.device))
+    part_d = torch.empty((splits, n), dtype=torch.float32, device=q.device)
+    part_i = torch.empty((splits, n), dtype=torch.int32, device=q.device)
+    err = getattr(lib, f"pm_nn1_{name}")(*head, splits, chunk, part_d.data_ptr(),
+                                         part_i.data_ptr(), *tail)
     LIBRARY.check(err, f"1-NN {name} kernel")
     return out_d, out_i
 
@@ -180,8 +196,11 @@ def knn1_mxu3_plain(query, query_mask, ref, ref_mask, tile_m: int = 4096):
 
 
 def knn1_mxu(query, query_mask, ref, ref_mask, precision: str = "highest"):
-    """T3: 1-NN in the expansion form, in 128 x 128 product tiles →
-    ``(d2 [N], id [N])``, within 2^-20·(q² + r²) of the exact d²."""
+    """T3: 1-NN in the expansion form, 64 queries a block against 128-column
+    product tiles, the reference cut into chunks over the grid
+    (:func:`t3_split`) and merged in order before the clamp at 0 →
+    ``(d2 [N], id [N])``, :func:`knn1_mxu3_plain` bit for bit, within
+    2^-20·(q² + r²) of the exact d²."""
     if precision != "highest":
         raise ValueError(f"precision {precision!r} selects bf16 passes of the "
                          "TPU's matrix unit, which have no fp32 counterpart "

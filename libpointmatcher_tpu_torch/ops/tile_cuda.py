@@ -34,10 +34,11 @@ position wins among equal distances, the XLA fallback's ``argmin`` /
 
 T4 and T5 are the ablations of ``tools_torch/tile_kernel_micro.py``: K7's
 per-tile function without the id (per query, the minimum d² over its
-tile's candidates) on K7's own table, of any M: T4 with four queries a
-thread and the tables staged in double-buffered ``cp.async`` stages
-(:func:`t4_team` sets its tiles a block), T5 one tile per block over its
-whole list at once.
+tile's candidates) on K7's own table, of any M, four queries a thread:
+T4 with the tables staged in double-buffered ``cp.async`` stages
+(:func:`t4_team` sets its tiles a block), T5 one tile a block over its
+whole list in one step, its columns cut into slices swept by teams of the
+block's threads (:func:`t5_shape`).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises. There is no fallback between the two. Each
@@ -61,7 +62,7 @@ __all__ = ["tile_sweep", "tile_sweep_k", "tile_sweep_plain",
            "tile_min_only", "tile_min_one", "tile_min_plain", "build",
            "LIBRARY", "TILE_KNN_MAX", "DPAD", "PEN_ROW", "CID_ROW", "TEAMS",
            "MIN_ONE_MAX", "T4_THREADS", "T4_QUERIES", "T4_COLS", "t4_team",
-           "reset_launch_counts"]
+           "T5_THREADS", "t5_shape", "reset_launch_counts"]
 
 #: largest k of the top-k tile sweep K8 (as ``tilesweep.TILE_KNN_MAX``)
 TILE_KNN_MAX = 32
@@ -74,8 +75,12 @@ TEAMS = 4
 #: T4's threads a block, queries a thread and table columns a block stages
 #: over its tiles (csrc/tile.cu kT4Threads, kT4Q, kT4Cols)
 T4_THREADS, T4_QUERIES, T4_COLS = 256, 4, 1024
-#: T5's largest candidate list (its shared memory holds the whole list)
-MIN_ONE_MAX = 232448 // 16
+#: T5's threads a block (csrc/tile.cu kT5Threads), ``team × slices``
+T5_THREADS = 256
+#: T5's largest candidate list: its shared memory (232 448 bytes) holds the
+#: whole list, three arrays of whole groups of 8 columns, beside the scratch
+#: of its cross-slice reduction (four floats a thread)
+MIN_ONE_MAX = (232448 // 4 - 4 * T5_THREADS) // 3 // 8 * 8
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -87,10 +92,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pm_tile_nnk.restype = i
     lib.pm_tile_min.argtypes = [p, p, i, i, i, i, i, i, p, p]
     lib.pm_tile_min.restype = i
-    for name in ("pm_tile_max_teams", "pm_tile_min_cols", "pm_tile_min_one_max"):
+    for name in ("pm_tile_max_teams", "pm_tile_min_cols", "pm_tile_min_one_max",
+                 "pm_tile_t5_threads"):
         getattr(lib, name).restype = i
-    if (lib.pm_tile_min_cols(), lib.pm_tile_min_one_max()) != (T4_COLS,
-                                                               MIN_ONE_MAX):
+    if ((lib.pm_tile_min_cols(), lib.pm_tile_min_one_max(),
+         lib.pm_tile_t5_threads()) != (T4_COLS, MIN_ONE_MAX, T5_THREADS)):
         raise RuntimeError("csrc/tile.cu stages differ from ops/tile_cuda.py")
     if not 1 <= TEAMS <= lib.pm_tile_max_teams():
         raise RuntimeError(f"TEAMS {TEAMS} outside csrc/tile.cu's 1.."
@@ -525,6 +531,19 @@ def t4_team(tq: int) -> int:
     return team
 
 
+def t5_shape(tq: int, m: int) -> tuple:
+    """T5's block → ``(team, slices, span)``: ``team`` threads hold the
+    tile's queries four each (T4's rule, :func:`t4_team`, up to
+    ``T5_THREADS``), ``slices = T5_THREADS // team`` teams split its ``m``
+    columns into runs of ``span`` (whole groups of 8; the last runs may be
+    short or empty); a tile of more than ``4 * team`` queries is cut into
+    slices of that many on the grid."""
+    team = min(t4_team(tq), T5_THREADS)
+    slices = T5_THREADS // team
+    groups = -(-m // 8)
+    return team, slices, -(-groups // slices) * 8
+
+
 def _launch_min(fn, q, cand_t, dim: int, kernel: int):
     _check(q, cand_t, dim, multiple=1)
     if q.device.type == "cpu":
@@ -532,10 +551,10 @@ def _launch_min(fn, q, cand_t, dim: int, kernel: int):
     lib = build()
     q, cand_t = q.contiguous(), cand_t.contiguous()
     T, tq, _ = q.shape
+    team = t4_team(tq) if kernel == 4 else t5_shape(tq, cand_t.shape[2])[0]
     out = torch.empty((T, tq), dtype=torch.float32, device=q.device)
     err = lib.pm_tile_min(q.data_ptr(), cand_t.data_ptr(), T, tq,
-                          cand_t.shape[2], dim, kernel, t4_team(tq),
-                          out.data_ptr(),
+                          cand_t.shape[2], dim, kernel, team, out.data_ptr(),
                           torch.cuda.current_stream(q.device).cuda_stream)
     LIBRARY.check(err, f"tile min-only kernel T{kernel}")
     fn.launches += 1
@@ -550,8 +569,9 @@ def tile_min_only(q, cand_t, dim: int):
 
 
 def tile_min_one(q, cand_t, dim: int):
-    """T5: T4's function, one tile a block, its whole candidate list staged
-    at once (M ≤ ``MIN_ONE_MAX``) → ``d2 [T, TQ]``."""
+    """T5: T4's function, one tile a block, its whole candidate list in one
+    step, swept in column slices by teams of four queries a thread
+    (:func:`t5_shape`; M ≤ ``MIN_ONE_MAX``) → ``d2 [T, TQ]``."""
     if cand_t.shape[-1] > MIN_ONE_MAX:
         raise ValueError(f"T5 takes at most {MIN_ONE_MAX} candidates a tile, "
                          f"got {cand_t.shape[-1]}")

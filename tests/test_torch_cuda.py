@@ -66,7 +66,9 @@ from libpointmatcher_tpu_torch.parallel.batch import _pad_tile_aux_np
 from libpointmatcher_tpu_torch.utils import prng
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools_torch"))
+import knn_micro  # noqa: E402
 import loop_modules  # noqa: E402
+import tile_kernel_micro  # noqa: E402
 import tile_micro  # noqa: E402
 import torch_survivor_emulation as em  # noqa: E402
 import torch_skip_emulation as skem  # noqa: E402
@@ -920,12 +922,15 @@ def test_k10_k11_offsets_equal_plain(cuda, n, m, offset):
                                         (9, 50, 1152, 2), (20, 256, 4096, 3),
                                         (11, 24, 1001, 3), (6, 20, 30, 2),
                                         (3, 1100, 130, 3), (13, 64, 100, 2),
-                                        (17, 5, 4, 3)])
+                                        (17, 5, 4, 3), (4, 40, 4099, 2),
+                                        (2, 256, tile_cuda.MIN_ONE_MAX, 3)])
 def test_t4_t5_equal_plain_and_k7(cuda, T, tq, m, dim):
     """T4 and T5 equal their plain version and, where K7 takes the table
-    (M a multiple of 128), K7's d²: T4 at M % 4 != 0 (its 4-byte copies),
-    M under one stage, T not a multiple of its tiles a block, TQ under a
-    warp and over one slice (1024), 2-D, and a table not 16-byte aligned."""
+    (M a multiple of 128), K7's d²: M % 4 != 0 (4-byte copies), M under one
+    stage (T4) or one slice's group (T5), T not a multiple of T4's tiles a
+    block, TQ under a warp and over one slice (1024), 2-D, M at T5's largest
+    list, and each on a table not 16-byte aligned; T5 equals its schedule's
+    emulation."""
     q, cand = _tile_inputs(T + tq, T, tq, m, dim, cuda)
     d4 = tile_cuda.tile_min_only(q, cand, dim)
     d5 = tile_cuda.tile_min_one(q, cand, dim)
@@ -933,8 +938,11 @@ def test_t4_t5_equal_plain_and_k7(cuda, T, tq, m, dim):
     shifted = torch.empty(cand.numel() + 1, device=cuda)[1:].view(cand.shape)
     shifted.copy_(cand)
     d4u = tile_cuda.tile_min_only(q, shifted, dim)
+    d5u = tile_cuda.tile_min_one(q, shifted, dim)
+    de = tile_kernel_micro.emulate_t5(q, cand, dim)
     torch.cuda.synchronize()
     assert torch.equal(d4, dp) and torch.equal(d5, dp) and torch.equal(d4u, dp)
+    assert torch.equal(d5u, dp) and torch.equal(de, dp)
     if m % 128 == 0:
         d7, _ = tile_cuda.tile_sweep(q, cand, dim)
         assert torch.equal(d7, dp)
@@ -986,21 +994,36 @@ def test_v1_batch_equals_survivor_route(cuda, monkeypatch):
 @pytest.mark.parametrize("n,m,dim,edges", [
     (3000, 5003, 3, False), (20480, 12459, 3, False), (333, 1234, 2, False),
     (1, 1, 3, False), (0, 7, 3, False), (7, 0, 3, False), (2049, 300, 3, False),
-    (4000, 9000, 3, True), (700, 5000, 2, True), (60000, 7003, 3, True)])
+    (4000, 9000, 3, True), (700, 5000, 2, True), (60000, 7003, 3, True),
+    (4000, 9000, 3, "t3"), (700, 5000, 2, "t3"), (20480, 12459, 3, "t3"),
+    (3000, 5003, 3, "tiny")])
 def test_t1_t2_t3_equal_plain(cuda, n, m, dim, edges):
     """T1 and T2 equal K1 and their plain version bit for bit, ties
-    included; T3 equals its plain version bit for bit. With ``edges``, at
-    T2's own chunks (``t2_split``; several, the last partial): rows at the
-    start of the second chunk repeat the first chunk's last rows (ties
-    across a chunk boundary) and the third chunk is all masked."""
+    included; T3 equals its plain version and its schedule's emulation bit
+    for bit. With ``edges``, at T2's own chunks (``t2_split``, or with "t3"
+    T3's, ``t3_split``; several, the last partial): rows at the start of the
+    second chunk repeat the first chunk's last rows (ties across a chunk
+    boundary) and the third chunk is all masked; with "t3" also queries
+    whose two nearest rows, in the first and second chunk, have negative
+    expansion-form d², the second's more negative. "tiny": coordinates of
+    magnitude below 1e-19 (subnormal products)."""
     q, qm, r, rm = _inputs(n, m, n + m + dim, cuda)
     q, r = q[:, :dim].contiguous(), r[:, :dim].contiguous()
-    if edges:
-        splits, chunk = kv.t2_split(n, m, kc._sms(q.device))
+    if edges == "tiny":
+        q, r = q * 1e-20, r * 1e-20
+    elif edges:
+        split = kv.t3_split if edges == "t3" else kv.t2_split
+        splits, chunk = split(n, m, kc._sms(q.device))
         assert splits >= 3 and m % chunk
         r[chunk:chunk + 200] = r[chunk - 200:chunk]
         rm[chunk:chunk + 200] = rm[chunk - 200:chunk]
         rm[2 * chunk:3 * chunk] = False
+    if edges == "t3" and dim == 3:
+        tq, less, more = (torch.as_tensor(a, device=cuda) for a in
+                          knn_micro.negative_twins(np.random.default_rng(n), 20))
+        q[:20], qm[:20] = tq, True
+        r[10:30], rm[10:30] = less, True
+        r[chunk + 210:chunk + 230], rm[chunk + 210:chunk + 230] = more, True
     d1, i1 = kc.knn1(q, qm, r, rm)
     for fn in (kv.knn1_chunked, kv.knn1_transposed):
         d, i = fn(q, qm, r, rm)
@@ -1010,8 +1033,13 @@ def test_t1_t2_t3_equal_plain(cuda, n, m, dim, edges):
         assert torch.equal(d.cpu(), dp) and torch.equal(i.cpu(), ip)
     d, i = kv.knn1_mxu(q, qm, r, rm)
     dp, ip = kv.knn1_mxu3_plain(q, qm, r, rm)
+    de, ie = knn_micro.emulate_t3(q, qm, r, rm, sms=kc._sms(q.device))
     torch.cuda.synchronize()
     assert torch.equal(d, dp) and torch.equal(i, ip)
+    assert torch.equal(de, dp) and torch.equal(ie, ip)
+    if edges == "t3" and dim == 3:       # the more negative, later chunk wins
+        assert bool((i[:20] == torch.arange(chunk + 210, chunk + 230,
+                                            device=cuda)).all())
 
 
 def test_variant_launch_counts(cuda):

@@ -229,7 +229,7 @@ def test_tile_min_plain_matches_pallas(name, interpret_mode):
     assert torch.equal(tile_cuda.tile_min_only(q, c, d), dm)
     assert torch.equal(tile_cuda.tile_min_one(q, c, d), dm)
     with pytest.raises(ValueError, match="T5 takes at most"):
-        tile_cuda.tile_min_one(q[:1], torch.zeros(1, 8, 128 * 114), d)
+        tile_cuda.tile_min_one(q[:1], torch.zeros(1, 8, tile_cuda.MIN_ONE_MAX + 1), d)
 
 
 def test_tile_kernel_micro_runs_on_the_cpu():

@@ -25,8 +25,10 @@ Needs a CUDA device. ``--device cpu`` runs the wrappers' plain versions, at
 2048 x 1246 unless N M are given, to check the script; its times are the
 host's clock and no measure of the card.
 
-:func:`emulate_t2` is T2's schedule in plain torch, which
-tests/test_torch_variant_schedule.py holds to the plain version bit for bit.
+:func:`emulate_t2` and :func:`emulate_t3` are T2's and T3's schedules in
+plain torch, which tests/test_torch_variant_schedule.py holds to the plain
+versions bit for bit; :func:`negative_twins` makes the inputs on which T3's
+expansion form goes below 0 that those tests and the card's use.
 """
 
 from __future__ import annotations
@@ -109,6 +111,110 @@ def emulate_t2(q, qm, r, rm, sms: int = 132):
     d, i, _, _ = dense_micro._emulate_pair(q, qm, r, rm, 1, splits, chunk,
                                            block=kv.T2_BLOCK_QUERIES)
     return d[:, 0], i[:, 0]
+
+
+def _mxu_dot(a, b):
+    """``(a₀b₀ + a₁b₁) + a₂b₂`` (the last term at d = 3), each step rounded,
+    as ``knn_variants_cuda.knn1_mxu3_plain`` forms it."""
+    s = a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]
+    return s + a[..., 2] * b[..., 2] if a.shape[-1] == 3 else s
+
+
+def emulate_t3(q, qm, r, rm, sms: int = 132):
+    """T3's schedule in plain torch, on any device → ``(d [N], id [N])``:
+    the reference cut into chunks by ``knn_variants_cuda.t3_split`` for
+    ``sms`` SMs, staged in 256-column stages (``(0, 0, 0, +inf)`` past the
+    chunk); blocks of ``T3_BLOCK_QUERIES`` queries, rows ``ty + 16 i`` of
+    thread (ty, tx) (a block or a warp of them whose queries are all
+    masked does not sweep: ``(+inf, −1)``); each row's 16 threads
+    take the columns ``4 tx + e`` and ``64 + 4 tx + e`` of every 128-column
+    tile, one group a tile, folded with fmin, (best, best tile) kept with a
+    strict '<'; the best tile's first column equal to the best; the 16
+    threads' (d², id) reduced lexicographically; the chunks merged in order
+    with a strict '<', unclamped; then the clamp at 0 and the query mask.
+    d² = (q² + r²pen) − 2·dot as the plain version forms it (the kernel's
+    fma gives the same bits: 2·dot is exact)."""
+    import torch
+
+    from libpointmatcher_tpu_torch.ops import knn_variants_cuda as kv
+
+    n, m = q.shape[0], r.shape[0]
+    inf = float("inf")
+    block, stage, tile = kv.T3_BLOCK_QUERIES, kv.T3_CHUNK_COLS, 128
+    splits, chunk = kv.t3_split(n, m, sms)
+    q2 = _mxu_dot(q, q)
+    r2pen = torch.where(rm, _mxu_dot(r, r), torch.full_like(r[:, 0], inf))
+    # which rows sweep: their block's and their warp's (rows ty + 16 i of
+    # thread (ty, tx); a warp holds ty = 2w, 2w + 1) queries not all masked
+    nb, per = -(-n // block), block // 16
+    qmp = torch.zeros(nb * block, dtype=torch.bool, device=q.device)
+    qmp[:n] = qm
+    by_block = qmp.view(nb, per, 16)               # [block, i, ty]
+    warp = by_block.view(nb, per, 8, 2).any(dim=(1, 3))
+    sweeps = (by_block.any(dim=(1, 2))[:, None] & warp)[:, None, :, None]
+    sweeps = sweeps.expand(nb, per, 8, 2).reshape(-1)[:n]
+    # column e of thread tx's group: 4 tx + e (e < 4), 64 + 4 tx + e - 4
+    e = torch.arange(8, device=q.device)
+    tx = torch.arange(16, device=q.device)
+    offs = torch.where(e < 4, 4 * tx[:, None] + e, 64 + 4 * tx[:, None] + e - 4)
+    best_d = torch.full((n,), inf, device=q.device)
+    best_i = torch.full((n,), -1, dtype=torch.int64, device=q.device)
+    for j0 in range(0, splits * chunk, chunk):
+        j1 = min(m, j0 + chunk)
+        if j1 <= j0:                       # no rows: (+inf, -1), never taken
+            continue
+        w = -(-(j1 - j0) // stage) * stage
+        rc = torch.zeros((w, q.shape[1]), dtype=torch.float32, device=q.device)
+        rp = torch.full((w,), inf, device=q.device)
+        rc[:j1 - j0] = r[j0:j1]
+        rp[:j1 - j0] = r2pen[j0:j1]
+        d = (q2[:, None] + rp[None]) - 2.0 * _mxu_dot(q[:, None, :], rc[None])
+        g = d.view(n, w // tile, tile)[:, :, offs]       # [n, tile, tx, e]
+        fold = g
+        for h in (4, 2, 1):
+            fold = torch.fmin(fold[..., :h], fold[..., h:2 * h])
+        gm = fold[..., 0].transpose(1, 2)               # [n, tx, tile]
+        bd = gm.amin(dim=2)
+        first_tile = (gm == bd[..., None]).int().argmax(dim=2)
+        cols = g.transpose(1, 2).gather(
+            2, first_tile[..., None, None].expand(n, 16, 1, 8))[:, :, 0]
+        first_e = (cols == bd[..., None]).int().argmax(dim=2)
+        bi = j0 + first_tile * tile + offs[tx[None], first_e]
+        bi = torch.where(torch.isinf(bd), -1, bi)   # no group under +inf: -1
+        bd = torch.where(sweeps[:, None], bd, inf)
+        bi = torch.where(sweeps[:, None], bi, -1)
+        # the row's 16 threads: the least d², then the least id
+        pd = bd.amin(dim=1)
+        big = torch.iinfo(torch.int64).max
+        pi = torch.where(bd == pd[:, None], bi, big).amin(dim=1)
+        take = pd < best_d
+        best_d = torch.where(take, pd, best_d)
+        best_i = torch.where(take, pi, best_i)
+    best_d = torch.clamp(best_d, min=0.0)
+    ok = torch.isfinite(best_d) & qm
+    best_d = torch.where(qm, best_d, torch.full_like(best_d, inf))
+    best_i = torch.where(ok, best_i, torch.full_like(best_i, -1))
+    return best_d, best_i.to(torch.int32)
+
+
+def negative_twins(rng, count, lo=500.0, hi=1000.0):
+    """``count`` queries far from the origin, each with two near-copies
+    (a few ulp off) whose expansion-form d² (as ``knn1_mxu3_plain`` forms
+    it) are both negative and differ → ``(q [count, 3], less [count, 3],
+    more [count, 3])``: ``more`` the more negative."""
+    out = []
+    while len(out) < count:
+        qv = rng.uniform(lo, hi, 3).astype(np.float32)
+        steps = rng.integers(-4, 5, (64, 3)).astype(np.float32)
+        cand = (qv + steps * np.spacing(qv)).astype(np.float32)
+        q2 = (qv[0] * qv[0] + qv[1] * qv[1]) + qv[2] * qv[2]
+        r2 = (cand[:, 0] * cand[:, 0] + cand[:, 1] * cand[:, 1]) + cand[:, 2] * cand[:, 2]
+        dot = (qv[0] * cand[:, 0] + qv[1] * cand[:, 1]) + qv[2] * cand[:, 2]
+        d = (q2 + r2) - np.float32(2.0) * dot
+        neg = np.unique(d[d < 0])
+        if len(neg) >= 2:
+            out.append((qv, cand[d == neg[-1]][0], cand[d == neg[0]][0]))
+    return tuple(np.stack(x) for x in zip(*out))
 
 
 def _time(torch, fn, reps, device) -> float:

@@ -20,8 +20,9 @@ Needs a CUDA device. ``--device cpu`` runs the wrappers' plain versions at
 the given shape, to check the script; its times are the host's clock and no
 measure of the card.
 
-:func:`emulate_t4` is T4's schedule in plain torch, which
-tests/test_torch_variant_schedule.py holds to the plain version bit for bit.
+:func:`emulate_t4` and :func:`emulate_t5` are T4's and T5's schedules in
+plain torch, which tests/test_torch_variant_schedule.py holds to the plain
+version bit for bit.
 """
 
 from __future__ import annotations
@@ -99,6 +100,52 @@ def emulate_t4(q, cand, dim):
                 gm = torch.fmin(gm[..., :w], gm[..., w:2 * w])
             best = torch.fmin(best, gm[..., 0])
     return best[:T, :tq]
+
+
+def emulate_t5(q, cand, dim):
+    """T5's schedule in plain torch, on any device → ``d2 [T, TQ]``: one
+    tile a block (its queries in slices of ``4 * team`` on the grid, the
+    slots past TQ swept as dead), the block's threads ``slices`` teams
+    (``tile_cuda.t5_shape``), team s sweeping the columns ``[s * span, (s +
+    1) * span)`` of the tile's whole groups of 8 (the last runs short or
+    empty), every four columns copied with those past M zero-filled and
+    folded (x + pen, +inf past M), each group folded with fminf and each
+    query's minimum over its slice kept; then each query's slice minima
+    folded with fminf (an empty slice gives +inf)."""
+    import torch
+
+    from libpointmatcher_tpu_torch.ops import tile_cuda as tc
+
+    T, tq, _ = q.shape
+    m = cand.shape[2]
+    team, slices, span = tc.t5_shape(tq, m)
+    mp = -(-m // 8) * 8
+    slots = -(-tq // (4 * team)) * 4 * team
+    inf = float("inf")
+    qs = torch.zeros((T, slots, 3), dtype=torch.float32, device=q.device)
+    qs[:, :tq, :dim] = q[..., :dim]
+    tab = torch.zeros((T, 4, mp), dtype=torch.float32, device=q.device)
+    tab[:, :, :m] = cand[:, [0, 1, 2, tc.PEN_ROW]]
+    if dim == 2:
+        tab[:, 2] = 0.0
+    live = torch.arange(mp, device=q.device) < m
+    x = torch.where(live, tab[:, 0] + tab[:, 3], inf)
+    part = torch.full((T, slots, slices), inf, device=q.device)
+    for s in range(slices):
+        a, b = s * span, min(mp, (s + 1) * span)
+        if a >= b:
+            continue
+        dx = qs[..., 0, None] - x[:, None, a:b]
+        dy = qs[..., 1, None] - tab[:, None, 1, a:b]
+        dz = qs[..., 2, None] - tab[:, None, 2, a:b]
+        g = ((dx * dx + dy * dy) + dz * dz).view(T, slots, -1, 8)
+        for w in (4, 2, 1):
+            g = torch.fmin(g[..., :w], g[..., w:2 * w])
+        part[..., s] = g[..., 0].amin(dim=2)
+    best = part[..., 0]
+    for s in range(1, slices):
+        best = torch.fmin(best, part[..., s])
+    return best[:, :tq]
 
 
 def _time(torch, fn, reps, device) -> float:

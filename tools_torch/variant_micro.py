@@ -1,11 +1,11 @@
-"""T2 (the transposed 1-NN lowering) and T4 (K7's min-only ablation), with
-T5 beside T4, timed at the tools' shapes and at recorded main-path inputs:
-the A/B of two trees of the port on one card.
+"""T2 and T3 (the transposed and matrix-product 1-NN lowerings) and T4 and
+T5 (K7's min-only ablations), timed at the tools' shapes and at recorded
+main-path inputs: the A/B of two trees of the port on one card.
 
     python3 tools_torch/variant_micro.py record --out FILE
     python3 tools_torch/variant_micro.py time --inputs FILE [--tree DIR]
-        [--reps 20] [--rounds 3] [--t2-split AIM:ROWS,...] [--yardstick]
-        [--out JSON]
+        [--reps 20] [--rounds 3] [--t2-split AIM:ROWS,...]
+        [--t3-split AIM,...] [--yardstick] [--out JSON]
 
 ``record`` keeps two inputs, written to FILE with ``torch.save`` (~0.3 GB):
 
@@ -16,30 +16,33 @@ the A/B of two trees of the port on one card.
   iteration of a batch of 8 scans on chip_smoke.py's 10^5-point terrain
   (phase 14), as per-tile inputs (chip_smoke.py's ``vtile_inputs``: each
   virtual tile's queries ``[Bf·Tv, TQ, 8]`` against its table
-  ``[Bf·Tv, 8, M]``), what phase 19 gives T4 and T5.
+  ``[Bf·Tv, 8, M]``), what phase 19 gives T4 and T5 (phase 20 gives T1-T3
+  phase 5's K1 inputs, recorded the same way).
 
 ``time`` loads them and imports the port from ``--tree`` (default: this
 checkout), so that an unpacked older commit, or a copy with another
 build of a kernel, is timed on the same inputs: run the trees in turns
-(parent, change, change, parent), one process each. T2 runs at the JAX
-tool's 20 480 × 12 459 (tools_torch/knn_micro.py) and at ``K1
-sequence``, held to K1 and to the plain version bit for bit; T4 and T5
-at the JAX tool's 2048 × 256 × 4096 (tools_torch/tile_kernel_micro.py)
-and at ``K7 batch 1e5``, held to ``tile_min_plain`` and to K7's d² bit
-for bit. Each is timed with CUDA events (``--reps`` launches,
-``--rounds`` times), K1 and K7 beside them. ``--t2-split`` times T2 at
-other split rules in turn (``AIM:ROWS``: ``knn_variants_cuda``'s
-``T2_BLOCKS_PER_SM`` and ``T2_CHUNK_ROWS``, in trees that have them).
-Every input reports
-its bound (9 fp32 operations a pair at 67 TFLOP/s, or its bytes at 3.35
-TB/s) and issue floor (9 instructions a pair at one warp instruction a
-clock in each of the SMs' partitions at 1.98 GHz) over the pairs the
-function needs: T2 its valid (query, reference) pairs, T4 every query
-against its tile's real candidates. ``--yardstick`` adds the plain
-versions' times and the PyTorch yardsticks (``torch.cdist`` + ``min``;
-for T4 the batched call, cut into chunks of tiles where cdist refuses
-it). Needs a CUDA device; prints one JSON object (and writes it to
-``--out``).
+(parent, change, change, parent), one process each. T2 and T3 run at the
+JAX tool's 20 480 × 12 459 (tools_torch/knn_micro.py) and at ``K1
+sequence``, T2 held to K1 and to its plain version bit for bit, T3 to
+``knn1_mxu3_plain`` bit for bit and to K1's d² within 2^-20·(q² +
+r²max); T4 and T5 at the JAX tool's 2048 × 256 × 4096
+(tools_torch/tile_kernel_micro.py) and at ``K7 batch 1e5``, held to
+``tile_min_plain`` and to K7's d² bit for bit. Each is timed with CUDA
+events (``--reps`` launches, ``--rounds`` times), K1 and K7 beside them.
+``--t2-split`` times T2 at other split rules in turn (``AIM:ROWS``:
+``knn_variants_cuda``'s ``T2_BLOCKS_PER_SM`` and ``T2_CHUNK_ROWS``, in
+trees that have them), ``--t3-split`` T3 at other aims
+(``T3_BLOCKS_PER_SM``). Every input reports its bound (9 fp32 operations
+a pair, T3 8, at 67 TFLOP/s, or its bytes at 3.35 TB/s) and issue floor
+(9 instructions a pair at one warp instruction a clock in each of the
+SMs' partitions at 1.98 GHz; for T3 also at its 8) over the pairs the
+function needs: T2 and T3 their valid (query, reference) pairs, T4 every
+query against its tile's real candidates. ``--yardstick`` adds the plain
+versions' times and the PyTorch yardsticks (``torch.cdist`` + ``min``,
+for T3 in its matmul form with TF32 off; for T4 the batched call, cut
+into chunks of tiles where cdist refuses it). Needs a CUDA device; prints
+one JSON object (and writes it to ``--out``).
 """
 
 from __future__ import annotations
@@ -114,12 +117,15 @@ def _ms(fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
-def _bounds(pairs, nbytes, sms) -> dict:
-    t_ops = OPS_PER_PAIR * pairs / FP32_FLOPS
+def _bounds(pairs, nbytes, sms, ops=OPS_PER_PAIR) -> dict:
+    t_ops = ops * pairs / FP32_FLOPS
     t_bytes = nbytes / HBM_BYTES_S
-    return {"pairs": pairs, "bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "issue_floor_ms": 1e3 * OPS_PER_PAIR * pairs / (sms * ISSUE_LANES_S)}
+    out = {"pairs": pairs, "bound_ms": 1e3 * max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "issue_floor_ms": 1e3 * OPS_PER_PAIR * pairs / (sms * ISSUE_LANES_S)}
+    if ops != OPS_PER_PAIR:
+        out[f"issue_floor_{ops}_ms"] = 1e3 * ops * pairs / (sms * ISSUE_LANES_S)
+    return out
 
 
 def _ptxas(log, names) -> dict:
@@ -150,7 +156,45 @@ def _t2_rules(kv, spec):
         for a, r in (item.split(":") for item in spec.split(","))]
 
 
-def time_kernels(path, tree, reps, rounds, t2_split=None, yardstick=False):
+def _t3_aims(kv, spec):
+    """The aims to time T3 at: [(label, aim)], this tree's own first; the
+    others only in trees with ``T3_BLOCKS_PER_SM``."""
+    if not spec or not hasattr(kv, "T3_BLOCKS_PER_SM"):
+        return [("own", None)]
+    return [("own", None)] + [(f"aim {a}", int(a)) for a in spec.split(",")]
+
+
+def _t3(kc, kv, q, qm, r, rm, reps, rounds, spec, sms) -> dict:
+    """T3 at one input: bit for bit its plain version, within 2^-20·(q² +
+    r²max) of K1's d², timed at this tree's aim and at ``spec``'s."""
+    d1, _ = kc.knn1(q, qm, r, rm)
+    dp, ip = kv.knn1_mxu3_plain(q, qm, r, rm)
+    tol = 2.0 ** -20 * ((q * q).sum(dim=1) + float((r[rm] * r[rm]).sum(dim=1).max()))
+    fin = torch.isfinite(d1)
+    res = {}
+    for rule, aim in _t3_aims(kv, spec):
+        own = getattr(kv, "T3_BLOCKS_PER_SM", None)
+        if aim is not None:
+            kv.T3_BLOCKS_PER_SM = aim
+        fn = lambda: kv.knn1_mxu(q, qm, r, rm)
+        d, i = fn()
+        _equal((d, i), (dp, ip), f"T3 ({rule}) against its plain version")
+        if not (torch.equal(fin, torch.isfinite(d))
+                and bool(((d - d1).abs() <= tol)[fin].all())):
+            raise AssertionError(f"T3 ({rule}): |Δd²| to K1 above 2^-20·(q²+r²max)")
+        key = "T3" if rule == "own" else f"T3 {rule}"
+        res[key] = [_ms(fn, reps) for _ in range(rounds)]
+        if hasattr(kv, "t3_split"):
+            res[f"{key} splits, chunk"] = list(kv.t3_split(
+                int(q.shape[0]), int(r.shape[0]), sms))
+        if aim is not None:
+            kv.T3_BLOCKS_PER_SM = own
+    res["T3 max_abs_err_to_k1"] = float((d - d1).abs()[fin].max())
+    return res
+
+
+def time_kernels(path, tree, reps, rounds, t2_split=None, t3_split=None,
+                 yardstick=False):
     sys.path.insert(0, os.path.abspath(tree))
     sys.path.insert(1, ROOT)
     from libpointmatcher_tpu_torch.ops import knn_cuda as kc
@@ -166,9 +210,9 @@ def time_kernels(path, tree, reps, rounds, t2_split=None, yardstick=False):
     data = torch.load(path)
     out = {"tree": os.path.abspath(tree), "sms": sms,
            "ptxas": _ptxas(kv.LIBRARY.build_log + tc.LIBRARY.build_log,
-                           ("nn1_transposed", "tile_min")),
+                           ("nn1_transposed", "nn1_mxu", "tile_min")),
            "inputs": {}}
-    # ---- T2
+    # ---- T2 and T3
     k1 = data["K1 sequence"]
     t2_inputs = {"T2 tool 20480x12459": knn_micro.make_inputs(
         torch, knn_micro.N, knn_micro.M, "cuda"),
@@ -196,11 +240,22 @@ def time_kernels(path, tree, reps, rounds, t2_split=None, yardstick=False):
                     int(q.shape[0]), int(r.shape[0]), sms))
             if aim is not None:
                 kv.T2_BLOCKS_PER_SM, kv.T2_CHUNK_ROWS = own
+        res.update(_t3(kc, kv, q, qm, r, rm, reps, rounds, t3_split, sms))
+        res["T3 bound"] = _bounds(res["pairs"], 13.0 * (q.shape[0] + r.shape[0])
+                                  + 8.0 * q.shape[0], sms, ops=8)
         if yardstick:
             res["plain_ms"] = _ms(lambda: knn_brute_force(q, qm, r, rm, k=1), 3)
             rv = r[rm]
             res["library_ms"] = _ms(lambda: torch.cdist(
                 q, rv, compute_mode="donot_use_mm_for_euclid_dist").min(dim=1), 3)
+            res["T3 plain_ms"] = _ms(lambda: kv.knn1_mxu3_plain(q, qm, r, rm), 3)
+            tf32 = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = False
+            try:
+                res["T3 library_ms"] = _ms(lambda: torch.cdist(
+                    q, rv, compute_mode="use_mm_for_euclid_dist").min(dim=1), 3)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = tf32
         out["inputs"][label] = res
     del t2_inputs
     # ---- T4 (and T5)
@@ -245,6 +300,8 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--t2-split", default=None,
                     help="other T2 split rules to time, AIM:ROWS,...")
+    ap.add_argument("--t3-split", default=None,
+                    help="other T3 split aims to time, AIM,...")
     ap.add_argument("--yardstick", action="store_true")
     args = ap.parse_args(argv)
 
@@ -262,7 +319,7 @@ def main(argv=None) -> int:
             ap.error("time needs --inputs")
         res = {"device": smi, **time_kernels(args.inputs, args.tree, args.reps,
                                              args.rounds, args.t2_split,
-                                             args.yardstick)}
+                                             args.t3_split, args.yardstick)}
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
             with open(args.out, "w") as f:

@@ -10,11 +10,12 @@ Phases, each fatal on failure:
    (knn.cu, sweep.cu, tile.cu, skip.cu, knn_variants.cu), one nvcc each,
    all started together; ptxas's register and spill report, and no spill
    in knn.cu (K1, K9 and every K5 list length), in sweep.cu (K2, K3/K4,
-   every K6 list length) nor in tile.cu (K7, every K8 list length, T4,
-   T5);
+   every K6 list length), in tile.cu (K7, every K8 list length, T4, T5)
+   nor in knn_variants.cu (T1, T2, T3);
 3. dense kernels: K1, K9 and K5 against their plain torch versions on the
    card, at the serving shapes 20480 x 12459 and 25000 x 100000, timed with
-   CUDA events beside the plain version and a ``torch.cdist`` yardstick;
+   CUDA events beside the plain version and a ``torch.cdist`` yardstick
+   (for K9 its matmul form, TF32 off);
 4. one-shot and sequence registration: a synthetic indoor scene of about
    100 000 points and scans of 25 000 points (numpy, seeded); the
    filters draw JAX's threefry values from each call's seed. One one-shot
@@ -544,7 +545,8 @@ def check_kernel(torch, kc, name, q, qm, r, rm, k, reps=20, plain_reps=3):
     elif name.startswith("K9"):
         run = lambda: kc.knn1_mxu(q, qm, r, rm)
         plain = lambda: kc.knn1_mxu_plain(q, qm, r, rm)
-        lib = lambda: torch.cdist(q, r[rm], compute_mode="donot_use_mm_for_euclid_dist").min(dim=1)
+        # the function K9 computes: the matmul form, fp32 (TF32 off below)
+        lib = lambda: torch.cdist(q, r[rm], compute_mode="use_mm_for_euclid_dist").min(dim=1)
     else:
         run = lambda: kc.knnk(q, qm, r, rm, k)
         plain = lambda: knn_brute_force(q, qm, r, rm, k=k)
@@ -589,7 +591,12 @@ def check_kernel(torch, kc, name, q, qm, r, rm, k, reps=20, plain_reps=3):
         out["id_agreement"] = 1.0
     out["ms"] = cuda_ms(torch, run, reps)
     out["plain_ms"] = cuda_ms(torch, plain, plain_reps)
-    out["library_ms"] = cuda_ms(torch, lib, plain_reps)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out["library_ms"] = cuda_ms(torch, lib, plain_reps)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
     nv, mv = int(qm.sum()), int(rm.sum())
     out["bound_ms"], out["bound_by"] = bound_ms(name, nv, mv, n, m, k)
     return out
@@ -3942,9 +3949,9 @@ def main() -> int:
         for line in lib.build_log.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"[build] {lib.source.name}: {line.strip()}")
-    # the dense, survivor and tile kernels keep their lists and staging in
-    # registers
-    for lib in (kc.LIBRARY, sc.LIBRARY, tc.LIBRARY):
+    # the dense, survivor, tile and variant kernels keep their lists,
+    # accumulators and staging in registers
+    for lib in (kc.LIBRARY, sc.LIBRARY, tc.LIBRARY, kv.LIBRARY):
         spills = [ln.strip() for ln in lib.build_log.splitlines()
                   if any(int(x) for x in re.findall(r"(\d+) bytes spill", ln))]
         if spills:

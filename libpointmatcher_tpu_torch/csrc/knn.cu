@@ -9,14 +9,15 @@
 // What bounds them: at d = 3 each (query, reference) pair costs about ten
 // fp32 operations and the inputs are a few hundred kilobytes, so the work is
 // bound by the fp32 issue rate, not by memory. The exact difference form may
-// not fuse into FMAs, so K1 and K5 issue at least 8 operations a pair; the
-// design keeps every other instruction off the pair. The reference rows are
-// split into contiguous chunks over gridDim.y so that a few thousand queries
-// still give every SM several blocks; a second small kernel merges the
-// chunks in chunk order. Independent (query set, reference) pairs of one
-// size, as pair-parallel one-shot registration stacks them, run in one
-// launch with the pair on gridDim.z, each pair's rows at its own offset; one
-// pair is the single-reference search.
+// not fuse into FMAs, so K1 and K5 issue at least 8 operations a pair; K9's
+// expansion form 5 and its fold 1; each design keeps every other
+// instruction off the pair. The reference rows are split into contiguous
+// chunks over gridDim.y so that a few thousand queries still give every SM
+// several blocks; a second small kernel merges the chunks in chunk order.
+// Independent (query set, reference) pairs of one size, as pair-parallel
+// one-shot registration stacks them, run in one launch with the pair on
+// gridDim.z, each pair's rows at its own offset; one pair is the
+// single-reference search.
 //
 // K1 and K5: 128 threads a block, K1 two queries a thread, K5 one (with
 // two, the card needs twice the chunks to fill, and each chunk restarts the
@@ -36,8 +37,22 @@
 // group's rows in index order. A block, or a warp, whose queries are all
 // masked does not sweep.
 //
-// K9: one thread a query, reference rows staged as float4 (x, y, z, r2 +
-// pen) and read by all threads of the block at once (a broadcast).
+// K9: 128 threads a block, four queries a thread, a warp's 128 queries one
+// contiguous run. A chunk is staged kK9Stage rows at a time as float4 (x,
+// y, z, r2pen), r2pen +inf at a masked row and (0, 0, 0, +inf) past the
+// chunk's end, through two buffers as K1 stages (one barrier a stage); one
+// 16-byte broadcast load gives a row to all four queries. Rows are swept in
+// groups of kK9Group = 16: each query folds the group's d2 with fminf (one
+// instruction a pair beside the five of its d2) and keeps (best, best
+// group) with a strict '<' once a group; the partial kernel writes the
+// unclamped (best, best group's first row) of each chunk. The merge takes
+// the chunks in order with a strict '<', recomputes the winning group's
+// rows and takes the first whose d2 equals the minimum, then clamps at 0.
+// A block, or a warp, whose queries are all masked does not sweep. The
+// chunks are whole groups, cut by ops/knn_cuda.py k9_split so that the
+// (query block, chunk) units fill whole waves of kK9MinBlocks blocks on
+// each SM (the launch bounds ask for them; the wrapper checks the card
+// gives them).
 //
 // Exactness: K1 and K5 form d2 = (dx*dx + dy*dy) + dz*dz with dx taken
 // against x + pen, every step an explicitly rounded intrinsic (no FMA
@@ -51,10 +66,19 @@
 // K5 inserts with a strict '<' in increasing row order, so equal distances
 // keep the lower index ahead; a group it skips holds no row below its k-th
 // distance. The chunks merge in chunk order with a strict '<'. K9 forms
-// d2 = (q2 + (r2 + pen)) - 2 (q.r) with fp32 FMAs (no tensor cores: TF32
-// would break its error bound) and is clamped at 0 after the minimum, as
-// knn1_pallas_mxu does. Outputs: (d2, id), (+inf, -1) for a masked query
-// or for a slot with no valid reference.
+// dot = fma(qz, rz, fma(qy, ry, qx*rx)) and d2 = fma(-2, dot, q2 + r2pen),
+// q2 and r2 as (x*x + y*y) + z*z, every step an explicitly rounded
+// intrinsic (fp32 FMAs, no tensor cores: TF32 would break its error bound),
+// so a recomputation gives the same bits; it is clamped at 0 only after the
+// chunks merge, as knn1_pallas_mxu clamps after the minimum (a clamp per
+// chunk would tie two negative minima at 0 and let the earlier chunk win).
+// Its best group is the first that holds the chunk's minimum, the winning
+// chunk the first that holds the overall one, and the first row of that
+// group whose d2 equals it the lowest index holding it; fminf ignores NaN
+// as '<' does, and masked rows and padding (r2pen = +inf) are never taken.
+// So K9 returns the first row of the least unclamped d2, whatever the
+// split: its first design's (d2, id) bit for bit. Outputs: (d2, id),
+// (+inf, -1) for a masked query or for a slot with no valid reference.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -62,14 +86,23 @@
 
 namespace {
 
-constexpr int kBlock = 256;        // K9 queries per block, one per thread
-constexpr int kTile = 1024;        // K9 rows per stage; the chunk granularity
+constexpr int kBlock = 256;        // K1 queries per block, two a thread
+constexpr int kTile = 1024;        // K1/K5 chunk granularity (rows)
 constexpr int kThreads = 128;      // K1/K5 threads a block
 constexpr int kStage = 512;        // K1/K5 rows per shared stage (2 x 6 KB)
 constexpr int kGroup = 8;          // K1/K5 rows per group
 constexpr int kRowsPerThread = kStage / kThreads;
 static_assert(kTile % kStage == 0, "a chunk is whole stages");
 static_assert(kStage % kGroup == 0 && kGroup % 4 == 0, "whole float4 groups");
+constexpr int kK9Threads = 128;    // K9 threads a block
+constexpr int kK9QPer = 4;         // K9 queries a thread
+constexpr int kK9Group = 16;       // K9 rows a group (one fminf fold); its chunk granularity
+constexpr int kK9Stage = 512;      // K9 rows per shared stage (2 x 8 KB)
+constexpr int kK9MinBlocks = 4;    // K9 blocks an SM (launch bounds: 128 registers)
+constexpr int kK9BlockQueries = kK9Threads * kK9QPer;
+constexpr int kK9RowsPerThread = kK9Stage / kK9Threads;
+static_assert(kK9Stage % kK9Group == 0 && kK9Stage % kK9Threads == 0,
+              "a stage is whole groups, the same rows for every thread");
 
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
   return a < b ? a : b;
@@ -383,6 +416,8 @@ knnk_sweep(const float* __restrict__ q, const uint8_t* __restrict__ qmask,
 
 // --------------------------------------------------------------------- K9
 
+// Reference row j as K9 stages it: (x, y, z, r2pen), r2pen = (x*x + y*y) +
+// z*z, or +inf at a masked row.
 __device__ __forceinline__ float4 stage_row_mxu(const float* __restrict__ ref,
                                                 const uint8_t* __restrict__ rmask,
                                                 int64_t j, int dim) {
@@ -394,59 +429,195 @@ __device__ __forceinline__ float4 stage_row_mxu(const float* __restrict__ ref,
   return make_float4(x, y, z, rmask[j] != 0 ? r2 : CUDART_INF_F);
 }
 
-// K9: running (min, argmin) of one reference chunk per blockIdx.y.
-__global__ void __launch_bounds__(kBlock)
-knn1_mxu_partial(const float* __restrict__ q, int n,
-                 const float* __restrict__ ref,
-                 const uint8_t* __restrict__ rmask, int m, int dim, int chunk,
-                 float* __restrict__ part_d, int* __restrict__ part_i) {
-  __shared__ float4 tile[kTile];
+__device__ __forceinline__ float mxu_q2(float qx, float qy, float qz) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(qx, qx), __fmul_rn(qy, qy)),
+                   __fmul_rn(qz, qz));
+}
+
+// K9's d2 of one pair: fma(-2, dot, q2 + r2pen), dot = fma(qz, rz, fma(qy,
+// ry, qx * rx)); five fp32 instructions.
+__device__ __forceinline__ float mxu_d2(float qx, float qy, float qz, float q2,
+                                        float4 r) {
+  const float dot = __fmaf_rn(qz, r.z, __fmaf_rn(qy, r.y, __fmul_rn(qx, r.x)));
+  return __fmaf_rn(-2.0f, dot, __fadd_rn(q2, r.w));
+}
+
+// This thread's rows of the stage at t0 (rows t0 + r * kK9Threads + tid),
+// rows at or past j1 as (0, 0, 0, +inf).
+struct K9Stage {
+  float4 row[kK9RowsPerThread];
+
+  __device__ __forceinline__ void load(const float* __restrict__ ref,
+                                       const uint8_t* __restrict__ rmask,
+                                       int64_t t0, int64_t j1, int dim) {
+#pragma unroll
+    for (int r = 0; r < kK9RowsPerThread; ++r) {
+      const int64_t j = t0 + r * kK9Threads + threadIdx.x;
+      row[r] = j < j1 ? stage_row_mxu(ref, rmask, j, dim)
+                      : make_float4(0.0f, 0.0f, 0.0f, CUDART_INF_F);
+    }
+  }
+
+  __device__ __forceinline__ void store(float4* s) const {
+#pragma unroll
+    for (int r = 0; r < kK9RowsPerThread; ++r)
+      s[r * kK9Threads + threadIdx.x] = row[r];
+  }
+};
+
+// The thread's kK9QPer queries: running (group minimum, its group's first
+// row). Each staged row is read from shared memory once (one 16-byte
+// broadcast) for all of them; each query folds a group's d2 with fminf.
+struct K9Nearest {
+  float qx[kK9QPer], qy[kK9QPer], qz[kK9QPer], q2[kK9QPer], best[kK9QPer];
+  int grp[kK9QPer];
+
+  __device__ __forceinline__ void sweep(const float4* s, int t0, int rows) {
+    const int groups = (rows + kK9Group - 1) / kK9Group;
+#pragma unroll 1
+    for (int g = 0; g < groups; ++g) {
+      float gm[kK9QPer];
+#pragma unroll
+      for (int e = 0; e < kK9Group; ++e) {
+        const float4 r = s[g * kK9Group + e];
+#pragma unroll
+        for (int k = 0; k < kK9QPer; ++k) {
+          const float d = mxu_d2(qx[k], qy[k], qz[k], q2[k], r);
+          gm[k] = e == 0 ? d : fminf(gm[k], d);
+        }
+      }
+      const int gid = t0 + g * kK9Group;
+#pragma unroll
+      for (int k = 0; k < kK9QPer; ++k) {
+        if (gm[k] < best[k]) {
+          best[k] = gm[k];
+          grp[k] = gid;
+        }
+      }
+    }
+  }
+};
+
+// K9: per query of the block, (min d2, first row of its first group holding
+// it) over one reference chunk per blockIdx.y, unclamped. Query k of lane l
+// in warp w is base + w * 32 * kK9QPer + 32 * k + l, so a warp's queries are
+// one contiguous run. The chunk is staged kK9Stage rows at a time through
+// two buffers: the next stage's rows are loaded into registers while this
+// one is swept and stored after it, one barrier a stage. A block whose
+// queries are all masked does not sweep; a warp whose queries are all masked
+// joins the barriers only.
+__global__ void __launch_bounds__(kK9Threads, kK9MinBlocks)
+knn1_mxu_sweep(const float* __restrict__ q, const uint8_t* __restrict__ qmask,
+               int n, const float* __restrict__ ref,
+               const uint8_t* __restrict__ rmask, int m, int dim, int chunk,
+               float* __restrict__ part_d, int* __restrict__ part_i) {
+  __shared__ __align__(16) float4 s_row[2][kK9Stage];
   const int64_t pair = blockIdx.z;
   q += pair * n * dim;
+  qmask += pair * n;
   ref += pair * m * dim;
   rmask += pair * m;
   part_d += pair * gridDim.y * n;
   part_i += pair * gridDim.y * n;
-  const int64_t qi = (int64_t)blockIdx.x * kBlock + threadIdx.x;
+  const int64_t base = (int64_t)blockIdx.x * kK9BlockQueries +
+                       (threadIdx.x >> 5) * (32 * kK9QPer) + (threadIdx.x & 31);
+  K9Nearest nn;
+  bool live = false;
+#pragma unroll
+  for (int k = 0; k < kK9QPer; ++k) {
+    const int64_t qi = base + 32 * k;
+    load_query(q, qi, n, dim, nn.qx[k], nn.qy[k], nn.qz[k]);
+    nn.q2[k] = mxu_q2(nn.qx[k], nn.qy[k], nn.qz[k]);
+    nn.best[k] = CUDART_INF_F;
+    nn.grp[k] = -1;
+    live |= qi < n && qmask[qi] != 0;
+  }
   const int64_t j0 = (int64_t)blockIdx.y * chunk;
   const int64_t j1 = min64(m, j0 + chunk);
-  float qx, qy, qz;
-  load_query(q, qi, n, dim, qx, qy, qz);
-  const float q2 = __fadd_rn(__fadd_rn(__fmul_rn(qx, qx), __fmul_rn(qy, qy)),
-                             __fmul_rn(qz, qz));
+  const int stages = j1 > j0 ? (int)((j1 - j0 + kK9Stage - 1) / kK9Stage) : 0;
+  if (__syncthreads_or(live) && stages > 0) {
+    const bool warp_live = __any_sync(0xffffffffu, live);
+    K9Stage st;
+    st.load(ref, rmask, j0, j1, dim);
+    st.store(s_row[0]);
+    __syncthreads();
+    for (int s = 0; s < stages; ++s) {
+      const int64_t t0 = j0 + (int64_t)s * kK9Stage;
+      // the next stage's loads are in flight while this one is swept
+      const bool more = s + 1 < stages;
+      if (more) st.load(ref, rmask, t0 + kK9Stage, j1, dim);
+      if (warp_live) nn.sweep(s_row[s & 1], (int)t0, (int)min64(kK9Stage, j1 - t0));
+      // the other buffer was last read before the previous barrier
+      if (more) st.store(s_row[(s + 1) & 1]);
+      __syncthreads();
+    }
+  }
+  const int64_t out = (int64_t)blockIdx.y * n;
+#pragma unroll
+  for (int k = 0; k < kK9QPer; ++k) {
+    const int64_t qi = base + 32 * k;
+    if (qi < n) {
+      part_d[out + qi] = nn.best[k];
+      part_i[out + qi] = nn.grp[k];
+    }
+  }
+}
+
+// K9's merge of pairs * n queries (query qi of pair p is row p * n + qi):
+// the chunks in increasing order with a strict '<', then the first row of
+// the winning chunk's best group whose d2, recomputed by the same
+// functions, equals the minimum; then the clamp at 0.
+__global__ void knn1_mxu_merge(const float* __restrict__ part_d,
+                               const int* __restrict__ part_i, int n, int pairs,
+                               int splits, const float* __restrict__ q,
+                               const uint8_t* __restrict__ qmask,
+                               const float* __restrict__ ref,
+                               const uint8_t* __restrict__ rmask, int m, int dim,
+                               float* __restrict__ out_d, int* __restrict__ out_i) {
+  const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= (int64_t)pairs * n) return;
+  const int64_t pair = row / n;
+  const int64_t qi = row - pair * n;
+  part_d += pair * splits * n;
+  part_i += pair * splits * n;
   float best = CUDART_INF_F;
-  int besti = -1;
-  for (int64_t t0 = j0; t0 < j1; t0 += kTile) {
-    const int cnt = (int)min64(kTile, j1 - t0);
-    __syncthreads();
-    for (int l = threadIdx.x; l < cnt; l += kBlock)
-      tile[l] = stage_row_mxu(ref, rmask, t0 + l, dim);
-    __syncthreads();
-#pragma unroll 8
-    for (int l = 0; l < cnt; ++l) {
-      const float4 r = tile[l];
-      const float dot = fmaf(qz, r.z, fmaf(qy, r.y, __fmul_rn(qx, r.x)));
-      const float d = fmaf(-2.0f, dot, __fadd_rn(q2, r.w));
-      if (d < best) {
-        best = d;
-        besti = (int)(t0 + l);
+  int grp = -1;
+  for (int s = 0; s < splits; ++s) {
+    const float d = part_d[(int64_t)s * n + qi];
+    if (d < best) {
+      best = d;
+      grp = part_i[(int64_t)s * n + qi];
+    }
+  }
+  int id = -1;
+  if (grp >= 0) {
+    float qx, qy, qz;
+    load_query(q + pair * n * dim, qi, n, dim, qx, qy, qz);
+    const float q2 = mxu_q2(qx, qy, qz);
+    const int last = (int)min64(m, (int64_t)grp + kK9Group);
+    for (int j = grp; j < last; ++j) {
+      const float4 r = stage_row_mxu(ref + pair * m * dim, rmask + pair * m, j, dim);
+      if (mxu_d2(qx, qy, qz, q2, r) == best) {
+        id = j;
+        break;
       }
     }
   }
-  if (qi < n) {
-    part_d[(int64_t)blockIdx.y * n + qi] = best;
-    part_i[(int64_t)blockIdx.y * n + qi] = besti;
-  }
+  best = fmaxf(best, 0.0f);
+  const bool qv = qmask[row] != 0;
+  out_d[row] = qv ? best : CUDART_INF_F;
+  out_i[row] = (qv && isfinite(best)) ? id : -1;
 }
 
 // ----------------------------------------------------------------- merges
 
-// Merges the chunks of pairs * n queries; query qi of pair p is row
-// p * n + qi of qmask and of the outputs.
+// K1's merge of pairs * n queries: the chunks in increasing order with a
+// strict '<'; query qi of pair p is row p * n + qi of qmask and of the
+// outputs.
 __global__ void knn1_combine(const float* __restrict__ part_d,
                              const int* __restrict__ part_i, int n, int pairs,
                              int splits, const uint8_t* __restrict__ qmask,
-                             int clamp0, float* __restrict__ out_d,
+                             float* __restrict__ out_d,
                              int* __restrict__ out_i) {
   const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= (int64_t)pairs * n) return;
@@ -463,7 +634,6 @@ __global__ void knn1_combine(const float* __restrict__ part_d,
       besti = part_i[(int64_t)s * n + qi];
     }
   }
-  if (clamp0) best = fmaxf(best, 0.0f);
   const bool qv = qmask[row] != 0;
   out_d[row] = qv ? best : CUDART_INF_F;
   out_i[row] = (qv && isfinite(best)) ? besti : -1;
@@ -527,11 +697,12 @@ cudaError_t launch_knnk(const float* q, const uint8_t* qmask, int n,
 
 extern "C" {
 
-// Rows per chunk must be a multiple of this, splits * chunk >= m.
+// K1's and K5's rows per chunk must be a multiple of this, splits * chunk
+// >= m.
 int pm_tile_rows() { return kTile; }
 int pm_group_rows() { return kGroup; }
 
-// Queries per block: K1 and K9 (kk = 0), K5 (a list of kk slots).
+// Queries per block: K1 (kk = 0), K5 (a list of kk slots).
 int pm_block_queries(int kk) { return kk == 0 ? kBlock : kThreads; }
 
 // `pairs` (query set, reference) pairs in one launch: pair p's queries are
@@ -540,23 +711,53 @@ int pm_block_queries(int kk) { return kk == 0 ? kBlock : kThreads; }
 // part_i hold pairs * splits * n entries. One pair is the single-reference
 // search.
 int pm_knn1(const float* q, const uint8_t* qmask, int n, const float* ref,
-            const uint8_t* rmask, int m, int pairs, int dim, int mxu,
-            int splits, int chunk, float* part_d, int* part_i, float* out_d,
-            int* out_i, void* stream) {
+            const uint8_t* rmask, int m, int pairs, int dim, int splits,
+            int chunk, float* part_d, int* part_i, float* out_d, int* out_i,
+            void* stream) {
   if (n == 0 || pairs == 0) return cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
   const dim3 grid((n + kBlock - 1) / kBlock, splits, pairs);
-  if (mxu)
-    knn1_mxu_partial<<<grid, kBlock, 0, st>>>(q, n, ref, rmask, m, dim, chunk,
-                                              part_d, part_i);
-  else
-    knn1_sweep<<<grid, kThreads, 0, st>>>(q, qmask, n, ref, rmask, m, dim,
-                                          chunk, part_d, part_i);
+  knn1_sweep<<<grid, kThreads, 0, st>>>(q, qmask, n, ref, rmask, m, dim, chunk,
+                                        part_d, part_i);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int64_t rows = (int64_t)pairs * n;
   knn1_combine<<<(unsigned)((rows + 255) / 256), 256, 0, st>>>(
-      part_d, part_i, n, pairs, splits, qmask, mxu, out_d, out_i);
+      part_d, part_i, n, pairs, splits, qmask, out_d, out_i);
+  return cudaGetLastError();
+}
+
+// K9's queries a block, rows a group (its chunks' granularity), the blocks
+// an SM its launch bounds ask for, and the blocks an SM the card gives it.
+int pm_k9_block_queries() { return kK9BlockQueries; }
+int pm_k9_group_rows() { return kK9Group; }
+int pm_k9_min_blocks() { return kK9MinBlocks; }
+int pm_k9_occupancy() {
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, knn1_mxu_sweep,
+                                                    kK9Threads, 0) != cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+// K9, pairs and outputs as for pm_knn1; chunk a multiple of
+// pm_k9_group_rows(), splits * chunk >= m.
+int pm_knn1_mxu(const float* q, const uint8_t* qmask, int n, const float* ref,
+                const uint8_t* rmask, int m, int pairs, int dim, int splits,
+                int chunk, float* part_d, int* part_i, float* out_d, int* out_i,
+                void* stream) {
+  if (n == 0 || pairs == 0) return cudaSuccess;
+  if (chunk % kK9Group != 0) return cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid((n + kK9BlockQueries - 1) / kK9BlockQueries, splits, pairs);
+  knn1_mxu_sweep<<<grid, kK9Threads, 0, st>>>(q, qmask, n, ref, rmask, m, dim,
+                                              chunk, part_d, part_i);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int64_t rows = (int64_t)pairs * n;
+  knn1_mxu_merge<<<(unsigned)((rows + 255) / 256), 256, 0, st>>>(
+      part_d, part_i, n, pairs, splits, q, qmask, ref, rmask, m, dim, out_d,
+      out_i);
   return cudaGetLastError();
 }
 

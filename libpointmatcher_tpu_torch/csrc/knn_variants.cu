@@ -10,21 +10,32 @@
 //
 // What bounds them: as K1 and K9 (csrc/knn.cu), each (query, reference)
 // pair costs 8-9 fp32 operations on inputs of a few hundred kilobytes, so the
-// fp32 issue rate bounds them, not memory: T1 and T2 issue at least 9
-// instructions a pair (the exact form may not fuse into FMAs; T2's eight
-// and the fminf of its group fold), twice the 67 TFLOP/s bound, the issue
-// floor; T3 at least 8 (its 7 and the fminf). Each keeps every pair in
+// fp32 issue rate bounds them, not memory: T2 issues at least 9
+// instructions a pair (the exact form may not fuse into FMAs; its eight and
+// the fminf of its group fold), twice the 67 TFLOP/s bound, the issue
+// floor; T1 at least 11 (the eight and a compare and two selects); T3 at
+// least 8 (its 7 and the fminf). Each keeps every pair in
 // registers; they differ in the schedule, which is what the TPU variants
 // explored:
 //
-// T1, per-lane accumulators with one reduction at the end. One thread owns
-//   one query; reference rows are staged through shared memory as float4
-//   (x, y, z, pen), as in K1. Each thread keeps kAcc = 8 independent
-//   (min, id) accumulators, accumulator a taking the rows j = a (mod 8) of
-//   each stage, which breaks the min chain's loop-carried dependence as the
-//   TPU kernel's 128 lane accumulators do. They merge once after the last
-//   stage in (d2, id) order. The reference is split into chunks over
-//   gridDim.y, as K1 does, and a second kernel merges the chunks in order.
+// T1, independent accumulators with one reduction a chunk. Each thread owns
+//   kT1QPer = 4 queries (a block of 128 threads, 512 queries, a warp's 128
+//   one contiguous run) and stages the reference as T2 does (below: x +
+//   pen, y, z arrays of kT2Stage rows through two buffers, one barrier a
+//   stage), its chunks cut over gridDim.y by K1's split rule for T1's block
+//   (ops/knn_variants_cuda.py t1_split). Each query keeps kT1Acc = 2
+//   independent (min, id) accumulators, accumulator a taking the rows j = a
+//   (mod 2), each updated on every pair by a compare and two selects, with
+//   no group fold (T2's design). Two keep what this lowering explores, the
+//   TPU kernel's lane accumulators merged once, at 80 registers: one
+//   accumulator (no merge left) was 1-2% faster, four and eight (96 and 126
+//   registers) slower, and eight queries a thread slower (PERF.md, "Findings").
+//   After the chunk each query merges its accumulators once in (d2, id)
+//   order, and T1's merge takes the chunks in order with a strict '<'. A
+//   block whose queries are all masked does not sweep; a warp whose queries
+//   are all masked joins the barriers only. The loop issues 11.5
+//   instructions a pair: the 11 of d2 and the update, the loads and row
+//   ids beside them.
 // T2, the transposed layout: many queries share each staged reference row.
 //   Each thread owns kT2QPer = 4 queries in registers (a block of 128
 //   threads, 512 queries; the TPU tile's 2048 left only 10 blocks for 132
@@ -75,13 +86,16 @@
 //   block, 128 registers, two blocks an SM) were 13-15% slower at the
 //   tool's shape and 1% at K1's inputs (PERF.md, "Findings").
 
-// Exactness: T1 forms d2 = ((pen + dx*dx) + dy*dy) + dz*dz, T2 (dx*dx +
-// dy*dy) + dz*dz with dx taken against x + pen (K1's form), with explicitly
-// rounded intrinsics (no FMA contraction); for pen 0 both are the order of
-// ops/knn.py (0 + dx*dx being dx*dx), for pen = +inf both are +inf, so they
-// equal K1 and its plain version bit for bit. T2's best group is the first
-// that holds the chunk's minimum and its first row equal to it the lowest
-// index; fminf ignores NaN as '<' does. T3 forms
+// Exactness: T1 and T2 form d2 = (dx*dx + dy*dy) + dz*dz with dx taken
+// against x + pen (K1's form), with explicitly rounded intrinsics (no FMA
+// contraction); for pen 0 that is the order of ops/knn.py, ((pen + dx*dx) +
+// dy*dy) + dz*dz (0 + dx*dx being dx*dx), for pen = +inf both are +inf, so
+// they equal K1 and its plain version bit for bit. Each T1 accumulator,
+// updated with a strict '<' in increasing row order, holds its rows'
+// minimum at the first row holding it; their (d2, id) merge gives the
+// chunk's minimum at its lowest index. T2's best group is the first that
+// holds the chunk's minimum and its first row equal to it the lowest index;
+// fminf ignores NaN as '<' does. T3 forms
 // dot = (q0*r0 + q1*r1) + q2*r2 and d2 = (q2 + r2pen) - 2*dot with rounded
 // intrinsics in the order of knn_variants_cuda.knn1_mxu3_plain, the last
 // step as fma(-2, dot, q2 + r2pen): 2 dot is exact (doubling rounds nothing,
@@ -99,15 +113,19 @@
 
 namespace {
 
-constexpr int kBlock = 256;  // T1: threads per block
-constexpr int kTile = 1024;  // reference rows per shared-memory stage (16 KB)
-constexpr int kAcc = 8;      // T1: accumulators per thread
 constexpr int kT2Threads = 128;  // T2: threads a block
 constexpr int kT2QPer = 4;       // T2: queries a thread
 constexpr int kT2Stage = 512;    // T2: rows per shared stage (2 x 6 KB)
 constexpr int kT2Group = 8;      // T2: rows per group (one fminf fold)
 constexpr int kT2RowsPerThread = kT2Stage / kT2Threads;
 static_assert(kT2Stage % kT2Group == 0 && kT2Group % 4 == 0, "whole float4 groups");
+constexpr int kT1Threads = kT2Threads;  // T1: threads a block (T2's stages)
+constexpr int kT1QPer = 4;              // T1: queries a thread
+constexpr int kT1Acc = 2;               // T1: (min, id) accumulators a query
+constexpr int kT1Step = 8;              // T1: rows a step (two float4 an array)
+constexpr int kT1BlockQueries = kT1Threads * kT1QPer;
+static_assert(kT2Stage % kT1Step == 0 && kT1Step % kT1Acc == 0,
+              "a stage is whole steps, a step whole rounds of the accumulators");
 constexpr int kT3Threads = 256;  // T3: threads a block, 16 x 16
 constexpr int kT3RowsPer = 4;    // T3: query rows of a thread's micro-tile
 constexpr int kT3Cols = 8;       // T3: its columns of a tile, one group
@@ -121,27 +139,6 @@ static_assert(kT3Stage == kT3Threads && kT3Stage % kT3Tile == 0,
 
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
   return a < b ? a : b;
-}
-
-__device__ __forceinline__ float4 stage_row(const float* __restrict__ ref,
-                                            const uint8_t* __restrict__ rmask,
-                                            int64_t j, int dim) {
-  const float x = ref[j * dim];
-  const float y = ref[j * dim + 1];
-  const float z = dim == 3 ? ref[j * dim + 2] : 0.0f;
-  return make_float4(x, y, z, rmask[j] != 0 ? 0.0f : CUDART_INF_F);
-}
-
-// ((pen + dx*dx) + dy*dy) + dz*dz; at dim = 2, dz = 0 adds +0, which leaves
-// the sum's bits as they are, as in K1.
-__device__ __forceinline__ float diff_d2(float qx, float qy, float qz,
-                                         float4 r) {
-  const float dx = __fsub_rn(qx, r.x);
-  const float dy = __fsub_rn(qy, r.y);
-  const float dz = __fsub_rn(qz, r.z);
-  return __fadd_rn(__fadd_rn(__fadd_rn(r.w, __fmul_rn(dx, dx)),
-                             __fmul_rn(dy, dy)),
-                   __fmul_rn(dz, dz));
 }
 
 __device__ __forceinline__ void load_query(const float* __restrict__ q,
@@ -159,69 +156,6 @@ __device__ __forceinline__ void load_query(const float* __restrict__ q,
 // neighbour is (+inf, -1), and only such entries hold +inf.
 __device__ __forceinline__ bool before(float d, int id, float best, int besti) {
   return d < best || (d == best && id < besti);
-}
-
-// T1: the (min, argmin) of one reference chunk per blockIdx.y.
-__global__ void __launch_bounds__(kBlock)
-nn1_chunked_partial(const float* __restrict__ q, int n,
-                    const float* __restrict__ ref,
-                    const uint8_t* __restrict__ rmask, int m, int dim,
-                    int chunk, float* __restrict__ part_d,
-                    int* __restrict__ part_i) {
-  __shared__ float4 tile[kTile];
-  const int64_t qi = (int64_t)blockIdx.x * kBlock + threadIdx.x;
-  const int64_t j0 = (int64_t)blockIdx.y * chunk;
-  const int64_t j1 = min64(m, j0 + chunk);
-  float qx, qy, qz;
-  load_query(q, qi, n, dim, qx, qy, qz);
-  float bd[kAcc];
-  int bi[kAcc];
-#pragma unroll
-  for (int a = 0; a < kAcc; ++a) {
-    bd[a] = CUDART_INF_F;
-    bi[a] = -1;
-  }
-  for (int64_t t0 = j0; t0 < j1; t0 += kTile) {
-    const int cnt = (int)min64(kTile, j1 - t0);
-    __syncthreads();
-    for (int l = threadIdx.x; l < cnt; l += kBlock)
-      tile[l] = stage_row(ref, rmask, t0 + l, dim);
-    __syncthreads();
-    const int full = cnt & ~(kAcc - 1);
-    for (int l = 0; l < full; l += kAcc) {
-#pragma unroll
-      for (int a = 0; a < kAcc; ++a) {
-        const float d = diff_d2(qx, qy, qz, tile[l + a]);
-        if (d < bd[a]) {
-          bd[a] = d;
-          bi[a] = (int)(t0 + l + a);
-        }
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < kAcc; ++a) {  // the stage's last cnt % 8 rows
-      if (full + a < cnt) {
-        const float d = diff_d2(qx, qy, qz, tile[full + a]);
-        if (d < bd[a]) {
-          bd[a] = d;
-          bi[a] = (int)(t0 + full + a);
-        }
-      }
-    }
-  }
-  float best = bd[0];
-  int besti = bi[0];
-#pragma unroll
-  for (int a = 1; a < kAcc; ++a) {
-    if (before(bd[a], bi[a], best, besti)) {
-      best = bd[a];
-      besti = bi[a];
-    }
-  }
-  if (qi < n) {
-    part_d[(int64_t)blockIdx.y * n + qi] = best;
-    part_i[(int64_t)blockIdx.y * n + qi] = besti;
-  }
 }
 
 // T1, T2 and T3: merge the chunks in increasing order with a strict '<',
@@ -428,6 +362,129 @@ nn1_transposed(const float* __restrict__ q, const uint8_t* __restrict__ qmask,
   }
 }
 
+// ---------------------------------------------------------------------- T1
+
+// T1's kT1QPer queries, each with kT1Acc independent (min, id)
+// accumulators, accumulator a taking the rows j = a (mod kT1Acc); every pair
+// updates its accumulator by a compare and two selects. An accumulator
+// keeps its row less a (so at kT1Acc = kT1Step, the step's first row: no
+// add a pair); row() gives the row back.
+struct T1Nearest {
+  float qx[kT1QPer], qy[kT1QPer], qz[kT1QPer];
+  float bd[kT1QPer][kT1Acc];
+  int bi[kT1QPer][kT1Acc];
+
+  __device__ __forceinline__ void sweep(const float* sx, const float* sy,
+                                        const float* sz, int t0, int rows) {
+    const int steps = (rows + kT1Step - 1) / kT1Step;
+#pragma unroll 1
+    for (int g = 0; g < steps; ++g) {
+      float x[kT1Step], y[kT1Step], z[kT1Step];
+#pragma unroll
+      for (int v = 0; v < kT1Step / 4; ++v) {
+        const int o = g * (kT1Step / 4) + v;
+        const float4 a = reinterpret_cast<const float4*>(sx)[o];
+        const float4 b = reinterpret_cast<const float4*>(sy)[o];
+        const float4 c = reinterpret_cast<const float4*>(sz)[o];
+        x[4 * v] = a.x, x[4 * v + 1] = a.y, x[4 * v + 2] = a.z, x[4 * v + 3] = a.w;
+        y[4 * v] = b.x, y[4 * v + 1] = b.y, y[4 * v + 2] = b.z, y[4 * v + 3] = b.w;
+        z[4 * v] = c.x, z[4 * v + 1] = c.y, z[4 * v + 2] = c.z, z[4 * v + 3] = c.w;
+      }
+      const int j = t0 + g * kT1Step;
+#pragma unroll
+      for (int k = 0; k < kT1QPer; ++k) {
+#pragma unroll
+        for (int r = 0; r < kT1Step; ++r) {
+          const float d = d2_folded(qx[k], qy[k], qz[k], x[r], y[r], z[r]);
+          const int a = r % kT1Acc;
+          if (d < bd[k][a]) {
+            bd[k][a] = d;
+            bi[k][a] = j + (r - a);
+          }
+        }
+      }
+    }
+  }
+
+  // accumulator a's row (-1: none)
+  __device__ __forceinline__ int row(int k, int a) const {
+    return bi[k][a] < 0 ? -1 : bi[k][a] + a;
+  }
+};
+
+// T1: (min, argmin) of kT1BlockQueries queries over one reference chunk per
+// blockIdx.y. Query k of lane l in warp w is base + w * 32 * kT1QPer + 32 *
+// k + l, so a warp's queries are one contiguous run. The chunk is staged as
+// T2 stages it (kT2Stage rows, x + pen, y, z, two buffers, one barrier a
+// stage); a block whose queries are all masked does not sweep, a warp whose
+// queries are all masked joins the barriers only. After the chunk each
+// query merges its accumulators once, in (d2, id) order.
+__global__ void __launch_bounds__(kT1Threads)
+nn1_chunked_partial(const float* __restrict__ q, const uint8_t* __restrict__ qmask,
+                    int n, const float* __restrict__ ref,
+                    const uint8_t* __restrict__ rmask, int m, int dim,
+                    int chunk, float* __restrict__ part_d,
+                    int* __restrict__ part_i) {
+  __shared__ __align__(16) float s_x[2][kT2Stage];
+  __shared__ __align__(16) float s_y[2][kT2Stage];
+  __shared__ __align__(16) float s_z[2][kT2Stage];
+  const int64_t base = (int64_t)blockIdx.x * kT1BlockQueries +
+                       (threadIdx.x >> 5) * (32 * kT1QPer) + (threadIdx.x & 31);
+  T1Nearest nn;
+  bool live = false;
+#pragma unroll
+  for (int k = 0; k < kT1QPer; ++k) {
+    const int64_t qi = base + 32 * k;
+    load_query(q, qi, n, dim, nn.qx[k], nn.qy[k], nn.qz[k]);
+#pragma unroll
+    for (int a = 0; a < kT1Acc; ++a) {
+      nn.bd[k][a] = CUDART_INF_F;
+      nn.bi[k][a] = -1;
+    }
+    live |= qi < n && qmask[qi] != 0;
+  }
+  const int64_t j0 = (int64_t)blockIdx.y * chunk;
+  const int64_t j1 = min64(m, j0 + chunk);
+  const int stages = j1 > j0 ? (int)((j1 - j0 + kT2Stage - 1) / kT2Stage) : 0;
+  if (__syncthreads_or(live) && stages > 0) {
+    const bool warp_live = __any_sync(0xffffffffu, live);
+    T2Stage st;
+    st.load(ref, rmask, j0, j1, dim);
+    st.store(s_x[0], s_y[0], s_z[0]);
+    __syncthreads();
+    for (int s = 0; s < stages; ++s) {
+      const int64_t t0 = j0 + (int64_t)s * kT2Stage;
+      // the next stage's loads are in flight while this one is swept
+      const bool more = s + 1 < stages;
+      if (more) st.load(ref, rmask, t0 + kT2Stage, j1, dim);
+      if (warp_live)
+        nn.sweep(s_x[s & 1], s_y[s & 1], s_z[s & 1], (int)t0,
+                 (int)min64(kT2Stage, j1 - t0));
+      // the other buffer was last read before the previous barrier
+      if (more) st.store(s_x[(s + 1) & 1], s_y[(s + 1) & 1], s_z[(s + 1) & 1]);
+      __syncthreads();
+    }
+  }
+  const int64_t out = (int64_t)blockIdx.y * n;
+#pragma unroll
+  for (int k = 0; k < kT1QPer; ++k) {
+    const int64_t qi = base + 32 * k;
+    float best = nn.bd[k][0];
+    int besti = nn.row(k, 0);
+#pragma unroll
+    for (int a = 1; a < kT1Acc; ++a) {
+      if (before(nn.bd[k][a], nn.row(k, a), best, besti)) {
+        best = nn.bd[k][a];
+        besti = nn.row(k, a);
+      }
+    }
+    if (qi < n) {
+      part_d[out + qi] = best;
+      part_i[out + qi] = besti;
+    }
+  }
+}
+
 // x0*y0 + x1*y1 (+ x2*y2), each step rounded, in the plain version's order.
 template <int DIM>
 __device__ __forceinline__ float dot3(float x0, float x1, float x2, float y0,
@@ -594,9 +651,11 @@ nn1_mxu(const float* __restrict__ q, const uint8_t* __restrict__ qmask, int n,
 
 extern "C" {
 
-// T1's rows per chunk must be a multiple of the stage tile, splits * chunk
-// >= m.
-int pm_tile_rows() { return kTile; }
+// T1's queries a block, rows a shared stage (its chunks' granularity) and
+// accumulators a query; splits * chunk >= m.
+int pm_t1_block_queries() { return kT1BlockQueries; }
+int pm_t1_stage_rows() { return kT2Stage; }
+int pm_t1_accumulators() { return kT1Acc; }
 
 // q [n, dim], qmask [n] bytes, ref [m, dim], rmask [m] bytes; part_d and
 // part_i hold splits * n entries; out_d, out_i [n].
@@ -605,10 +664,11 @@ int pm_nn1_chunked(const float* q, const uint8_t* qmask, int n,
                    int splits, int chunk, float* part_d, int* part_i,
                    float* out_d, int* out_i, void* stream) {
   if (n == 0) return cudaSuccess;
+  if (chunk % kT2Stage != 0) return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid((n + kBlock - 1) / kBlock, splits);
-  nn1_chunked_partial<<<grid, kBlock, 0, st>>>(q, n, ref, rmask, m, dim,
-                                               chunk, part_d, part_i);
+  const dim3 grid((n + kT1BlockQueries - 1) / kT1BlockQueries, splits);
+  nn1_chunked_partial<<<grid, kT1Threads, 0, st>>>(q, qmask, n, ref, rmask, m,
+                                                   dim, chunk, part_d, part_i);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   nn1_chunked_combine<<<(n + 255) / 256, 256, 0, st>>>(

@@ -28,38 +28,59 @@ import torch
 from .cuda_build import KernelLibrary
 from .knn import knn_brute_force
 
-__all__ = ["knn1", "knn1_mxu", "knnk", "knn1_mxu_plain", "build", "LIBRARY",
-           "KNNK_MAX", "reset_launch_counts"]
+__all__ = ["knn1", "knn1_mxu", "knnk", "knn1_mxu_plain", "k9_split", "build",
+           "LIBRARY", "KNNK_MAX", "K9_BLOCK_QUERIES", "reset_launch_counts"]
 
 #: largest k served by the K5 kernel (as ``knn_pallas.KNNK_MAX``)
 KNNK_MAX = 32
 #: K5's list lengths, one kernel instance each
 KNNK_LISTS = tuple(range(2, KNNK_MAX + 1))
-#: chunk granularity (reference rows), mirrored from csrc/knn.cu
+#: K1's and K5's chunk granularity (reference rows), mirrored from csrc/knn.cu
 TILE_ROWS = 1024
 #: K1's and K5's rows per group, mirrored from csrc/knn.cu
 GROUP_ROWS = 8
-#: the split rule's aim, blocks per SM over queries × chunks, per kernel
-#: (K9 and T1 keep their first rule's 4). K1 at 16 against 4 on an H100
-#: (tools_torch/dense_micro.py): the dense batch 0.697 against 0.754 ms,
-#: the pair axis 0.369 against 0.412, the sequence 0.361 against 0.357.
+#: the split rule's aim, blocks per SM over queries × chunks, per kernel.
+#: K1 at 16 against 4 on an H100 (tools_torch/dense_micro.py): the dense
+#: batch 0.697 against 0.754 ms, the pair axis 0.369 against 0.412, the
+#: sequence 0.361 against 0.357.
 BLOCKS_PER_SM = {"knn1": 16, "knnk": 4}
+#: K9's queries a block (csrc/knn.cu kK9BlockQueries: 128 threads, 4
+#: queries each), its rows a group and its chunks' granularity
+#: (kK9Group), and the blocks an SM its launch bounds ask for
+#: (kK9MinBlocks), mirrored and checked at load
+K9_BLOCK_QUERIES = 512
+K9_GROUP_ROWS = 16
+K9_BLOCKS_PER_SM = 4
+#: :func:`k9_split`'s waves to weigh, and its cost of a (query block,
+#: chunk) unit beyond its rows, in rows (the first stage's load, the
+#: partials' writes)
+K9_MAX_WAVES = 8
+K9_UNIT_ROWS = 128
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pm_knn1.argtypes = [p, p, i, p, p, i, i, i, i, i, i, p, p, p, p, p]
-    lib.pm_knn1.restype = i
+    for fn in (lib.pm_knn1, lib.pm_knn1_mxu):
+        fn.argtypes = [p, p, i, p, p, i, i, i, i, i, p, p, p, p, p]
+        fn.restype = i
     lib.pm_knnk.argtypes = [p, p, i, p, p, i, i, i, i, i, i, i, p, p, p, p, p]
     lib.pm_knnk.restype = i
     lib.pm_block_queries.argtypes = [i]
-    for fn in ("pm_tile_rows", "pm_group_rows", "pm_block_queries"):
+    for fn in ("pm_tile_rows", "pm_group_rows", "pm_block_queries",
+               "pm_k9_block_queries", "pm_k9_group_rows", "pm_k9_min_blocks",
+               "pm_k9_occupancy"):
         getattr(lib, fn).restype = i
     if ((lib.pm_tile_rows(), lib.pm_group_rows()) != (TILE_ROWS, GROUP_ROWS)
             or any(lib.pm_block_queries(kk) != block_queries(kk)
-                   for kk in (0, *KNNK_LISTS))):
+                   for kk in (0, *KNNK_LISTS))
+            or (lib.pm_k9_block_queries(), lib.pm_k9_group_rows(),
+                lib.pm_k9_min_blocks()) != (K9_BLOCK_QUERIES, K9_GROUP_ROWS,
+                                            K9_BLOCKS_PER_SM)):
         raise RuntimeError("csrc/knn.cu tiles, groups or blocks differ from "
                            "ops/knn_cuda.py")
+    if lib.pm_k9_occupancy() < K9_BLOCKS_PER_SM:
+        raise RuntimeError(f"K9 fits {lib.pm_k9_occupancy()} blocks an SM, "
+                           f"under the {K9_BLOCKS_PER_SM} its split assumes")
 
 
 LIBRARY = KernelLibrary("knn.cu", _declare)
@@ -103,7 +124,7 @@ def knnk_list(k: int) -> int:
 
 
 def block_queries(kk: int = 0) -> int:
-    """Queries a block takes: K1 and K9 (``kk`` 0) 256, K5 128."""
+    """Queries a block takes: K1 (``kk`` 0) 256, K5 128."""
     return 128 if kk else 256
 
 
@@ -121,6 +142,27 @@ def _split(n: int, m: int, sms: int, pairs: int = 1, kk: int = 0,
     return splits, chunk
 
 
+def k9_split(n: int, m: int, sms: int, pairs: int = 1) -> tuple:
+    """K9's reference chunks over gridDim.y → ``(splits, chunk)``, cut to
+    fill whole waves: with U query blocks of ``K9_BLOCK_QUERIES`` (over
+    every pair) and ``K9_BLOCKS_PER_SM × sms`` slots, each count of waves
+    w ≤ ``K9_MAX_WAVES`` offers the most splits that fit in w waves, chunks
+    of whole ``K9_GROUP_ROWS`` groups; the rule keeps the offer of least
+    waves × (chunk + ``K9_UNIT_ROWS``), the fewest splits on a tie.
+    ``splits * chunk >= m`` and no chunk is empty."""
+    units = max(1, -(-n // K9_BLOCK_QUERIES)) * max(pairs, 1)
+    slots = K9_BLOCKS_PER_SM * sms
+    groups = max(1, -(-m // K9_GROUP_ROWS))
+    best = None
+    for w in range(1, K9_MAX_WAVES + 1):
+        chunk = K9_GROUP_ROWS * -(-groups // max(1, min(w * slots // units, groups)))
+        splits = max(1, -(-m // chunk))
+        cost = -(-units * splits // slots) * (chunk + K9_UNIT_ROWS)
+        if best is None or (cost, splits) < best[0]:
+            best = ((cost, splits), (splits, chunk))
+    return best[1]
+
+
 def _sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -134,17 +176,20 @@ def _launch_knn1(query, query_mask, ref, ref_mask, mxu: bool, pairs: int):
     b = max(pairs, 1)
     n, dim = q.shape[-2:]
     m = r.shape[-2]
-    splits, chunk = _split(n, m, _sms(q.device), b,
-                           aim=4 if mxu else BLOCKS_PER_SM["knn1"])
+    if mxu:
+        splits, chunk = k9_split(n, m, _sms(q.device), b)
+    else:
+        splits, chunk = _split(n, m, _sms(q.device), b,
+                               aim=BLOCKS_PER_SM["knn1"])
     part_d = torch.empty((b, splits, n), dtype=torch.float32, device=q.device)
     part_i = torch.empty((b, splits, n), dtype=torch.int32, device=q.device)
     out_d = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
     out_i = torch.empty(q.shape[:-1], dtype=torch.int32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.pm_knn1(q.data_ptr(), qm.data_ptr(), n, r.data_ptr(),
-                      rm.data_ptr(), m, b, dim, int(mxu), splits, chunk,
-                      part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
-                      out_i.data_ptr(), stream)
+    err = (lib.pm_knn1_mxu if mxu else lib.pm_knn1)(
+        q.data_ptr(), qm.data_ptr(), n, r.data_ptr(), rm.data_ptr(), m, b, dim,
+        splits, chunk, part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
+        out_i.data_ptr(), stream)
     LIBRARY.check(err, "k-NN kernel")
     return out_d, out_i
 

@@ -12,7 +12,7 @@ T3        knn_variants.py::knn1_mxu             :func:`knn1_mxu3_plain`
 T1 and T2 compute K1's function, the exact difference-form 1-NN, with
 other schedules; T3 the expansion form ‖q‖² + ‖r‖² − 2 q·r in a matrix
 product's tiling. T1, T2 and T3 cut the reference into chunks over the
-grid (:func:`t2_split`, :func:`t3_split` and K1's rule for T1) and merge
+grid (:func:`t1_split`, :func:`t2_split`, :func:`t3_split`) and merge
 the chunks' partials in order in a second kernel. The kernels are CUDA C++
 in ``csrc/knn_variants.cu`` (see its header for each design), built at
 first use by :mod:`.cuda_build`.
@@ -39,12 +39,23 @@ import torch
 
 from .cuda_build import KernelLibrary
 from .knn import knn_brute_force
-from .knn_cuda import GROUP_ROWS, TILE_ROWS, _check_inputs, _sms, _split
+from .knn_cuda import GROUP_ROWS, _check_inputs, _sms, _split
 
 __all__ = ["knn1_chunked", "knn1_transposed", "knn1_mxu", "knn1_mxu3_plain",
-           "t2_split", "t3_split", "build", "LIBRARY", "T2_BLOCK_QUERIES",
-           "T3_BLOCK_QUERIES", "reset_launch_counts"]
+           "t1_split", "t2_split", "t3_split", "build", "LIBRARY",
+           "T1_BLOCK_QUERIES", "T2_BLOCK_QUERIES", "T3_BLOCK_QUERIES",
+           "reset_launch_counts"]
 
+#: T1's queries a block (csrc/knn_variants.cu kT1BlockQueries: 128 threads,
+#: 4 queries each), its accumulators a query (kT1Acc, accumulator a taking
+#: the rows j ≡ a mod T1_ACCUMULATORS), and its split rule, K1's
+#: (:func:`.knn_cuda._split`) for T1's block: its aim, blocks per SM over
+#: queries × chunks, and its chunks' granularity, one shared stage (T2's
+#: kT2Stage)
+T1_BLOCK_QUERIES = 512
+T1_ACCUMULATORS = 2
+T1_BLOCKS_PER_SM = 16
+T1_CHUNK_ROWS = 512
 
 #: T2's queries a block (csrc/knn_variants.cu: 128 threads, 4 queries each)
 T2_BLOCK_QUERIES = 512
@@ -66,16 +77,20 @@ def _declare(lib: ctypes.CDLL) -> None:
     for fn in (lib.pm_nn1_chunked, lib.pm_nn1_transposed, lib.pm_nn1_mxu):
         fn.argtypes = [p, p, i, p, p, i, i, i, i, p, p, p, p, p]
         fn.restype = i
-    consts = (lib.pm_tile_rows, lib.pm_t2_block_queries, lib.pm_t2_stage_rows,
-              lib.pm_t2_group_rows, lib.pm_t3_block_queries, lib.pm_t3_stage_cols)
+    consts = (lib.pm_t1_block_queries, lib.pm_t1_stage_rows,
+              lib.pm_t1_accumulators, lib.pm_t2_block_queries,
+              lib.pm_t2_stage_rows, lib.pm_t2_group_rows,
+              lib.pm_t3_block_queries, lib.pm_t3_stage_cols)
     for fn in consts:
         fn.argtypes = []
         fn.restype = i
     if (tuple(fn() for fn in consts)
-            != (TILE_ROWS, T2_BLOCK_QUERIES, T2_CHUNK_ROWS, GROUP_ROWS,
-                T3_BLOCK_QUERIES, T3_CHUNK_COLS)):
-        raise RuntimeError("csrc/knn_variants.cu chunks, or T2's or T3's block, "
-                           "stage or group, differ from ops/knn_variants_cuda.py")
+            != (T1_BLOCK_QUERIES, T1_CHUNK_ROWS, T1_ACCUMULATORS,
+                T2_BLOCK_QUERIES, T2_CHUNK_ROWS, GROUP_ROWS, T3_BLOCK_QUERIES,
+                T3_CHUNK_COLS)):
+        raise RuntimeError("csrc/knn_variants.cu T1's, T2's or T3's block, "
+                           "stage, accumulators or group differ from "
+                           "ops/knn_variants_cuda.py")
 
 
 LIBRARY = KernelLibrary("knn_variants.cu", _declare)
@@ -97,6 +112,14 @@ def _plain_nn1(query, query_mask, ref, ref_mask):
     return d[:, 0], i[:, 0]
 
 
+def t1_split(n: int, m: int, sms: int) -> tuple:
+    """T1's reference chunks over gridDim.y → ``(splits, chunk)``: K1's
+    rule for T1's block of ``T1_BLOCK_QUERIES`` queries, aiming at
+    ``T1_BLOCKS_PER_SM``, chunks of whole ``T1_CHUNK_ROWS``."""
+    return _split(n, m, sms, aim=T1_BLOCKS_PER_SM, block=T1_BLOCK_QUERIES,
+                  rows=T1_CHUNK_ROWS)
+
+
 def t2_split(n: int, m: int, sms: int) -> tuple:
     """T2's reference chunks over gridDim.y → ``(splits, chunk)``: K1's
     rule for T2's block of ``T2_BLOCK_QUERIES`` queries, aiming at
@@ -114,7 +137,7 @@ def t3_split(n: int, m: int, sms: int) -> tuple:
 
 
 #: each variant's split rule; its launch is ``pm_nn1_<name>``
-_SPLITS = {"chunked": _split, "transposed": t2_split, "mxu": t3_split}
+_SPLITS = {"chunked": t1_split, "transposed": t2_split, "mxu": t3_split}
 
 
 def _launch(name, query, query_mask, ref, ref_mask):
@@ -141,7 +164,10 @@ def _launch(name, query, query_mask, ref, ref_mask):
 
 
 def knn1_chunked(query, query_mask, ref, ref_mask):
-    """T1: exact 1-NN, eight per-thread accumulators merged once →
+    """T1: exact 1-NN, four queries a thread, each with
+    ``T1_ACCUMULATORS`` (min, id) accumulators updated by a compare and
+    selects on every pair and merged once a chunk, the reference cut into
+    chunks over the grid (:func:`t1_split`) and merged in order →
     ``(d2 [N], id [N])``, K1's result bit for bit."""
     _check(query, query_mask, ref, ref_mask)
     if query.device.type == "cpu":

@@ -66,6 +66,7 @@ from libpointmatcher_tpu_torch.parallel.batch import _pad_tile_aux_np
 from libpointmatcher_tpu_torch.utils import prng
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools_torch"))
+import dense_micro  # noqa: E402
 import knn_micro  # noqa: E402
 import loop_modules  # noqa: E402
 import tile_kernel_micro  # noqa: E402
@@ -192,6 +193,141 @@ def test_k9_within_bound(cuda):
     dj = (diff[:, 0] * diff[:, 0] + diff[:, 1] * diff[:, 1]) + diff[:, 2] * diff[:, 2]
     ok = fin & (d1 > 0)
     assert float((torch.sqrt(dj[ok] / d1[ok]) - 1).max()) < dispatch.MXU_EPSILON_FLOOR
+
+
+def _k9_case(case, device, n=3000, m=9001, seed=21):
+    """Inputs of one K9 schedule case (numpy, then on ``device``) at K9's own
+    chunks for the card (``k9_split``): "masked_blocks", two whole blocks of
+    512 queries, a warp's run and one more block all masked but one query;
+    "ties", rows repeated within a group, across groups and across the first
+    chunk boundary; "negative", 20 queries whose two nearest rows, in the
+    first and second chunk, have negative expansion-form d²; "2d"."""
+    rng = np.random.default_rng(seed)
+    dim = 2 if case == "2d" else 3
+    q = rng.uniform(-8, 8, (n, dim)).astype(np.float32)
+    r = rng.uniform(-8, 8, (m, dim)).astype(np.float32)
+    qm = np.ones(n, bool)
+    rm = np.ones(m, bool)
+    rm[::7] = False
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    splits, chunk = kc.k9_split(n, m, sms)
+    assert splits >= 2
+    if case == "masked_blocks":
+        qm[512:1536] = False                   # two whole blocks
+        qm[1664:1792] = False                  # a warp's 128 queries
+        qm[2048:2560] = False                  # a block but one query
+        qm[2300] = True
+    if case in ("ties", "2d"):
+        g = kc.K9_GROUP_ROWS
+        r[1::4] = r[0::4][:len(r[1::4])]       # within a group
+        r[g + 3:chunk:2 * g] = r[3:chunk - g:2 * g][:len(r[g + 3:chunk:2 * g])]
+        w = min(100, chunk)
+        r[chunk:chunk + w] = r[chunk - w:chunk]
+        rm[chunk:chunk + w] = rm[chunk - w:chunk]
+    if case == "negative":
+        # twins whose d² in K9's fused arithmetic are both negative, the
+        # second's (placed in the second chunk) the more negative
+        tq, less, more = knn_micro.negative_twins(rng, 400)
+        d9 = lambda a, b: dense_micro.k9_reference(a[None], [True], b[None],
+                                                   [True])[0][0]
+        fused = lambda a, b: dense_micro._fma32(-2.0, dense_micro._fma32(
+            a[2], b[2], dense_micro._fma32(a[1], b[1], a[0] * b[0])),
+            ((a[0] * a[0] + a[1] * a[1]) + a[2] * a[2])
+            + ((b[0] * b[0] + b[1] * b[1]) + b[2] * b[2]))
+        keep = [k for k in range(len(tq))
+                if fused(tq[k], more[k]) < fused(tq[k], less[k]) < 0
+                and d9(tq[k], more[k]) == 0][:20]
+        assert len(keep) == 20 and chunk >= 30
+        q[:20] = tq[keep]
+        r[10:30], r[chunk + 10:chunk + 30] = less[keep], more[keep]
+        rm[10:30] = rm[chunk + 10:chunk + 30] = True
+    return [torch.from_numpy(a).to(device) for a in (q, qm, r, rm)], chunk
+
+
+@pytest.mark.parametrize("case", ["masked_blocks", "ties", "negative", "2d"])
+def test_k9_equals_its_reference(cuda, case):
+    """K9 equals ``dense_micro.k9_reference`` (its fused arithmetic in
+    numpy, the lowest index of the least d², then the clamp) bit for bit:
+    masked blocks and warps, ties within a group, across groups and across
+    a chunk boundary, two chunks with negative minima, 2-D; and lies within
+    2^-20·(q² + r²max) of its plain version."""
+    (q, qm, r, rm), chunk = _k9_case(case, cuda)
+    d, i = kc.knn1_mxu(q, qm, r, rm)
+    dr, ir = dense_micro.k9_reference(*(x.cpu().numpy() for x in (q, qm, r, rm)))
+    dp, _ = kc.knn1_mxu_plain(q, qm, r, rm)
+    torch.cuda.synchronize()
+    assert torch.equal(d.cpu().view(torch.int32), torch.from_numpy(dr).view(torch.int32))
+    assert torch.equal(i.cpu(), torch.from_numpy(ir))
+    fin = torch.isfinite(dp)
+    tol = 2.0 ** -20 * ((q * q).sum(1) + (r[rm] * r[rm]).sum(1).max())
+    assert torch.equal(fin, torch.isfinite(d)) and bool(((d - dp).abs() <= tol)[fin].all())
+    if case == "masked_blocks":
+        assert bool((i[~qm] == -1).all()) and bool(torch.isinf(d[~qm]).all())
+        assert int(i[2300]) >= 0
+    if case == "negative":     # the later, more negative minimum wins
+        assert bool((d[:20] == 0).all())
+        assert torch.equal(i[:20].cpu(), torch.arange(chunk + 10, chunk + 30,
+                                                      dtype=torch.int32))
+
+
+def test_k9_pair_axis_equals_single_launches(cuda):
+    """Three pairs in one launch (one pair's queries all masked but its
+    first warp, one with every reference masked): equal to the single
+    launches and to each pair's reference bit for bit."""
+    pairs = [_k9_case(c, cuda, 3000, 5003, seed=30 + b)[0]
+             for b, c in enumerate(("ties", "masked_blocks", "negative"))]
+    pairs[1][1][128:] = False
+    pairs[2][3][:] = False
+    q, qm, r, rm = (torch.stack(x) for x in zip(*pairs))
+    d, i = kc.knn1_mxu(q, qm, r, rm)
+    torch.cuda.synchronize()
+    for b, p in enumerate(pairs):
+        ds, is_ = kc.knn1_mxu(*p)
+        dr, ir = dense_micro.k9_reference(*(x.cpu().numpy() for x in p))
+        torch.cuda.synchronize()
+        assert torch.equal(d[b], ds) and torch.equal(i[b], is_)
+        assert torch.equal(ds.cpu().view(torch.int32), torch.from_numpy(dr).view(torch.int32))
+        assert torch.equal(is_.cpu(), torch.from_numpy(ir))
+    assert bool((i[2] == -1).all())
+
+
+@pytest.mark.parametrize("case", ["masked_blocks", "ties_across_accumulators"])
+def test_t1_cases_equal_k1(cuda, case):
+    """T1 at its own chunks (``t1_split``): masked blocks and warps, and
+    equal rows in different accumulators (the lower index odd, the higher
+    even; and the lower even) resolve to the lowest index; T1 equals K1
+    and the plain version bit for bit."""
+    rng = np.random.default_rng(40)
+    n, m = 3000, 9001
+    q = rng.uniform(-8, 8, (n, 3)).astype(np.float32)
+    r = rng.uniform(-8, 8, (m, 3)).astype(np.float32)
+    qm, rm = np.ones(n, bool), np.ones(m, bool)
+    rm[::11] = False
+    splits, chunk = kv.t1_split(n, m, torch.cuda.get_device_properties(cuda)
+                                .multi_processor_count)
+    assert splits >= 2
+    if case == "masked_blocks":
+        qm[512:1536] = False
+        qm[1664:1792] = False
+        qm[2100] = False
+    else:
+        r[2::8] = r[1::8][:len(r[2::8])]       # rows 8k + 1 (odd) and 8k + 2
+        r[5::8] = r[4::8][:len(r[5::8])]       # rows 8k + 4 (even) and 8k + 5
+        r[chunk:chunk + 64] = r[chunk - 64:chunk]
+    q, qm, r, rm = (torch.from_numpy(a).to(cuda) for a in (q, qm, r, rm))
+    d, i = kv.knn1_chunked(q, qm, r, rm)
+    d1, i1 = kc.knn1(q, qm, r, rm)
+    dp, ip = knn_brute_force(q.cpu(), qm.cpu(), r.cpu(), rm.cpu(), k=1)
+    torch.cuda.synchronize()
+    assert torch.equal(d, d1) and torch.equal(i, i1)
+    assert torch.equal(d.cpu(), dp[:, 0]) and torch.equal(i.cpu(), ip[:, 0])
+    if case != "masked_blocks":        # never the higher of two equal rows
+        picked = i[qm].long().cpu()
+        twin = (picked - 1).clamp(min=0)
+        rc, rmc = r.cpu(), rm.cpu()
+        higher = (((picked % 8 == 2) | (picked % 8 == 5)) & rmc[twin]
+                  & (rc[twin] == rc[picked]).all(-1))
+        assert int((picked % 8 == 2).sum()) > 0 and not bool(higher.any())
 
 
 def test_launch_counts(cuda):

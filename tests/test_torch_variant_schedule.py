@@ -1,6 +1,18 @@
-"""The schedules of T2 and T3 (the transposed and matrix-product 1-NN
-lowerings) and T4 and T5 (K7's min-only ablations) on the card's terms, on
-the CPU.
+"""The schedules of T1, T2 and T3 (the chunked, transposed and
+matrix-product 1-NN lowerings) and T4 and T5 (K7's min-only ablations) on
+the card's terms, on the CPU.
+
+T1: tools_torch/knn_micro.py's ``emulate_t1`` (the reference cut into
+chunks by ``knn_variants_cuda.t1_split`` for 132 SMs, blocks of 512
+queries whose warps each take a contiguous run, ``x + pen`` staging, two
+(min, id) accumulators a query over the rows j ≡ a (mod 2), each updated
+with a strict '<', merged once a chunk in (d², id) order, the chunks merged
+in order with a strict '<') against the plain version (``knn_brute_force``):
+ties within a step, across accumulators (the lower index in either),
+across groups and across chunks, an all-masked chunk, masked queries and a
+block of them, n and m off every multiple, a reference under one chunk,
+chunks of several stages, 2-D and 3-D; the split contract; and the JAX
+tool's Pallas T1 in interpret mode.
 
 T2: tools_torch/knn_micro.py's ``emulate_t2`` (the reference cut into
 chunks by ``knn_variants_cuda.t2_split`` for an H100's 132 SMs, blocks of
@@ -40,7 +52,7 @@ one block's slice, 2-D.
 
 Tolerances: the emulations equal the plain versions bit for bit, d² and
 ids (the same rounded operations; the lowest index first). Against the
-interpret-mode Pallas T2 (XLA's CPU compiler contracts ``d2 + diff *
+interpret-mode Pallas T1 and T2 (XLA's CPU compiler contracts ``d2 + diff *
 diff`` into fused multiply-adds): d² within 2 ulp, as
 tests/test_torch_knn_variants.py states, and ids where the neighbour is
 unique beyond that; against the Pallas T3: d² within 2^-20·(q² + r²max),
@@ -208,6 +220,110 @@ def test_t2_schedule_matches_pallas(dim, interpret_mode):
     rm[::17] = False
     d, i = (x.numpy() for x in knn_micro.emulate_t2(*_t(q, qm, r, rm)))
     dj, ij = (np.asarray(x) for x in jkv.knn1_transposed(
+        *(jnp.asarray(a) for a in (q, qm, r, rm))))
+    fin = np.isfinite(d)
+    np.testing.assert_array_equal(fin, np.isfinite(dj))
+    tol = np.where(fin, 2 * np.spacing(np.abs(dj).astype(np.float32)), 0.0)
+    assert (np.abs(d[fin].astype(np.float64) - dj[fin]) <= tol[fin]).all()
+    d64 = ((q[:, None].astype(np.float64) - r[None].astype(np.float64)) ** 2).sum(-1)
+    ds = np.sort(np.where(rm[None], d64, np.inf), axis=1)
+    unique = fin & ((ds[:, 1] - ds[:, 0]) > 2 * tol)
+    assert unique.mean() > 0.8
+    np.testing.assert_array_equal(i[unique], ij[unique])
+    np.testing.assert_array_equal(i == -1, ij == -1)
+
+
+def _assert_t1_bits(q, qm, r, rm, sms=SMS):
+    d, i = knn_micro.emulate_t1(q, qm, r, rm, sms=sms)
+    db, ib = knn_brute_force(q, qm, r, rm, k=1)
+    assert torch.equal(d, db[:, 0]) and torch.equal(i, ib[:, 0])
+    # the wrapper on CPU tensors runs the plain version
+    dw, iw = kv.knn1_chunked(q, qm, r, rm)
+    assert torch.equal(dw, db[:, 0]) and torch.equal(iw, ib[:, 0])
+    assert bool((i[~qm] == -1).all()) and bool(torch.isinf(d[~qm]).all())
+    return i
+
+
+@pytest.mark.parametrize("name", ["dup", "accumulators", "masked_chunk", "odd",
+                                  "2d"])
+def test_t1_schedule_equals_plain(name):
+    """Ties within a step, across the accumulators (rows 8k + 1 and 8k + 2,
+    the lower index odd; rows 4k and 4k + 1, the lower even), across
+    groups and across a chunk boundary resolve to the lowest index; an
+    all-masked chunk, masked queries and a block of them; n and m off
+    every multiple; 2-D."""
+    q, qm, r, rm = _case("dup" if name == "accumulators" else name)
+    splits, chunk = kv.t1_split(len(q), len(r), SMS)
+    assert splits >= 4 and chunk == kv.T1_CHUNK_ROWS and len(r) % chunk
+    if name == "accumulators":
+        r[2::8] = r[1::8][:len(r[2::8])]
+    i = _assert_t1_bits(*_t(q, qm, r, rm))
+    if name == "accumulators":               # the higher of two equal rows never wins
+        assert not bool(torch.isin(i, torch.arange(2, len(r), 8)).any())
+        assert bool(torch.isin(i, torch.arange(1, len(r), 8)).any())
+
+
+@pytest.mark.parametrize("m", [1, 5, G + 1, 300])
+def test_t1_schedule_short_references(m):
+    """A reference under one chunk (one split), under a step and under a
+    float4: the padded rows never win."""
+    q, qm, r, rm = _case("dup")
+    r, rm = r[:m].copy(), rm[:m].copy()
+    rm[m // 2] = m == 1
+    assert kv.t1_split(len(q), m, SMS)[0] == 1
+    _assert_t1_bits(*_t(q, qm, r, rm))
+
+
+def test_t1_schedule_multi_stage_chunks():
+    """Chunks of several 512-row stages (the split cut for one SM: 6 chunks
+    of 1536 rows), the last partial, ties across a chunk boundary."""
+    q, qm, r, rm = _case("dup")
+    r = np.concatenate([r] * 5)[:9000]
+    rm = np.concatenate([rm] * 5)[:9000]
+    splits, chunk = kv.t1_split(len(q), len(r), 1)
+    assert (splits, chunk) == (6, 3 * kv.T1_CHUNK_ROWS) and len(r) % chunk
+    r[chunk:chunk + 300] = r[chunk - 300:chunk]
+    _assert_t1_bits(*_t(q, qm, r, rm), sms=1)
+
+
+@pytest.mark.parametrize("n,m", [(0, 7), (7, 0), (1, 1), (600, 3), (20480, 12459),
+                                 (18820, 49950), (300000, 5000)])
+def test_t1_split_contract(n, m):
+    """T1's chunks (K1's rule at T1's block and stage): whole 512-row
+    stages covering the reference, none empty, split only while the blocks
+    of 512 queries stay under 16 an SM, more than one split at the tools'
+    shapes; the emulation handles the degenerate shapes."""
+    assert kv.T1_BLOCK_QUERIES == 512 and kv.T1_CHUNK_ROWS % G == 0
+    for sms in (1, SMS):
+        splits, chunk = kv.t1_split(n, m, sms)
+        assert splits >= 1 and chunk % kv.T1_CHUNK_ROWS == 0 and chunk > 0
+        assert splits * chunk >= m and (splits - 1) * chunk < max(m, 1)
+        qblocks = max(1, -(-n // kv.T1_BLOCK_QUERIES))
+        if splits > 1:
+            assert qblocks * (splits - 1) < kv.T1_BLOCKS_PER_SM * sms
+    if (n, m) in ((20480, 12459), (18820, 49950)):
+        assert kv.t1_split(n, m, SMS)[0] > 1
+    if n * m <= 10 ** 4:
+        rng = np.random.default_rng(n + m)
+        q = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+        r = rng.uniform(-1, 1, (m, 3)).astype(np.float32)
+        _assert_t1_bits(*_t(q, np.ones(n, bool), r, np.ones(m, bool)))
+
+
+@pytest.mark.parametrize("dim", [3, 2])
+def test_t1_schedule_matches_pallas(dim, interpret_mode):
+    """The same inputs through the JAX tool's Pallas T1 in interpret mode:
+    d² within 2 ulp, ids where the neighbour is unique beyond that."""
+    rng = np.random.default_rng(dim + 3)
+    n, m = 700, 3000
+    q = rng.uniform(-10, 10, (n, dim)).astype(np.float32)
+    r = rng.uniform(-10, 10, (m, dim)).astype(np.float32)
+    qm = np.ones(n, bool)
+    qm[int(n * 0.93):] = False
+    rm = np.ones(m, bool)
+    rm[::17] = False
+    d, i = (x.numpy() for x in knn_micro.emulate_t1(*_t(q, qm, r, rm)))
+    dj, ij = (np.asarray(x) for x in jkv.knn1_chunked(
         *(jnp.asarray(a) for a in (q, qm, r, rm))))
     fin = np.isfinite(d)
     np.testing.assert_array_equal(fin, np.isfinite(dj))

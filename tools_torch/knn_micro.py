@@ -25,9 +25,10 @@ Needs a CUDA device. ``--device cpu`` runs the wrappers' plain versions, at
 2048 x 1246 unless N M are given, to check the script; its times are the
 host's clock and no measure of the card.
 
-:func:`emulate_t2` and :func:`emulate_t3` are T2's and T3's schedules in
-plain torch, which tests/test_torch_variant_schedule.py holds to the plain
-versions bit for bit; :func:`negative_twins` makes the inputs on which T3's
+:func:`emulate_t1`, :func:`emulate_t2` and :func:`emulate_t3` are T1's,
+T2's and T3's schedules in plain torch, which
+tests/test_torch_variant_schedule.py holds to the plain versions bit for
+bit; :func:`negative_twins` makes the inputs on which T3's
 expansion form goes below 0 that those tests and the card's use.
 """
 
@@ -111,6 +112,64 @@ def emulate_t2(q, qm, r, rm, sms: int = 132):
     d, i, _, _ = dense_micro._emulate_pair(q, qm, r, rm, 1, splits, chunk,
                                            block=kv.T2_BLOCK_QUERIES)
     return d[:, 0], i[:, 0]
+
+
+def emulate_t1(q, qm, r, rm, sms: int = 132):
+    """T1's schedule in plain torch, on any device → ``(d [N], id [N])``:
+    the reference cut into chunks by ``knn_variants_cuda.t1_split`` for
+    ``sms`` SMs, ``x + pen`` staging, (+inf, 0, 0) past a chunk's end;
+    blocks of ``T1_BLOCK_QUERIES`` queries, each warp's a contiguous run (a
+    block or a warp whose queries are all masked does not sweep); each
+    query keeps ``T1_ACCUMULATORS`` (min, id) accumulators, accumulator a
+    taking the rows j ≡ a (mod T1_ACCUMULATORS), each updated with a strict
+    '<' in increasing row order (so it holds its rows' minimum at its first
+    row; NaN never taken); after the chunk the accumulators merge in (d²,
+    id) order; the chunks merge in order with a strict '<'. d² is K1's
+    ``(dx·dx + dy·dy) + dz·dz`` against ``x + pen``."""
+    import torch
+
+    from libpointmatcher_tpu_torch.ops import knn_variants_cuda as kv
+    from tools_torch import dense_micro
+
+    dev = q.device
+    inf = float("inf")
+    n, m = q.shape[0], r.shape[0]
+    bq, acc = kv.T1_BLOCK_QUERIES, kv.T1_ACCUMULATORS
+    splits, chunk = kv.t1_split(n, m, sms)
+    q3 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    q3[:, :q.shape[1]] = q
+    nb = max(1, -(-n // bq))
+    valid = torch.zeros(nb * bq, dtype=torch.bool, device=dev)
+    valid[:n] = qm
+    sweeps = valid.view(nb, 4, bq // 4).any(-1, keepdim=True).expand(
+        nb, 4, bq // 4).reshape(-1)[:n]
+    rows = torch.zeros((3, splits * chunk), dtype=torch.float32, device=dev)
+    rows[0] = inf
+    rows[0, :m] = r[:, 0] + torch.where(rm, 0.0, inf).to(torch.float32)
+    rows[1:r.shape[1], :m] = r[:, 1:].T
+    best_d = torch.full((n,), inf, device=dev)
+    best_i = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    for c in range(splits):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        d = dense_micro._d2(q3, rows[0, sl], rows[1, sl], rows[2, sl])
+        d = torch.where(sweeps[:, None] & ~torch.isnan(d), d, inf)
+        # accumulator a: its rows' minimum at the first row holding it
+        da = d.view(n, chunk // acc, acc)                # [n, steps, acc]
+        bd = da.amin(1)
+        first = (da == bd[:, None, :]).int().argmax(1)
+        bi = torch.where(bd < inf, c * chunk + first * acc
+                         + torch.arange(acc, device=dev), -1)
+        # the accumulators in (d², id) order: (+inf, -1) holds no neighbour
+        cd = bd.amin(1)
+        big = torch.iinfo(torch.int64).max
+        ci = torch.where(bd == cd[:, None], bi, big).amin(1)
+        ci = torch.where(cd < inf, ci, -1)
+        take = cd < best_d
+        best_d = torch.where(take, cd, best_d)
+        best_i = torch.where(take, ci, best_i)
+    ok = torch.isfinite(best_d) & qm
+    return (torch.where(qm, best_d, torch.full_like(best_d, inf)),
+            torch.where(ok, best_i, -1).to(torch.int32))
 
 
 def _mxu_dot(a, b):

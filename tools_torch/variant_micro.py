@@ -1,10 +1,11 @@
-"""T2 and T3 (the transposed and matrix-product 1-NN lowerings) and T4 and
-T5 (K7's min-only ablations), timed at the tools' shapes and at recorded
-main-path inputs: the A/B of two trees of the port on one card.
+"""T1, T2 and T3 (the chunked, transposed and matrix-product 1-NN
+lowerings) and T4 and T5 (K7's min-only ablations), timed at the tools'
+shapes and at recorded main-path inputs: the A/B of two trees of the port
+on one card.
 
     python3 tools_torch/variant_micro.py record --out FILE
     python3 tools_torch/variant_micro.py time --inputs FILE [--tree DIR]
-        [--reps 20] [--rounds 3] [--t2-split AIM:ROWS,...]
+        [--reps 20] [--rounds 3] [--t1-split AIM:ROWS,...] [--t2-split AIM:ROWS,...]
         [--t3-split AIM,...] [--yardstick] [--out JSON]
 
 ``record`` keeps two inputs, written to FILE with ``torch.save`` (~0.3 GB):
@@ -22,22 +23,24 @@ main-path inputs: the A/B of two trees of the port on one card.
 ``time`` loads them and imports the port from ``--tree`` (default: this
 checkout), so that an unpacked older commit, or a copy with another
 build of a kernel, is timed on the same inputs: run the trees in turns
-(parent, change, change, parent), one process each. T2 and T3 run at the
+(parent, change, change, parent), one process each. T1, T2 and T3 run at the
 JAX tool's 20 480 × 12 459 (tools_torch/knn_micro.py) and at ``K1
-sequence``, T2 held to K1 and to its plain version bit for bit, T3 to
-``knn1_mxu3_plain`` bit for bit and to K1's d² within 2^-20·(q² +
-r²max); T4 and T5 at the JAX tool's 2048 × 256 × 4096
+sequence``, T1 and T2 held to K1 and to their plain version bit for
+bit, T3 to ``knn1_mxu3_plain`` bit for bit and to K1's d² within
+2^-20·(q² + r²max); T4 and T5 at the JAX tool's 2048 × 256 × 4096
 (tools_torch/tile_kernel_micro.py) and at ``K7 batch 1e5``, held to
 ``tile_min_plain`` and to K7's d² bit for bit. Each is timed with CUDA
 events (``--reps`` launches, ``--rounds`` times), K1 and K7 beside them.
-``--t2-split`` times T2 at other split rules in turn (``AIM:ROWS``:
-``knn_variants_cuda``'s ``T2_BLOCKS_PER_SM`` and ``T2_CHUNK_ROWS``, in
+``--t1-split`` and ``--t2-split`` time T1 and T2 at other split rules in
+turn (``AIM:ROWS``: ``knn_variants_cuda``'s ``T1_BLOCKS_PER_SM`` and
+``T1_CHUNK_ROWS``, or ``T2_BLOCKS_PER_SM`` and ``T2_CHUNK_ROWS``, in
 trees that have them), ``--t3-split`` T3 at other aims
 (``T3_BLOCKS_PER_SM``). Every input reports its bound (9 fp32 operations
 a pair, T3 8, at 67 TFLOP/s, or its bytes at 3.35 TB/s) and issue floor
 (9 instructions a pair at one warp instruction a clock in each of the
-SMs' partitions at 1.98 GHz; for T3 also at its 8) over the pairs the
-function needs: T2 and T3 their valid (query, reference) pairs, T4 every
+SMs' partitions at 1.98 GHz; for T1 also at its 11, for T3 at its 8) over
+the pairs the function needs: T1-T3 their valid (query, reference) pairs,
+T4 every
 query against its tile's real candidates. ``--yardstick`` adds the plain
 versions' times and the PyTorch yardsticks (``torch.cdist`` + ``min``,
 for T3 in its matmul form with TF32 off; for T4 the batched call, cut
@@ -60,6 +63,7 @@ FP32_FLOPS = 67e12
 HBM_BYTES_S = 3.35e12
 ISSUE_LANES_S = 4 * 32 * 1.98e9      # per SM: four partitions of 32 lanes
 OPS_PER_PAIR = 9
+T1_ISSUE_PER_PAIR = 11   # d² in 8, a compare and two selects
 
 
 # ------------------------------------------------------------- record
@@ -146,6 +150,16 @@ def _equal(got, want, what):
         raise AssertionError(f"{what} differs")
 
 
+def _t1_rules(kv, spec):
+    """The split rules to time T1 at: [(label, aim, rows)], this tree's own
+    first; the others only in trees with ``T1_CHUNK_ROWS``."""
+    if not spec or not hasattr(kv, "T1_CHUNK_ROWS"):
+        return [("own", None, None)]
+    return [("own", None, None)] + [
+        (f"aim {a}, rows {r}", int(a), int(r))
+        for a, r in (item.split(":") for item in spec.split(","))]
+
+
 def _t2_rules(kv, spec):
     """The split rules to time T2 at: [(label, aim, rows)], this tree's own
     first; the others only in trees with ``T2_CHUNK_ROWS``."""
@@ -194,7 +208,7 @@ def _t3(kc, kv, q, qm, r, rm, reps, rounds, spec, sms) -> dict:
 
 
 def time_kernels(path, tree, reps, rounds, t2_split=None, t3_split=None,
-                 yardstick=False):
+                 yardstick=False, t1_split=None):
     sys.path.insert(0, os.path.abspath(tree))
     sys.path.insert(1, ROOT)
     from libpointmatcher_tpu_torch.ops import knn_cuda as kc
@@ -210,7 +224,8 @@ def time_kernels(path, tree, reps, rounds, t2_split=None, t3_split=None,
     data = torch.load(path)
     out = {"tree": os.path.abspath(tree), "sms": sms,
            "ptxas": _ptxas(kv.LIBRARY.build_log + tc.LIBRARY.build_log,
-                           ("nn1_transposed", "nn1_mxu", "tile_min")),
+                           ("nn1_chunked", "nn1_transposed", "nn1_mxu",
+                            "tile_min")),
            "inputs": {}}
     # ---- T2 and T3
     k1 = data["K1 sequence"]
@@ -225,6 +240,23 @@ def time_kernels(path, tree, reps, rounds, t2_split=None, t3_split=None,
                          13.0 * (q.shape[0] + r.shape[0]) + 8.0 * q.shape[0], sms),
                "K1": [_ms(lambda: kc.knn1(q, qm, r, rm), reps)
                       for _ in range(rounds)]}
+        t1 = lambda: kv.knn1_chunked(q, qm, r, rm)
+        for rule, aim, rows in _t1_rules(kv, t1_split):
+            own = (getattr(kv, "T1_BLOCKS_PER_SM", None),
+                   getattr(kv, "T1_CHUNK_ROWS", None))
+            if aim is not None:
+                kv.T1_BLOCKS_PER_SM, kv.T1_CHUNK_ROWS = aim, rows
+            _equal(t1(), (d1, i1), f"{label} T1 ({rule}) against K1")
+            _equal(t1(), (dp, ip), f"{label} T1 ({rule}) against its plain version")
+            key = "T1" if rule == "own" else f"T1 {rule}"
+            res[key] = [_ms(t1, reps) for _ in range(rounds)]
+            if hasattr(kv, "t1_split"):
+                res[f"{key} splits, chunk"] = list(kv.t1_split(
+                    int(q.shape[0]), int(r.shape[0]), sms))
+            if aim is not None:
+                kv.T1_BLOCKS_PER_SM, kv.T1_CHUNK_ROWS = own
+        res["T1 issue_floor_11_ms"] = (1e3 * T1_ISSUE_PER_PAIR * res["pairs"]
+                                       / (sms * ISSUE_LANES_S))
         for rule, aim, rows in _t2_rules(kv, t2_split):
             own = (getattr(kv, "T2_BLOCKS_PER_SM", None),
                    getattr(kv, "T2_CHUNK_ROWS", None))
@@ -298,6 +330,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", default=ROOT, help="root of the port to time")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--t1-split", default=None,
+                    help="other T1 split rules to time, AIM:ROWS,...")
     ap.add_argument("--t2-split", default=None,
                     help="other T2 split rules to time, AIM:ROWS,...")
     ap.add_argument("--t3-split", default=None,
@@ -319,7 +353,8 @@ def main(argv=None) -> int:
             ap.error("time needs --inputs")
         res = {"device": smi, **time_kernels(args.inputs, args.tree, args.reps,
                                              args.rounds, args.t2_split,
-                                             args.t3_split, args.yardstick)}
+                                             args.t3_split, args.yardstick,
+                                             args.t1_split)}
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
             with open(args.out, "w") as f:

@@ -448,6 +448,21 @@ def pose_error(T, gT):
 
 
 # ----------------------------------------------------------------- timing
+def detail_share(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` at the port's ``detail`` telemetry level, in
+    a call record → (its result, the values the detail counter ``name``,
+    ``survivor_share`` or ``skip_share``, took: one a matcher step)."""
+    from libpointmatcher_tpu_torch import telemetry
+
+    telemetry.set_level("detail")
+    try:
+        with telemetry.call(name):
+            out = fn(*args, **kwargs)
+    finally:
+        telemetry.set_level("spans")
+    return out, telemetry.snapshot()[-1]["counters"].get(name, [])
+
+
 def reset_launch_counts() -> None:
     """Every kernel wrapper's launch count to 0."""
     from libpointmatcher_tpu_torch.ops import (knn_cuda, knn_variants_cuda,
@@ -682,8 +697,9 @@ def check_survivor_step(torch, sc, sweep, kc, qs, qm, ub_t, tab, label):
     if not bool(kept[qv & (i1 >= 0)].all()):
         raise AssertionError(f"{label}: a true neighbour's chunk was dropped")
     # the whole route against K1 on the map in its own order
-    d2, ids, frac = sweep.nn1_sorted_v2(qs, qm, ub_t, rt3, ct,
-                                        stream=label.startswith("K4"))
+    (d2, ids), frac = detail_share("survivor_share", sweep.nn1_sorted_v2,
+                                   qs, qm, ub_t, rt3, ct,
+                                   stream=label.startswith("K4"))
     flat_q, flat_m = qs.reshape(-1, 3), qm.reshape(-1)
     e1, j1 = kc.knn1(flat_q, flat_m, ref, refm)
     if not torch.equal(d2.reshape(-1), e1):
@@ -694,7 +710,7 @@ def check_survivor_step(torch, sc, sweep, kc, qs, qm, ub_t, tab, label):
     if not torch.equal(mapped[unique], j1[unique]):
         raise AssertionError(f"{label}: survivor-route ids differ from K1's")
     log(f"[survivor] {label}: {qp.shape[0]} query rows x {rt3.shape[0]} "
-        f"chunks, survivor share {float(frac.mean()):.4f}, "
+        f"chunks, survivor share {float(np.mean(frac[-1])):.4f}, "
         f"{int(unique.sum())} unique neighbours compared; K2/K3/K4 equal at "
         f"both flag folds; K2 prefilter {json.dumps(shares)}; lists "
         f"{json.dumps(list_stats(torch, qp, surv, ct, nch))}")
@@ -945,7 +961,8 @@ def check_topk_step(torch, sc, sweep, kc, qs, qm, ub_t, tab, k, label):
     if not (torch.equal(d6[qv], d4[qv]) and torch.equal(i6[qv], i4[qv])):
         raise AssertionError(f"{label}: K6 at 256-query flags differs from "
                              f"the 1024-query fold")
-    dk, ik, frac = sweep.nnk_sorted_v2(qs, qm, ub_t, rt3, ct, k)
+    (dk, ik), frac = detail_share("survivor_share", sweep.nnk_sorted_v2,
+                                  qs, qm, ub_t, rt3, ct, k)
     flat_q, flat_m = qs.reshape(-1, 3), qm.reshape(-1)
     e, j = kc.knnk(flat_q, flat_m, ref, refm, k + 1)
     if not torch.equal(dk.reshape(-1, k), e[:, :k]):
@@ -957,7 +974,7 @@ def check_topk_step(torch, sc, sweep, kc, qs, qm, ub_t, tab, k, label):
     if not torch.equal(mapped[unique], j[:, :k][unique]):
         raise AssertionError(f"{label}: top-k route ids differ from K5's")
     log(f"[survivor] {label}: {qp.shape[0]} query rows x {nch} chunks, "
-        f"survivor share {float(frac.mean()):.4f}, {int(unique.sum())} unique "
+        f"survivor share {float(np.mean(frac[-1])):.4f}, {int(unique.sum())} unique "
         f"neighbours compared; K6 equals its plain version at its flags and "
         f"at the 1024-query fold, and K5")
     return dk
@@ -1552,7 +1569,7 @@ def check_v1_step(torch, kc, skc, skip, qs, qm, ub2, vt, tab, label):
             raise AssertionError(f"{label}, {bound} bound: a true neighbour's "
                                  f"super-chunk was skipped")
         shares[bound] = round(float(flags.float().mean()), 4)
-    d2, ids, frac = skip.nn1_sorted_v1(qs, qm, ub2, rt, rpen, cbox, ra)
+    d2, ids = skip.nn1_sorted_v1(qs, qm, ub2, rt, rpen, cbox, ra)
     if not (torch.equal(d2.reshape(-1), e1) and torch.equal(d2, d)
             and torch.equal(ids, i)):
         raise AssertionError(f"{label}: nn1_sorted_v1 differs from the step")
@@ -1728,7 +1745,8 @@ def v1_serving(torch, pt, kc, skc, skip, morton, cell, launches, route_launches)
                 raise AssertionError(f"{label} batch launches {counts}, expected "
                                      f"{want}")
             err = same_per_scan(T, info, ref, f"{label} batch")
-            fr = [round(float(f.mean()), 4) for f in s_seq.matcher.skip_fractions]
+            fr = [round(float(np.mean(f)), 4)
+                  for f in detail_share("skip_share", batch)[1]]
             log(f"[v1] {label} batch of {len(clouds)}: {1e3 * sec:.2f} ms, "
                 f"{len(clouds) / sec:.2f} registrations/s, iterations "
                 f"{info['iterations'].tolist()}, codes {info['codes'].tolist()}, "
@@ -3332,7 +3350,7 @@ def multi_cases(torch, mesh, pmesh, inp):
         else sharding.sharded_tile_nn1(q, qm, ta, units, MULTI_MAX_DIST, mesh))
     qs, ub = t(inp["qs"]), torch.full(qm.shape, float("inf"), device=dev)
     if mesh is None:
-        d, i, _ = sweep.nn1_sorted_v2(
+        d, i = sweep.nn1_sorted_v2(
             qs, qm, ub, t(inp["rt3"]), t(inp["ct"]),
             stream=128 * inp["rt3"].shape[0] > sweep.SKIP_MAX_MPAD)
     else:
@@ -4146,8 +4164,9 @@ def main() -> int:
             ms = 1e3 * (time.perf_counter() - t)
         counts = launches()
         it = int(info["iterations"].max())
-        fracs = [round(float(f.mean()), 4)
-                 for f in s_seq.matcher.survivor_fractions]
+        fracs = [round(float(np.mean(f)), 4) for f in detail_share(
+            "survivor_share", register_batch_to_map, s_seq, clouds,
+            T_inits=cell["T_inits"], seed=1)[1]]
         log(f"[serve] {route} route, batch {SERVE_BATCH}: {ms:.2f} ms per batch, "
             f"{ms / SERVE_BATCH:.2f} ms per scan, prep {prep.ms:.2f} ms, "
             f"iterations {info['iterations'].tolist()}, codes "

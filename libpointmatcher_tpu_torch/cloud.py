@@ -31,6 +31,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from . import telemetry
 from .device import resolve_device
 from .errors import InvalidField
 
@@ -115,6 +116,7 @@ class PointCloud:
     def count_host(self) -> int:
         """Number of valid rows on the host (one sync, then cached)."""
         if self._count_cache is None:
+            telemetry.sync(self.device)
             self._count_cache = int(self.count())
         return self._count_cache
 
@@ -209,11 +211,18 @@ class PointCloud:
         return out
 
     def to(self, device) -> "PointCloud":
-        """The same cloud on ``device``."""
+        """The same cloud on ``device``; this one where its tensors are
+        there already (``"cuda"`` and ``"cuda:0"`` alike on card 0)."""
         device = torch.device(device)
-        if self.device == device:
+        points = self.points.to(device)
+        if points is self.points:
             return self
-        out = PointCloud(self.points.to(device), self.mask.to(device),
+        n = 2 + len(self.descriptors) + len(self.times)
+        if device.type == "cpu":
+            telemetry.sync(self.device, n)
+        else:
+            telemetry.sync(device, n, copy=True)
+        out = PointCloud(points, self.mask.to(device),
                          {k: v.to(device) for k, v in self.descriptors.items()},
                          {k: v.to(device) for k, v in self.times.items()})
         out._count_cache = self._count_cache
@@ -248,6 +257,7 @@ class PointCloud:
     def compact(self) -> "PointCloud":
         """Valid rows packed to the front in their original order, at the
         exact valid count (one host sync)."""
+        telemetry.sync(self.device)
         keep = torch.nonzero(self.mask, as_tuple=True)[0]
         return self.take_rows(keep)
 
@@ -266,12 +276,15 @@ class PointCloud:
     def host_rows(self):
         """All rows ``(points, mask)`` as numpy, valid or not: row indices
         match the tensor layout (``to_numpy`` keeps valid rows only)."""
+        telemetry.sync(self.device, 2)
         return self.points.cpu().numpy(), self.mask.cpu().numpy()
 
     def to_numpy(self, with_times: bool = False):
         """``(points[N_valid, d], {name: [N_valid, span]})`` as numpy, and
         the time channels (int64) as a third item when ``with_times``, as
         the JAX package's ``to_numpy`` returns them."""
+        telemetry.sync(self.device, 2 + len(self.descriptors)
+                       + (len(self.times) if with_times else 0))
         m = self.mask.cpu().numpy()
         pts = self.points.cpu().numpy()[m]
         descs = {k: v.cpu().numpy()[m] for k, v in self.descriptors.items()}

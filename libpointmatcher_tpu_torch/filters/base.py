@@ -25,6 +25,7 @@ from typing import Dict, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..cloud import PointCloud
 from ..errors import ConvergenceError
 from ..loggers import log_info
@@ -67,6 +68,7 @@ class ScanKeys:
         if self._draws is None:
             k0, k1 = (torch.tensor([k[j] for k in self.keys], dtype=torch.int64)
                       for j in (0, 1))
+            telemetry.sync(torch.device(self.device), 2, copy=True)
             self._draws = prng.uniform((k0, k1), self.rows, self.device)
         return self._draws
 

@@ -39,6 +39,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from . import telemetry
 from .cloud import PointCloud
 from .ops import skip, skip_cuda, sweep, sweep_cuda
 from .ops.cellgrid import build_cell_grid, cell_knn
@@ -244,10 +245,6 @@ class KDTreeMatcher(Matcher):
         self._skip_for = None
         self._skip_sorted_ref = None
         self._skip_stream = False
-        #: survivor share per serving iteration ([B] tensors), for diagnostics
-        self.survivor_fractions = []
-        #: skipped share of (tile, super-chunk) steps per v1 iteration ([B])
-        self.skip_fractions = []
 
     def find_closests_in(self, reading, reference):
         return _dense_matches(reading, reference, self.knn,
@@ -287,24 +284,27 @@ class KDTreeMatcher(Matcher):
         self._skip_stream = rows > sweep.SKIP_MAX_MPAD
         if self._skip_shared is not None and self._skip_for is reference:
             return True
-        pts, mask = reference.host_rows()
-        rorder, _ = morton_argsort(pts, mask)
-        rs, rmask = pts[rorder], mask[rorder]
-        tables = {"skip_rt3": sweep.chunked_ref_table(rs, rmask),
-                  "skip_ct": sweep.chunk_summaries(rs, rmask)}
-        if not self._skip_stream and self.knn == 1:
-            m_pad = 128 * math.ceil(len(rs) / 128)
-            tables["skip_rt"], tables["skip_rpen"] = skip.v1_tables(rs, rmask,
-                                                                    m_pad)
-            tables["skip_cbox"] = skip.chunk_bboxes(rs, rmask,
-                                                    128 * self.SKIP_GROUP)
-            tables["skip_ra"] = skip.augmented_ref_table(rs, rmask, m_pad)[0]
-        dev = reference.device
-        self._skip_shared = {k: torch.as_tensor(v, device=dev)
-                             for k, v in tables.items()}
-        self._skip_sorted_ref = reference.permute_rows(
-            torch.as_tensor(rorder, dtype=torch.int64, device=dev))
-        self._skip_for = reference
+        with telemetry.span("map_tables"):
+            pts, mask = reference.host_rows()
+            rorder, _ = morton_argsort(pts, mask)
+            rs, rmask = pts[rorder], mask[rorder]
+            tables = {"skip_rt3": sweep.chunked_ref_table(rs, rmask),
+                      "skip_ct": sweep.chunk_summaries(rs, rmask)}
+            if not self._skip_stream and self.knn == 1:
+                m_pad = 128 * math.ceil(len(rs) / 128)
+                tables["skip_rt"], tables["skip_rpen"] = skip.v1_tables(
+                    rs, rmask, m_pad)
+                tables["skip_cbox"] = skip.chunk_bboxes(rs, rmask,
+                                                        128 * self.SKIP_GROUP)
+                tables["skip_ra"] = skip.augmented_ref_table(rs, rmask,
+                                                             m_pad)[0]
+            dev = reference.device
+            telemetry.sync(dev, len(tables) + 1, copy=True)
+            self._skip_shared = {k: torch.as_tensor(v, device=dev)
+                                 for k, v in tables.items()}
+            self._skip_sorted_ref = reference.permute_rows(
+                torch.as_tensor(rorder, dtype=torch.int64, device=dev))
+            self._skip_for = reference
         return True
 
     def serving_reference(self, reference: PointCloud) -> PointCloud:
@@ -366,23 +366,19 @@ class KDTreeMatcher(Matcher):
                 and os.environ.get("PMTPU_SKIP_V1", "0") == "1"):
             ub = torch.sqrt(prev_d2) + step          # inf-safe
             mxu = os.environ.get("PMTPU_SKIP_MXU_BOUND", "0") == "1"
-            d_s, i_s, frac = skip.nn1_sorted_v1(
+            d_s, i_s = skip.nn1_sorted_v1(
                 qs, qm, (ub * ub) * sweep.UP, aux["skip_rt"], aux["skip_rpen"],
                 aux["skip_cbox"], aux["skip_ra"] if mxu else None)
-            self.skip_fractions.append(frac)
             matches = apply_max_dist(d_s[..., None], i_s[..., None], self.maxDist)
             return Matches(*matches), (qs, d_s)
         ub_t = (torch.sqrt(prev_d2) + step) * sweep.UP
         if self.knn > 1:
-            dk, ik, frac = sweep.nnk_sorted_v2(qs, qm, ub_t, aux["skip_rt3"],
-                                               aux["skip_ct"], int(self.knn))
-            self.survivor_fractions.append(frac)
+            dk, ik = sweep.nnk_sorted_v2(qs, qm, ub_t, aux["skip_rt3"],
+                                         aux["skip_ct"], int(self.knn))
             return (Matches(*apply_max_dist(dk, ik, self.maxDist)),
                     (qs, dk[..., -1]))
-        d_s, i_s, frac = sweep.nn1_sorted_v2(qs, qm, ub_t, aux["skip_rt3"],
-                                             aux["skip_ct"],
-                                             stream=self._skip_stream)
-        self.survivor_fractions.append(frac)
+        d_s, i_s = sweep.nn1_sorted_v2(qs, qm, ub_t, aux["skip_rt3"],
+                                       aux["skip_ct"], stream=self._skip_stream)
         matches = apply_max_dist(d_s[..., None], i_s[..., None], self.maxDist)
         return Matches(*matches), (qs, d_s)
 
@@ -592,6 +588,7 @@ def tile_aux_to_device(per_scan: dict, units: torch.Tensor) -> dict:
     read ``vrows``). ``q_rows`` is kept only if given (the serving drivers
     consume it by putting each scan in tile order)."""
     dev = units.device
+    telemetry.sync(dev, 3 + ("q_rows" in per_scan), copy=True)
     t = lambda a, dt: torch.as_tensor(a, device=dev).to(dt)
     aux = {"cand_t": gather_candidates(units, t(per_scan["blocks"], torch.long)),
            "vrows": t(per_scan["vrows"], torch.int32),

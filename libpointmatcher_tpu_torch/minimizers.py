@@ -17,6 +17,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from . import telemetry
 from .errors import InvalidParameter
 from .registry import Param, Parametrizable, Registrar
 from .utils import se3
@@ -160,6 +161,8 @@ def solve_possibly_underdetermined(A: torch.Tensor, b: torch.Tensor):
     along exactly singular directions, which a ridge amplifies and the
     cutoff zeroes."""
     p = A.shape[-1]
+    # eigh reads its error flags on the host: one wait on the device
+    telemetry.sync(A.device)
     w, V = torch.linalg.eigh(0.5 * (A + A.mT))
     tol = torch.amax(torch.abs(w), dim=-1, keepdim=True) * p * 1e-7
     keep = w > tol

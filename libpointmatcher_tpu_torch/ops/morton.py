@@ -17,6 +17,8 @@ import warnings
 import numpy as np
 import torch
 
+from .. import telemetry
+
 __all__ = ["morton_argsort", "morton_argsort_batch", "morton_argsort_device"]
 
 _BITS = 10
@@ -71,6 +73,7 @@ def morton_argsort_device(pts: torch.Tensor, mask: torch.Tensor) -> torch.Tensor
     """On the cloud's device: ``pts [n, d]``, ``mask [n]`` → order [n]
     int64, the same order as :func:`morton_argsort`."""
     n, d = pts.shape
+    telemetry.sync(pts.device, copy=True)
     inf = torch.tensor(float("inf"), device=pts.device)
     lo = torch.where(mask[:, None], pts, inf).amin(dim=0)
     hi = torch.where(mask[:, None], pts, -inf).amax(dim=0)

@@ -28,6 +28,7 @@ import warnings
 import numpy as np
 import torch
 
+from .. import telemetry
 from . import skip_cuda
 
 __all__ = ["BOUND_BIG", "BOUND_ERR_C", "chunk_bboxes", "augmented_ref_table",
@@ -169,9 +170,9 @@ def nn1_sorted_v1(qs: torch.Tensor, qm: torch.Tensor, ub2: torch.Tensor,
     squared neighbour distance (+inf unknown); ``rt``, ``rpen``, ``cbox``
     the map's tables. With ``ra`` (K10's table), one K10 launch tightens
     the bound first. Then one K11 launch serves all scans. Returns ``(d2
-    [..., n], ids [..., n], skipped [...])``: ids index the sorted map,
-    (+inf, −1) at invalid queries; ``skipped`` is the share of (tile,
-    super-chunk) steps skipped, per scan."""
+    [..., n], ids [..., n])``: ids index the sorted map, (+inf, −1) at
+    invalid queries. At the ``detail`` telemetry level the share of (tile,
+    super-chunk) steps skipped, per scan, is recorded as ``skip_share``."""
     if ra is not None:
         n = qs.shape[-2]
         n_pad = -(-n // skip_cuda.TILE_Q) * skip_cuda.TILE_Q
@@ -182,5 +183,6 @@ def nn1_sorted_v1(qs: torch.Tensor, qm: torch.Tensor, ub2: torch.Tensor,
     *b, n, d = qs.shape
     d2, ids = skip_cuda.nn1_sorted_skip(qs.reshape(-1, n, d), qm.reshape(-1, n),
                                         rt, rpen, skip.reshape(-1, *skip.shape[-2:]))
-    return (d2.reshape(*b, n), ids.reshape(*b, n),
-            skip.to(torch.float32).mean(dim=(-2, -1)))
+    if telemetry.detail():
+        telemetry.sample("skip_share", skip.to(torch.float32).mean(dim=(-2, -1)))
+    return d2.reshape(*b, n), ids.reshape(*b, n)

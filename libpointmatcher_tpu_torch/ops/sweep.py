@@ -27,6 +27,7 @@ import warnings
 import numpy as np
 import torch
 
+from .. import telemetry
 from . import sweep_cuda
 
 __all__ = ["chunk_summaries", "chunked_ref_table", "nn1_sorted_v2",
@@ -117,15 +118,21 @@ def query_table(qs: torch.Tensor, qm: torch.Tensor,
 def _survivor_step(qs, qm, ub_t, rt3, ct, k, sweep):
     """Query table → K2 (bounding the k-th neighbour) → ``sweep(qp, rt3,
     surv)`` on K2's own flags, one row per 256 queries; masked ``(d2 [...,
-    n, k'], ids [..., n, k'], frac [...])``. ``frac`` is taken over the
-    1024-query fold, the JAX package's diagnostic at its default
-    ``sweep_tile_q``."""
+    n, k'], ids [..., n, k'])``. At the ``detail`` telemetry level, the
+    share of (1024-query tile, chunk) pairs that survive, per scan (the JAX
+    package's diagnostic at its default ``sweep_tile_q``), is recorded as
+    ``survivor_share``."""
     *bshape, n, _ = qs.shape
     nch = rt3.shape[0]
     qp = query_table(qs, qm, ub_t)
     _, surv_b = sweep_cuda.survivors_and_bounds(qp, ct, k, nch=nch)
-    fold = sweep_cuda.SWEEP_TILE // sweep_cuda.BOUND_TILE
-    surv = surv_b.reshape(-1, fold, surv_b.shape[1]).amax(dim=1)
+    if telemetry.detail():
+        fold = sweep_cuda.SWEEP_TILE // sweep_cuda.BOUND_TILE
+        surv = surv_b.reshape(-1, fold, surv_b.shape[1]).amax(dim=1)
+        per_scan = surv.reshape(*bshape, -1, surv.shape[1])
+        telemetry.sample("survivor_share", (
+            per_scan[..., :nch].sum(dim=(-2, -1)).to(torch.float32)
+            / (per_scan.shape[-2] * max(nch, 1))))
     d2, ids = sweep(qp, rt3, surv_b)
     n_pad = qp.shape[0] // max(int(np.prod(bshape, dtype=np.int64)), 1)
     d2 = d2.reshape(*bshape, n_pad, -1)[..., :n, :]
@@ -134,10 +141,7 @@ def _survivor_step(qs, qm, ub_t, rt3, ct, k, sweep):
     valid = qm[..., None]
     d2 = torch.where(valid, d2, torch.full_like(d2, float("inf")))
     ids = torch.where(valid & finite, ids, torch.full_like(ids, -1))
-    per_scan = surv.reshape(*bshape, -1, surv.shape[1])
-    frac = (per_scan[..., :nch].sum(dim=(-2, -1)).to(torch.float32)
-            / (per_scan.shape[-2] * max(nch, 1)))
-    return d2, ids, frac
+    return d2, ids
 
 
 def nn1_sorted_v2(qs: torch.Tensor, qm: torch.Tensor, ub_t: torch.Tensor,
@@ -152,13 +156,12 @@ def nn1_sorted_v2(qs: torch.Tensor, qm: torch.Tensor, ub_t: torch.Tensor,
     all scans. Each query sweeps the chunks K2 flagged for its own
     256-query tile (the JAX package's default sweeps the OR of four,
     ``sweep_tile_q=1024``, with the same result). Returns ``(d2 [..., n],
-    ids [..., n], frac [...])``: ids index the sorted map, (+inf, −1) at
-    invalid queries; ``frac`` is the share of (1024-query tile, chunk)
-    pairs that survive, per scan."""
+    ids [..., n])``: ids index the sorted map, (+inf, −1) at invalid
+    queries (the survivor share: :func:`_survivor_step`)."""
     sweep = (sweep_cuda.nn1_survivor_sweep_stream if stream
              else sweep_cuda.nn1_survivor_sweep)
-    d2, ids, frac = _survivor_step(qs, qm, ub_t, rt3, ct, 1, sweep)
-    return d2[..., 0], ids[..., 0], frac
+    d2, ids = _survivor_step(qs, qm, ub_t, rt3, ct, 1, sweep)
+    return d2[..., 0], ids[..., 0]
 
 
 def nnk_sorted_v2(qs: torch.Tensor, qm: torch.Tensor, ub_t: torch.Tensor,
@@ -169,9 +172,8 @@ def nnk_sorted_v2(qs: torch.Tensor, qm: torch.Tensor, ub_t: torch.Tensor,
     its own 256-query tile: every chunk that holds any of a valid query's k
     nearest rows survives for its tile, so the result is the JAX package's
     at its 1024-query fold, ties included. ``ub_t`` transports the previous
-    iteration's k-th distance. Returns
-    ``(d2 [..., n, k], ids [..., n, k], frac [...])``, ascending, (+inf,
-    −1) at invalid queries and empty slots."""
+    iteration's k-th distance. Returns ``(d2 [..., n, k], ids [..., n,
+    k])``, ascending, (+inf, −1) at invalid queries and empty slots."""
     def sweep(qp, rt3_, surv):
         return sweep_cuda.nnk_survivor_sweep(qp, rt3_, surv, k)
 

@@ -34,6 +34,7 @@ and runs the same loop, each reading against its own reference.
 
 from __future__ import annotations
 
+import functools
 import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Optional, Sequence
@@ -41,6 +42,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..cloud import PointCloud
 from ..filters.base import ScanKeys, apply_filter_chain, chain_is_traceable
 from ..icp import _apply_transform, _center_cloud
@@ -54,19 +56,35 @@ from .sharding import all_gather, all_reduce, shard_cloud
 __all__ = ["register_batch", "register_batch_to_map", "PendingRegistration"]
 
 
+def recorded(entry: str):
+    """Decorator: the serving function ``entry(engine, readings, ...)``
+    runs inside a telemetry call record on the engine's device."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(engine, readings, *args, **kwargs):
+            with telemetry.call(entry, engine.device):
+                return fn(engine, readings, *args, **kwargs)
+        return run
+    return wrap
+
+
 class PendingRegistration:
     """Handle of a serving batch dispatched with ``block=False``: the
     loop's work is queued on the card, and ``result()`` makes the one
-    synchronising copy of the poses and the info to the host."""
+    synchronising copy of the poses and the info to the host, adding its
+    ``finish`` span and host syncs to the dispatching call's telemetry
+    record."""
 
     def __init__(self, finisher: Callable[[], tuple]):
         self._finisher = finisher
+        self._record = telemetry.current()
         self._out = None
 
     def result(self) -> tuple:
         if self._out is None:
-            self._out = self._finisher()
-            self._finisher = None
+            with telemetry.resume(self._record):
+                self._out = self._finisher()
+            self._finisher = self._record = None
         return self._out
 
 
@@ -131,7 +149,7 @@ def _upload(readings: Sequence[PointCloud], dev) -> list:
     times = {k: zeros(v) for k, v in first.times.items()}
     for i, rd in enumerate(readings):
         n = rd.num_points
-        pts[i, :n], mask[i, :n] = rd.host_rows()
+        pts[i, :n], mask[i, :n] = rd.points.numpy(), rd.mask.numpy()
         for out, src in ((descs, rd.descriptors), (times, rd.times)):
             for k, v in src.items():
                 out[k][i, :n] = v.numpy()
@@ -152,6 +170,7 @@ def _upload(readings: Sequence[PointCloud], dev) -> list:
 def _initial_poses(T_inits, b: int, dim: int, dev) -> torch.Tensor:
     if T_inits is None:
         T_inits = [np.eye(dim + 1, dtype=np.float32)] * b
+    telemetry.sync(torch.device(dev), b, copy=True)     # one copy a pose
     return torch.stack([torch.as_tensor(np.asarray(t, np.float32), device=dev)
                         for t in T_inits])
 
@@ -199,34 +218,40 @@ def _prep_scans(seq, readings: Sequence[PointCloud], T_rmd: torch.Tensor,
     the chain keeps the raw rows, each scan is put in its host order and
     then compacted, which keeps that order; else the device orders the
     filtered rows."""
+    span = telemetry.span
     dev = seq.device
     rows = max(rd.num_points for rd in readings)
-    keys = scan_keys(seed, len(readings), rows, dev)
-    filtered = [apply_filter_chain(seq.reading_filters, rd, keys,
-                                   scan=i, allow_empty=True,
-                                   compact=host_orders is None,
-                                   traced=_traceable(seq) and seq._fused())
-                for i, rd in enumerate(_upload(readings, dev))]
-    keep_rate = filtered[0].count_host() / max(readings[0].count_host(), 1)
-    cap = _serve_compact_cap(keep_rate, rows, compact_rows)
-    prepped = []
-    overflow = []
-    for i, c in enumerate(filtered):
-        if host_orders is not None:
-            c = c.permute_rows(host_orders[i]).compact()
-        elif permute:
-            c = c.permute_rows(morton_argsort_device(c.points, c.mask))
-        n = c.count_host()
-        overflow.append(cap is not None and n > cap)
-        if cap is not None and n > cap:
-            c = PointCloud(c.points[:cap], c.mask[:cap],
-                           {k: v[:cap] for k, v in c.descriptors.items()})
-        prepped.append(c)
-    # stacked at the cap when there is one, as the JAX package compacts to
-    # it: a scan's rows, and with them every per-scan sum of the loop, are
-    # then the same in any batch or queue that shares the cap
-    batch = _apply_transform(seq.transformations, _stack(prepped, cap or 1),
-                             T_rmd)
+    with span("prep.upload"):
+        uploaded = _upload(readings, dev)
+    with span("prep.chain"):
+        keys = scan_keys(seed, len(readings), rows, dev)
+        filtered = [apply_filter_chain(seq.reading_filters, rd, keys,
+                                       scan=i, allow_empty=True,
+                                       compact=host_orders is None,
+                                       traced=_traceable(seq) and seq._fused())
+                    for i, rd in enumerate(uploaded)]
+    with span("prep.order"):
+        keep_rate = filtered[0].count_host() / max(readings[0].count_host(), 1)
+        cap = _serve_compact_cap(keep_rate, rows, compact_rows)
+        prepped = []
+        overflow = []
+        for i, c in enumerate(filtered):
+            if host_orders is not None:
+                c = c.permute_rows(host_orders[i]).compact()
+            elif permute:
+                c = c.permute_rows(morton_argsort_device(c.points, c.mask))
+            n = c.count_host()
+            overflow.append(cap is not None and n > cap)
+            if cap is not None and n > cap:
+                c = PointCloud(c.points[:cap], c.mask[:cap],
+                               {k: v[:cap] for k, v in c.descriptors.items()})
+            prepped.append(c)
+    with span("prep.stack"):
+        # stacked at the cap when there is one, as the JAX package compacts
+        # to it: a scan's rows, and with them every per-scan sum of the
+        # loop, are then the same in any batch or queue that shares the cap
+        batch = _apply_transform(seq.transformations,
+                                 _stack(prepped, cap or 1), T_rmd)
     return batch, np.asarray(overflow, bool), cap
 
 
@@ -320,24 +345,33 @@ def _prep_tile_scans(seq, readings: Sequence[PointCloud], T_inits,
         return matcher.prepare_loop_host(pts @ T[:dim, :dim].T + T[:dim, dim],
                                          mask)
 
-    with ThreadPoolExecutor(max_workers=min(len(readings), 8)) as ex:
-        pers = list(ex.map(assign, range(len(readings))))
-    # the pairs each iteration sweeps: per scan, and summed for the batch
-    matcher.touched_per_scan = [int(p["touched"]) for p in pers]
-    matcher._loop_touched = sum(matcher.touched_per_scan)
-    aux = tile_aux_to_device(
-        _pad_tile_aux_np(pers, int(matcher.units.shape[0]) - 1), matcher.units)
-    q_rows = aux.pop("q_rows").reshape(len(readings), -1)
-    scans = []
-    keys = scan_keys(seed, len(readings),
-                     max(rd.num_points for rd in readings), dev)
-    for i, rd in enumerate(_upload(readings, dev)):
-        c = apply_filter_chain(seq.reading_filters, rd, keys,
-                               scan=i, allow_empty=True, compact=False)
-        safe = q_rows[i].clamp(min=0)
-        scans.append(PointCloud(c.points[safe], (q_rows[i] >= 0) & c.mask[safe],
-                                {k: v[safe] for k, v in c.descriptors.items()}))
-    return _apply_transform(seq.transformations, _stack(scans), T_rmd), aux
+    span = telemetry.span
+    with span("prep.order"):
+        with ThreadPoolExecutor(max_workers=min(len(readings), 8)) as ex:
+            pers = list(ex.map(assign, range(len(readings))))
+        # the pairs each iteration sweeps: per scan, and summed for the batch
+        matcher.touched_per_scan = [int(p["touched"]) for p in pers]
+        matcher._loop_touched = sum(matcher.touched_per_scan)
+        aux = tile_aux_to_device(
+            _pad_tile_aux_np(pers, int(matcher.units.shape[0]) - 1),
+            matcher.units)
+        q_rows = aux.pop("q_rows").reshape(len(readings), -1)
+    with span("prep.upload"):
+        uploaded = _upload(readings, dev)
+    with span("prep.chain"):
+        # each scan's chain, then the scan in tile order
+        scans = []
+        keys = scan_keys(seed, len(readings),
+                         max(rd.num_points for rd in readings), dev)
+        for i, rd in enumerate(uploaded):
+            c = apply_filter_chain(seq.reading_filters, rd, keys,
+                                   scan=i, allow_empty=True, compact=False)
+            safe = q_rows[i].clamp(min=0)
+            scans.append(PointCloud(
+                c.points[safe], (q_rows[i] >= 0) & c.mask[safe],
+                {k: v[safe] for k, v in c.descriptors.items()}))
+    with span("prep.stack"):
+        return _apply_transform(seq.transformations, _stack(scans), T_rmd), aux
 
 
 def _serving_route(seq, reference):
@@ -345,8 +379,6 @@ def _serving_route(seq, reference):
     aux)``: aux is None on the dense route."""
     if not seq.matcher.serving_loop_aux(reference):
         return False, reference, None
-    seq.matcher.survivor_fractions = []
-    seq.matcher.skip_fractions = []
     return (seq.matcher.SERVING_PERMUTES_READING,
             seq.matcher.serving_reference(reference), seq.matcher.serving_aux())
 
@@ -356,6 +388,7 @@ def _info(iters, codes, stats, overflow=None, matcher=None) -> dict:
     tracked displacement bound, ``motion_bound_exceeded`` per scan (True
     where it passed the matcher's ``motionBound``: matches beyond the
     cells assigned at the initial pose may have been missed), logged."""
+    telemetry.sync(iters.device, 5 + (stats.motion_max is not None))
     info = {
         "iterations": iters.cpu().numpy(),
         "codes": codes.cpu().numpy(),
@@ -388,6 +421,7 @@ def _map_mesh(seq, mesh, map_axis: str) -> None:
                          f"over a mesh (KDTreeMatcher and BlockGridMatcher do)")
 
 
+@recorded("register_batch_to_map")
 def register_batch_to_map(seq, readings: Sequence[PointCloud],
                           T_inits: Optional[Sequence] = None, seed: int = 0,
                           compact_rows="auto", mesh=None,
@@ -436,40 +470,46 @@ def register_batch_to_map(seq, readings: Sequence[PointCloud],
     seq._require_modules()
     if mesh is not None:
         _map_mesh(seq, mesh, map_axis)
-    reference = seq.get_prefiltered_internal_map()
-    Trm = seq._T_refIn_refMean
-    T_rmd = se3.inverse(Trm) @ _initial_poses(T_inits, len(readings),
-                                              readings[0].dim, seq.device)
-    shard = ((lambda ref: ref) if mesh is None
-             else (lambda ref: shard_cloud(ref, mesh, map_axis)))
-    if _host_path(seq):
-        batch, overflow, _ = _prep_scans(seq, readings, T_rmd, seed, None,
-                                         permute=False)
-        T_iter, iters, codes, stats = seq._run_loop(batch, shard(reference))
-    elif _tile_route(seq):
-        batch, aux = _prep_tile_scans(seq, readings, T_inits, T_rmd, seed)
-        overflow = np.zeros(len(readings), bool)
-        ref_loop = shard(reference)
-        if mesh is not None:
-            aux["cand_t"] = ref_loop.own_candidates(aux["cand_t"])
-        T_iter, iters, codes, stats = seq._run_loop(batch, ref_loop, aux)
-    else:
-        permute, ref_loop, aux = _serving_route(seq, reference)
-        if mesh is not None:
-            ref_loop, aux = shard(ref_loop), None
-        host = (permute and _traceable(seq)
-                and (not getattr(seq.matcher, "SERVING_DEVICE_ORDER", True)
-                     or os.environ.get("PMTPU_SKIP_HOST_MORTON", "0") == "1"))
-        orders = _host_orders(seq, readings, T_inits) if host else None
-        batch, overflow, _ = _prep_scans(seq, readings, T_rmd, seed,
-                                         compact_rows, permute, orders)
-        T_iter, iters, codes, stats = seq._run_loop(batch, ref_loop, aux)
+    span = telemetry.span
+    with span("prep"):
+        reference = seq.get_prefiltered_internal_map()
+        Trm = seq._T_refIn_refMean
+        T_rmd = se3.inverse(Trm) @ _initial_poses(T_inits, len(readings),
+                                                  readings[0].dim, seq.device)
+        shard = ((lambda ref: ref) if mesh is None
+                 else (lambda ref: shard_cloud(ref, mesh, map_axis)))
+        if _host_path(seq):
+            batch, overflow, _ = _prep_scans(seq, readings, T_rmd, seed, None,
+                                             permute=False)
+            ref_loop, aux = shard(reference), None
+        elif _tile_route(seq):
+            batch, aux = _prep_tile_scans(seq, readings, T_inits, T_rmd, seed)
+            overflow = np.zeros(len(readings), bool)
+            ref_loop = shard(reference)
+            if mesh is not None:
+                aux["cand_t"] = ref_loop.own_candidates(aux["cand_t"])
+        else:
+            permute, ref_loop, aux = _serving_route(seq, reference)
+            if mesh is not None:
+                ref_loop, aux = shard(ref_loop), None
+            host = (permute and _traceable(seq)
+                    and (not getattr(seq.matcher, "SERVING_DEVICE_ORDER", True)
+                         or os.environ.get("PMTPU_SKIP_HOST_MORTON", "0") == "1"))
+            orders = None
+            if host:
+                with span("prep.order"):
+                    orders = _host_orders(seq, readings, T_inits)
+            batch, overflow, _ = _prep_scans(seq, readings, T_rmd, seed,
+                                             compact_rows, permute, orders)
+    T_iter, iters, codes, stats = seq._run_loop(batch, ref_loop, aux)
     T_out = Trm @ T_iter @ T_rmd
     seq.last_stats = stats
 
     def finish():
-        return T_out.cpu().numpy(), _info(iters, codes, stats, overflow,
-                                          seq.matcher)
+        with span("finish"):
+            telemetry.sync(T_out.device)
+            return T_out.cpu().numpy(), _info(iters, codes, stats, overflow,
+                                              seq.matcher)
 
     return finish() if block else PendingRegistration(finish)
 
@@ -480,6 +520,7 @@ def _gather_batch(mesh, values):
     return [torch.cat(all_gather(mesh, v)) for v in values]
 
 
+@recorded("register_batch")
 def register_batch(icp, readings: Sequence[PointCloud],
                    references: Sequence[PointCloud],
                    T_inits: Optional[Sequence] = None, seed: int = 0,
@@ -520,44 +561,59 @@ def register_batch(icp, readings: Sequence[PointCloud],
             raise ValueError(f"{len(readings)} pairs do not divide the mesh "
                              f"({mesh.size})")
         lo, hi = mesh.span(len(readings))
+    span = telemetry.span
     dev = icp.device
     dim = readings[0].dim
-    T_inits = _initial_poses(T_inits, len(readings), dim, dev)
-    base = prng.prng_key(seed)
-    keys_r, keys_f = (ScanKeys([prng.fold_in(base, 2 * i + side)
-                                for i in range(len(readings))],
-                               max(c.num_points for c in clouds), dev)
-                      for side, clouds in ((0, readings), (1, references)))
-    # both chains as the JAX package's one-program pair path runs them
-    traced = (chain_is_traceable(icp.reading_filters)
-              and chain_is_traceable(icp.reference_filters)
-              and icp._step_chain_traced()
-              and type(icp.matcher).prepare_loop is Matcher.prepare_loop)
-    prepped_r, prepped_f, T_rm, T_rmd = [], [], [], []
-    for i in range(lo, hi):
-        reading, reference = readings[i], references[i]
-        reference = apply_filter_chain(icp.reference_filters, reference.to(dev),
-                                       keys_f, scan=i, traced=traced)
-        reference, Trm = _center_cloud(reference)
-        Trd = se3.inverse(Trm) @ T_inits[i]
-        reading = apply_filter_chain(icp.reading_filters, reading.to(dev),
-                                     keys_r, scan=i, traced=traced)
-        prepped_r.append(_apply_transform(icp.transformations, reading, Trd))
-        prepped_f.append(reference)
-        T_rm.append(Trm)
-        T_rmd.append(Trd)
-    rows = [max(c.num_points for c in cl) for cl in (prepped_r, prepped_f)]
-    if mesh is not None:
-        rows = all_reduce(mesh, torch.tensor(rows, device=dev), "max").tolist()
-    T_iter, iters, codes, stats = icp._run_loop(_stack(prepped_r, rows[0]),
-                                                _stack(prepped_f, rows[1]))
-    T_out = torch.stack(T_rm) @ T_iter @ torch.stack(T_rmd)
-    if mesh is not None:
-        fields = ("point_used_ratio", "weighted_point_used_ratio", "residual")
-        if stats.covariance is not None:
-            fields += ("covariance",)
-        T_out, iters, codes, *vals = _gather_batch(
-            mesh, [T_out, iters, codes] + [getattr(stats, f) for f in fields])
-        stats = stats._replace(**dict(zip(fields, vals)))
-    icp.last_stats = stats
-    return T_out.cpu().numpy(), _info(iters, codes, stats)
+    with span("prep"):
+        T_inits = _initial_poses(T_inits, len(readings), dim, dev)
+        base = prng.prng_key(seed)
+        keys_r, keys_f = (ScanKeys([prng.fold_in(base, 2 * i + side)
+                                    for i in range(len(readings))],
+                                   max(c.num_points for c in clouds), dev)
+                          for side, clouds in ((0, readings), (1, references)))
+        # both chains as the JAX package's one-program pair path runs them
+        traced = (chain_is_traceable(icp.reading_filters)
+                  and chain_is_traceable(icp.reference_filters)
+                  and icp._step_chain_traced()
+                  and type(icp.matcher).prepare_loop is Matcher.prepare_loop)
+        prepped_r, prepped_f, T_rm, T_rmd = [], [], [], []
+        with span("prep.chain"):
+            for i in range(lo, hi):
+                reading, reference = readings[i], references[i]
+                reference = apply_filter_chain(icp.reference_filters,
+                                               reference.to(dev), keys_f,
+                                               scan=i, traced=traced)
+                reference, Trm = _center_cloud(reference)
+                Trd = se3.inverse(Trm) @ T_inits[i]
+                reading = apply_filter_chain(icp.reading_filters,
+                                             reading.to(dev), keys_r, scan=i,
+                                             traced=traced)
+                prepped_r.append(_apply_transform(icp.transformations, reading,
+                                                  Trd))
+                prepped_f.append(reference)
+                T_rm.append(Trm)
+                T_rmd.append(Trd)
+        with span("prep.stack"):
+            rows = [max(c.num_points for c in cl)
+                    for cl in (prepped_r, prepped_f)]
+            if mesh is not None:
+                telemetry.sync(dev, copy=True)
+                telemetry.sync(dev)
+                rows = all_reduce(mesh, torch.tensor(rows, device=dev),
+                                  "max").tolist()
+            batch_r = _stack(prepped_r, rows[0])
+            batch_f = _stack(prepped_f, rows[1])
+    T_iter, iters, codes, stats = icp._run_loop(batch_r, batch_f)
+    with span("finish"):
+        T_out = torch.stack(T_rm) @ T_iter @ torch.stack(T_rmd)
+        if mesh is not None:
+            fields = ("point_used_ratio", "weighted_point_used_ratio",
+                      "residual")
+            if stats.covariance is not None:
+                fields += ("covariance",)
+            T_out, iters, codes, *vals = _gather_batch(
+                mesh, [T_out, iters, codes] + [getattr(stats, f) for f in fields])
+            stats = stats._replace(**dict(zip(fields, vals)))
+        icp.last_stats = stats
+        telemetry.sync(T_out.device)
+        return T_out.cpu().numpy(), _info(iters, codes, stats)

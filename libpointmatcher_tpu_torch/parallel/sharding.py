@@ -387,7 +387,7 @@ def sharded_nn1_sorted_v2(qs, qm, ub_t, rt3, ct, mesh: Mesh,
                          f"over {mesh.size} ranks (pad_sweep_tables_for_mesh)")
     lo, hi = mesh.span(nch)
     local_nch = hi - lo
-    d2, ids, _ = sweep.nn1_sorted_v2(
+    d2, ids = sweep.nn1_sorted_v2(
         qs, qm, ub_t, rt3[lo:hi], ct[:, lo:hi].contiguous(),
         stream=local_nch * 128 > sweep.SKIP_MAX_MPAD)
     gids = torch.where(ids >= 0, ids + lo * 128, ids)

@@ -33,13 +33,14 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..checkers import (CounterTransformationChecker,
                         DifferentialTransformationChecker)
 from ..cloud import PointCloud
 from ..utils import se3
 from .batch import (PendingRegistration, _host_path, _info, _initial_poses,
                     _prep_scans, _prep_tile_scans, _serving_route, _tile_route,
-                    _traceable, register_batch_to_map)
+                    _traceable, recorded, register_batch_to_map)
 
 __all__ = ["register_queue_to_map", "queue_eligible"]
 
@@ -74,6 +75,7 @@ def queue_eligible(seq) -> bool:
     return bool(_queue_mode(seq))
 
 
+@recorded("register_queue_to_map")
 def register_queue_to_map(seq, readings: Sequence[PointCloud],
                           T_inits: Optional[Sequence] = None, seed: int = 0,
                           lanes: int = 8, compact_rows="auto",
@@ -95,35 +97,47 @@ def register_queue_to_map(seq, readings: Sequence[PointCloud],
         raise RuntimeError("set_map first")
     seq._require_modules()
     reference = seq.get_prefiltered_internal_map()
-    permute, ref_loop, aux = _serving_route(seq, reference)
-    if not _queue_mode(seq) or not readings:
+    with telemetry.span("prep"):
+        permute, ref_loop, aux = _serving_route(seq, reference)
+        mode = _queue_mode(seq) if readings else ""
+        if mode:
+            q = len(readings)
+            dim = readings[0].dim
+            Trm = seq._T_refIn_refMean
+            T_rmd = se3.inverse(Trm) @ _initial_poses(T_inits, q, dim,
+                                                      seq.device)
+            T0 = se3.identity(dim, seq.device).expand(q, dim + 1,
+                                                      dim + 1).clone()
+            coarse_pool = None
+            if mode == "tile":
+                pool, pool_aux = _prep_tile_scans(seq, readings, T_inits,
+                                                  T_rmd, seed)
+                overflow = np.zeros(q, bool)
+            else:
+                pool, overflow, cap = _prep_scans(seq, readings, T_rmd, seed,
+                                                  compact_rows, permute)
+                if coarse is not None and int(coarse[0]) >= 2:
+                    decim, c_iters = int(coarse[0]), int(coarse[1])
+                    tol_mult = float(coarse[2]) if len(coarse) > 2 else 2.0
+                    base = (cap if cap is not None
+                            else max(rd.num_points for rd in readings))
+                    n_c = -(-base // decim)
+                    cap_c = max(512, 512 * -(-n_c // 512))
+                    coarse_pool = _compact_rows(_decimate_mask(pool, decim),
+                                                cap_c)
+    if not mode:
         return register_batch_to_map(seq, readings, T_inits, seed,
                                      compact_rows=compact_rows, block=block)
-    q = len(readings)
-    dim = readings[0].dim
-    Trm = seq._T_refIn_refMean
-    T_rmd = se3.inverse(Trm) @ _initial_poses(T_inits, q, dim, seq.device)
-    T0 = se3.identity(dim, seq.device).expand(q, dim + 1, dim + 1).clone()
-    if _queue_mode(seq) == "tile":
-        pool, pool_aux = _prep_tile_scans(seq, readings, T_inits, T_rmd, seed)
+    if mode == "tile":
         T_iter, iters, codes, stats = seq._run_queue(
             pool, reference, T0, lanes, pool_aux=pool_aux)
-        return _finish(seq, Trm @ T_iter @ T_rmd, iters, codes, stats,
-                       np.zeros(q, bool), block)
-    pool, overflow, cap = _prep_scans(seq, readings, T_rmd, seed,
-                                      compact_rows, permute)
-    if coarse is not None and int(coarse[0]) >= 2:
-        decim, c_iters = int(coarse[0]), int(coarse[1])
-        tol_mult = float(coarse[2]) if len(coarse) > 2 else 2.0
-        base = cap if cap is not None else max(rd.num_points for rd in readings)
-        n_c = -(-base // decim)
-        cap_c = max(512, 512 * -(-n_c // 512))
-        coarse_pool = _compact_rows(_decimate_mask(pool, decim), cap_c)
-        T0, _, _, _ = seq._run_queue(coarse_pool, ref_loop, T0, lanes,
-                                     _coarse_checkers(seq, c_iters, tol_mult),
-                                     aux)
-    T_iter, iters, codes, stats = seq._run_queue(pool, ref_loop, T0, lanes,
-                                                 matcher_aux=aux)
+    else:
+        if coarse_pool is not None:
+            T0, _, _, _ = seq._run_queue(
+                coarse_pool, ref_loop, T0, lanes,
+                _coarse_checkers(seq, c_iters, tol_mult), aux)
+        T_iter, iters, codes, stats = seq._run_queue(pool, ref_loop, T0, lanes,
+                                                     matcher_aux=aux)
     return _finish(seq, Trm @ T_iter @ T_rmd, iters, codes, stats, overflow,
                    block)
 
@@ -133,8 +147,10 @@ def _finish(seq, T_out, iters, codes, stats, overflow, block: bool):
     seq.last_stats = stats
 
     def finish():
-        return T_out.cpu().numpy(), _info(iters, codes, stats, overflow,
-                                          seq.matcher)
+        with telemetry.span("finish"):
+            telemetry.sync(T_out.device)
+            return T_out.cpu().numpy(), _info(iters, codes, stats, overflow,
+                                              seq.matcher)
 
     return finish() if block else PendingRegistration(finish)
 

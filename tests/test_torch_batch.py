@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 from jax.experimental import pallas as pl
+from torch_telemetry_fixture import detail_telemetry  # noqa: F401
 
 import libpointmatcher_tpu as pm
 import libpointmatcher_tpu.matchers as jmatchers
@@ -141,7 +142,8 @@ def _assert_same(jax_out, port_out, scene):
 
 
 @pytest.mark.parametrize("route", ["dense", "K3", "K4"])
-def test_batch_serving_matches_jax(scene, monkeypatch, interpret_mode, route):
+def test_batch_serving_matches_jax(scene, monkeypatch, interpret_mode, route,
+                                   detail_telemetry):
     if route == "dense":
         monkeypatch.setenv("PMTPU_SERVE_SKIP", "auto")
     else:
@@ -158,8 +160,9 @@ def test_batch_serving_matches_jax(scene, monkeypatch, interpret_mode, route):
         assert m._skip_stream == (route == "K4")
     if route != "dense":
         # one survivor share per lockstep iteration, one entry per scan
-        assert len(mat.survivor_fractions) == int(port_out[1]["iterations"].max())
-        assert all(f.shape == (3,) for f in mat.survivor_fractions)
+        shares = detail_telemetry("survivor_share")
+        assert len(shares) == int(port_out[1]["iterations"].max())
+        assert all(np.shape(f) == (3,) for f in shares)
 
 
 def test_pinned_compaction_overflow_matches_jax(scene):

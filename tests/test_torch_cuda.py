@@ -23,7 +23,9 @@ on the card against the CPU (d² bit for bit, ids equal: elementwise
 operations in the same order) and KDTreeVarDistMatcher's culled route
 against its dense one (K1, K5) on the card; and the applications ``icp``
 and ``compute_overlap`` with ``--device cuda`` against ``--device cpu``;
-and the multi-device layer: every sharded op and both drivers' mesh
+the telemetry's ``host_syncs`` of a serving call against the
+synchronising operations torch's sync debug mode reports; and the
+multi-device layer: every sharded op and both drivers' mesh
 arguments at NCCL world size 1 in this process and on 2 gloo ranks on the
 card against the single-device ops (bit for bit; ``register_batch``
 within 1e-5), ``gather_rows``' sharded case keeping −0.0 and ±inf.
@@ -409,7 +411,7 @@ def test_k2_k3_k4_equal_plain(cuda, k):
         assert torch.equal(ub, ubp) and torch.equal(surv, survp)
         assert torch.equal(ubc, ub) and torch.equal(survc, surv)
         _sweeps_equal_plain(qp, rt3, survc)
-        d2, ids, _ = sweep.nn1_sorted_v2(qs, qm, ub_t, rt3, ct)
+        d2, ids = sweep.nn1_sorted_v2(qs, qm, ub_t, rt3, ct)
         d1, i1 = kc.knn1(qs.reshape(-1, 3), qm.reshape(-1), rs, rsm)
         assert torch.equal(d2.reshape(-1), d1)
         assert torch.equal(ids.reshape(-1), i1)
@@ -490,8 +492,8 @@ def test_k3_k4_schedule_cases(cuda, case):
         lane = qp.shape[0] // 2
         assert bool(empty[lane:].all())
     if case in ("duplicated_rows", "all_masked_lane"):
-        d2, ids, _ = sweep.nn1_sorted_v2(qs, qm, torch.full(qm.shape, float("inf"),
-                                                            device=cuda), rt3, ct)
+        d2, ids = sweep.nn1_sorted_v2(qs, qm, torch.full(qm.shape, float("inf"),
+                                                         device=cuda), rt3, ct)
         d1, i1 = kc.knn1(qs.reshape(-1, 3), qm.reshape(-1), rs, rsm)
         assert torch.equal(d2.reshape(-1), d1) and torch.equal(ids.reshape(-1), i1)
 
@@ -555,7 +557,7 @@ def test_k6_equals_plain(cuda, k):
         dp, ip = sc.nnk_survivor_sweep_plain(qp, rt3, surv, k)
         torch.cuda.synchronize()
         assert torch.equal(d6, dp) and torch.equal(i6, ip)
-        dk, ik, _ = sweep.nnk_sorted_v2(qs, qm, ub_t, rt3, ct, k)
+        dk, ik = sweep.nnk_sorted_v2(qs, qm, ub_t, rt3, ct, k)
         de, ie = kc.knnk(qs.reshape(-1, 3), qm.reshape(-1), rs, rsm, k)
         assert torch.equal(dk.reshape(-1, k), de)
         assert torch.equal(ik.reshape(-1, k), ie)
@@ -739,6 +741,47 @@ def test_queue_on_card_matches_cpu(cuda, monkeypatch, route, coarse):
     else:
         assert kc.knn1.launches == kc.knnk.launches == 0
         assert sweeps == sc.survivors_and_bounds.launches > 0
+
+
+@pytest.mark.parametrize("clouds_on", ["cpu", "cuda"])
+@pytest.mark.parametrize("driver", ["batch", "queue"])
+def test_host_syncs_equal_sync_debug_warnings(cuda, monkeypatch, driver,
+                                              clouds_on):
+    """The telemetry's ``host_syncs`` of a warm serving call on the survivor
+    route equals the synchronising operations that torch's sync debug mode
+    reports during it (less the mode's notice that it is a prototype)."""
+    import warnings
+
+    from libpointmatcher_tpu_torch import telemetry
+
+    monkeypatch.setenv("PMTPU_SERVE_SKIP", "1")
+    world, scans, _, _ = _serving_scene(8)
+    seq = pt.ICPSequence(device=cuda)
+    seq.set_default()
+    seq.set_map(pt.PointCloud.from_numpy(world, device=cuda))
+    clouds = [pt.PointCloud.from_numpy(s, device=clouds_on) for s in scans]
+    if driver == "batch":
+        def serve():
+            return register_batch_to_map(seq, clouds, seed=3)
+    else:
+        def serve():
+            return register_queue_to_map(seq, clouds, seed=3, lanes=2)
+    serve()                         # builds the kernels and the map's tables
+    torch.cuda.synchronize()
+    telemetry.set_level("spans")
+    telemetry.reset()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            serve()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message)
+             and "prototype" not in str(w.message)]
+    rec, = telemetry.snapshot()
+    assert rec["entry"] == f"register_{driver}_to_map"
+    assert rec["counters"]["host_syncs"] == len(syncs) > 0
 
 
 def test_register_batch_on_card_matches_cpu(cuda):

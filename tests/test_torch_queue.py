@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 from test_torch_batch import (_map_draw, _room, _scan_draws, _yaw_pose,
                               interpret_mode)  # noqa: F401
+from torch_telemetry_fixture import detail_telemetry  # noqa: F401
 
 import libpointmatcher_tpu as pm
 import libpointmatcher_tpu.matchers as jmatchers
@@ -135,7 +136,8 @@ def assert_routes_agree(js, ps, route):
 
 
 @pytest.mark.parametrize("route", ["dense", "K3", "K4", "K6"])
-def test_queue_matches_jax_and_batch(scene, monkeypatch, interpret_mode, route):
+def test_queue_matches_jax_and_batch(scene, monkeypatch, interpret_mode, route,
+                                    detail_telemetry):
     """Per scan, the JAX queue's iterations, codes, overflow flags and
     poses; and the port's own batch serving of the same scans, whose poses
     the queue gives within 1e-6."""
@@ -145,7 +147,8 @@ def test_queue_matches_jax_and_batch(scene, monkeypatch, interpret_mode, route):
     assert_routes_agree(js, ps, route)
     if route != "dense":
         # one survivor share per lane iteration, one entry per lane
-        assert all(f.shape == (LANES,) for f in ps.matcher.survivor_fractions)
+        shares = detail_telemetry("survivor_share")
+        assert shares and all(np.shape(f) == (LANES,) for f in shares)
     _, scans, _, inits, _ = scene
     Tb, ib = register_batch_to_map(
         ps, [pt.PointCloud.from_numpy(s, device=CPU) for s in scans],

@@ -33,12 +33,14 @@ from test_knn_skip import _cloudlike
 from test_torch_batch import interpret_mode  # noqa: F401
 from test_torch_queue import (LANES, SEED, assert_same, force_route,
                               port_sequence, queue_both, scene)  # noqa: F401
+from torch_telemetry_fixture import detail_telemetry  # noqa: F401
 
 import libpointmatcher_tpu as pm
 import libpointmatcher_tpu.ops.knn_skip as ks
 from libpointmatcher_tpu.parallel import register_batch_to_map as jax_serve
 
 import libpointmatcher_tpu_torch as pt
+from libpointmatcher_tpu_torch import telemetry
 from libpointmatcher_tpu_torch.matchers import KDTreeMatcher
 from libpointmatcher_tpu_torch.ops import skip, skip_cuda, sweep
 from libpointmatcher_tpu_torch.ops import sweep_cuda as sc
@@ -212,7 +214,8 @@ def test_k11_plain_matches_pallas_and_brute_force(warm, interpret_mode):
 
 
 @pytest.mark.parametrize("scale", [1.0, 40.0])
-def test_k10_plain_matches_pallas_and_bounds(scale, interpret_mode):
+def test_k10_plain_matches_pallas_and_bounds(scale, interpret_mode,
+                                            detail_telemetry):
     """K10's plain version and the interpret-mode Pallas kernel agree
     within the bound's margin, and the bound covers the exact float64
     minimum on every valid query (ops/skip.py::bound_margin; the derivation
@@ -241,9 +244,12 @@ def test_k10_plain_matches_pallas_and_bounds(scale, interpret_mode):
     # the route with the bound: the same matches as without it
     cbox = T(c["cbox"])
     inf = torch.full(qm.shape, float("inf"))
-    d0, i0, f0 = skip.nn1_sorted_v1(qs, qm, inf, T(c["rt"]), T(c["rpen"]), cbox)
-    d1, i1, f1 = skip.nn1_sorted_v1(qs, qm, inf, T(c["rt"]), T(c["rpen"]), cbox,
+    with telemetry.call("nn1_sorted_v1"):
+        d0, i0 = skip.nn1_sorted_v1(qs, qm, inf, T(c["rt"]), T(c["rpen"]), cbox)
+        d1, i1 = skip.nn1_sorted_v1(qs, qm, inf, T(c["rt"]), T(c["rpen"]), cbox,
                                     ra=T(ra))
+    f0, f1 = map(np.asarray, detail_telemetry("skip_share"))
+    assert f0.shape == f1.shape == (2,)
     assert torch.equal(d0, d1) and torch.equal(i0, i1)
     assert bool((f1 >= f0).all()) and bool(torch.isfinite(ub2[qm]).all())
 
@@ -296,7 +302,8 @@ def _count_calls(monkeypatch):
 
 
 @pytest.mark.parametrize("switch", list(SWITCHES))
-def test_batch_v1_routes_match_jax(scene, monkeypatch, interpret_mode, switch):
+def test_batch_v1_routes_match_jax(scene, monkeypatch, interpret_mode, switch,
+                                   detail_telemetry):
     force_route(monkeypatch, "K3")
     for k, v in SWITCHES[switch].items():
         monkeypatch.setenv(k, v)
@@ -308,9 +315,9 @@ def test_batch_v1_routes_match_jax(scene, monkeypatch, interpret_mode, switch):
     assert (calls["K10"], calls["K11"], calls["K3"]) == (it if mxu else 0, it, 0)
     assert calls["host"] == (switch == "host_morton")
     assert calls["jax K11"] > 0 and (calls["jax K10"] > 0) == mxu
-    fr = ps.matcher.skip_fractions
+    fr = [np.asarray(f) for f in detail_telemetry("skip_share")]
     assert len(fr) == it and all(f.shape == (3,) for f in fr)
-    assert not ps.matcher.survivor_fractions
+    assert not detail_telemetry("survivor_share")
     # the transported bound skips from the second iteration on
     assert float(fr[-1].mean()) > 0.0
     if switch == "v1_mxu":
@@ -318,7 +325,8 @@ def test_batch_v1_routes_match_jax(scene, monkeypatch, interpret_mode, switch):
 
 
 @pytest.mark.parametrize("coarse", [None, (4, 16, 1.0)])
-def test_queue_v1_mxu_matches_jax(scene, monkeypatch, interpret_mode, coarse):
+def test_queue_v1_mxu_matches_jax(scene, monkeypatch, interpret_mode, coarse,
+                                  detail_telemetry):
     force_route(monkeypatch, "K3")
     for k, v in SWITCHES["v1_mxu"].items():
         monkeypatch.setenv(k, v)
@@ -327,7 +335,8 @@ def test_queue_v1_mxu_matches_jax(scene, monkeypatch, interpret_mode, coarse):
     assert_same(jax_out, port_out, scene)
     assert calls["K3"] == 0 and calls["K10"] == calls["K11"] > 0
     assert calls["jax K10"] > 0 and calls["jax K11"] > 0
-    assert all(f.shape == (LANES,) for f in ps.matcher.skip_fractions)
+    shares = detail_telemetry("skip_share")
+    assert shares and all(np.shape(f) == (LANES,) for f in shares)
 
 
 def test_host_qorder_equal_jax(scene, monkeypatch):

@@ -29,8 +29,10 @@ import torch
 from jax.experimental import pallas as pl
 from test_torch_sweep import ATOL, RTOL, _cloudlike, _sorted, _t
 import torch_survivor_emulation as em
+from torch_telemetry_fixture import detail_telemetry  # noqa: F401
 
 import libpointmatcher_tpu.ops.knn_sweep2 as k2
+from libpointmatcher_tpu_torch import telemetry
 from libpointmatcher_tpu_torch.ops import sweep
 from libpointmatcher_tpu_torch.ops import sweep_cuda as sc
 from libpointmatcher_tpu_torch.ops.knn import knn_brute_force
@@ -178,7 +180,7 @@ def test_k6_own_tile_equals_fold(k):
 
 
 @pytest.mark.parametrize("k", [2, 3, 4])
-def test_k6_route_matches_jax_and_brute_force(k):
+def test_k6_route_matches_jax_and_brute_force(k, detail_telemetry):
     """``nnk_sorted_v2`` (K6 on K2's own flags) against JAX's at
     ``sweep_tile_q=256`` (warm) and at its default 1024 (cold and warm),
     and against the brute force, cold then warm; ``frac`` stays JAX's at
@@ -196,8 +198,10 @@ def test_k6_route_matches_jax_and_brute_force(k):
     assert uniq.sum() > 500
     ub = np.full(len(qs), np.inf, np.float32)
     for it in range(2):
-        d, i, frac = sweep.nnk_sorted_v2(tq, tqm, torch.from_numpy(ub), trt3,
-                                         tct, k)
+        with telemetry.call("nnk_sorted_v2"):
+            d, i = sweep.nnk_sorted_v2(tq, tqm, torch.from_numpy(ub), trt3,
+                                       tct, k)
+        frac = detail_telemetry("survivor_share")[-1]
         d, i = d.numpy(), i.numpy()
         np.testing.assert_array_equal(d, db)
         np.testing.assert_array_equal(i, ib)

@@ -18,9 +18,11 @@ import numpy as np
 import pytest
 import torch
 from jax.experimental import pallas as pl
+from torch_telemetry_fixture import detail_telemetry  # noqa: F401
 
 import libpointmatcher_tpu.ops.knn_skip as ks
 import libpointmatcher_tpu.ops.knn_sweep2 as k2
+from libpointmatcher_tpu_torch import telemetry
 from libpointmatcher_tpu_torch.cloud import PointCloud
 from libpointmatcher_tpu_torch.matchers import KDTreeMatcher
 from libpointmatcher_tpu_torch.ops import morton, sweep
@@ -172,7 +174,7 @@ def test_k3_k4_plain_match_pallas(stream):
 
 
 @pytest.mark.parametrize("seed,scale", [(0, 1.0), (7, 50.0)])
-def test_nn1_sorted_v2_matches_jax_and_brute_force(seed, scale):
+def test_nn1_sorted_v2_matches_jax_and_brute_force(seed, scale, detail_telemetry):
     qs, qsm, rs, rsm, rt3, ct = _sorted(*_cloudlike(seed=seed, scale=scale))
     tq, tqm, trs, trsm, trt3, tct = _t(qs, qsm, rs, rsm, rt3, ct)
     db, ib = (x.numpy()[:, 0] for x in knn_brute_force(tq, tqm, trs, trsm, k=1))
@@ -180,7 +182,9 @@ def test_nn1_sorted_v2_matches_jax_and_brute_force(seed, scale):
     uniq = _unique(qs, qsm, rs, rsm, tol)
     ub = np.full(len(qs), np.inf, np.float32)
     for it in range(2):                        # cold, then transported
-        d, i, frac = sweep.nn1_sorted_v2(tq, tqm, torch.from_numpy(ub), trt3, tct)
+        with telemetry.call("nn1_sorted_v2"):
+            d, i = sweep.nn1_sorted_v2(tq, tqm, torch.from_numpy(ub), trt3, tct)
+        frac = detail_telemetry("survivor_share")[-1]
         dj, ij, fj = k2.nn1_sorted_v2(*map(jnp.asarray, (qs, qsm, ub, rt3, ct)))
         d, i = d.numpy(), i.numpy()
         np.testing.assert_array_equal(d, db)
@@ -197,7 +201,8 @@ def test_nn1_sorted_v2_matches_jax_and_brute_force(seed, scale):
 
 
 @pytest.mark.parametrize("stream", [False, True])
-def test_stateful_matcher_matches_dense_on_sorted_map(monkeypatch, stream):
+def test_stateful_matcher_matches_dense_on_sorted_map(monkeypatch, stream,
+                                                      detail_telemetry):
     """Two scans in one batch, a cold and a warm iteration: the survivor
     route gives the dense route's matches on the sorted map."""
     monkeypatch.setenv("PMTPU_SERVE_SKIP", "1")
@@ -221,9 +226,12 @@ def test_stateful_matcher_matches_dense_on_sorted_map(monkeypatch, stream):
     state = mat.loop_state_init(reading, aux)
     for shift in (0.0, 0.03):
         moved = reading.replace(points=reading.points + shift)
-        got, state = mat.find_closests_in_stateful(moved, ref_sorted, aux, state)
+        with telemetry.call("find_closests_in_stateful"):
+            got, state = mat.find_closests_in_stateful(moved, ref_sorted, aux,
+                                                       state)
         want = mat.find_closests_in(moved, ref_sorted)
         assert torch.equal(got.dists, want.dists)
         assert torch.equal(got.ids, want.ids)
-    assert len(mat.survivor_fractions) == 2
-    assert mat.survivor_fractions[1].shape == (2,)
+    shares = [r["counters"]["survivor_share"] for r in telemetry.snapshot()]
+    assert len(shares) == 2 and all(len(s) == 1 for s in shares)
+    assert np.shape(shares[1][0]) == (2,)

@@ -20,8 +20,10 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 from test_torch_sweep import ATOL, RTOL, _cloudlike, _sorted, _t, _unique
+from torch_telemetry_fixture import detail_telemetry  # noqa: F401
 
 import libpointmatcher_tpu.ops.knn_sweep2 as k2
+from libpointmatcher_tpu_torch import telemetry
 from libpointmatcher_tpu_torch.ops import sweep
 from libpointmatcher_tpu_torch.ops import sweep_cuda as sc
 from libpointmatcher_tpu_torch.ops.knn import knn_brute_force
@@ -116,7 +118,8 @@ def test_sweep_256_matches_pallas(stream, warm):
 
 @pytest.mark.parametrize("seed,scale,stream", [(0, 1.0, False), (7, 50.0, True),
                                                (3, 1.0, True), (9, 50.0, False)])
-def test_nn1_sorted_v2_matches_jax_256_and_brute_force(seed, scale, stream):
+def test_nn1_sorted_v2_matches_jax_256_and_brute_force(seed, scale, stream,
+                                                       detail_telemetry):
     """The step at K2's own tile against JAX's ``sweep_tile_q=256`` and the
     brute force, cold then warm; its ``frac`` is still JAX's at the default
     fold (``sweep_tile_q=1024``)."""
@@ -126,8 +129,10 @@ def test_nn1_sorted_v2_matches_jax_256_and_brute_force(seed, scale, stream):
     uniq = _unique(qs, qsm, rs, rsm, RTOL * np.abs(db[qsm]).max() + ATOL)
     ub = np.full(len(qs), np.inf, np.float32)
     for it in range(2):
-        d, i, frac = sweep.nn1_sorted_v2(tq, tqm, torch.from_numpy(ub), trt3,
-                                         tct, stream=stream)
+        with telemetry.call("nn1_sorted_v2"):
+            d, i = sweep.nn1_sorted_v2(tq, tqm, torch.from_numpy(ub), trt3,
+                                       tct, stream=stream)
+        frac = detail_telemetry("survivor_share")[-1]
         args = tuple(map(jnp.asarray, (qs, qsm, ub, rt3, ct)))
         dj, ij, _ = k2.nn1_sorted_v2(*args, sweep_tile_q=256, stream=stream)
         _, _, fj = k2.nn1_sorted_v2(*args, stream=stream)

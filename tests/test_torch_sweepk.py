@@ -23,8 +23,10 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 from test_torch_sweep import _cloudlike, _sorted, _t
+from torch_telemetry_fixture import detail_telemetry  # noqa: F401
 
 import libpointmatcher_tpu.ops.knn_sweep2 as k2
+from libpointmatcher_tpu_torch import telemetry
 from libpointmatcher_tpu_torch.cloud import PointCloud
 from libpointmatcher_tpu_torch.matchers import KDTreeMatcher
 from libpointmatcher_tpu_torch.ops import morton, sweep
@@ -133,14 +135,16 @@ def test_k2_plain_matches_pallas_on_sparse_chunks(k):
 
 
 @pytest.mark.parametrize("k", [2, 3, 4])
-def test_nnk_sorted_v2_matches_jax_and_brute_force(k):
+def test_nnk_sorted_v2_matches_jax_and_brute_force(k, detail_telemetry):
     qs, qsm, rs, rsm, rt3, ct = _tied(seed=7, sparse=True)
     tq, tqm, trs, trsm, trt3, tct = _t(qs, qsm, rs, rsm, rt3, ct)
     db, ib = (x.numpy() for x in knn_brute_force(tq, tqm, trs, trsm, k=k))
     ub = np.full(len(qs), np.inf, np.float32)
     for it in range(2):                        # cold, then transported
-        d, i, frac = sweep.nnk_sorted_v2(tq, tqm, torch.from_numpy(ub), trt3,
-                                         tct, k)
+        with telemetry.call("nnk_sorted_v2"):
+            d, i = sweep.nnk_sorted_v2(tq, tqm, torch.from_numpy(ub), trt3,
+                                       tct, k)
+        frac = detail_telemetry("survivor_share")[-1]
         dj, ij, fj = k2.nnk_sorted_v2(*map(jnp.asarray, (qs, qsm, ub, rt3, ct)),
                                       k=k)
         d, i, dj, ij = d.numpy(), i.numpy(), np.asarray(dj), np.asarray(ij)
@@ -157,7 +161,8 @@ def test_nnk_sorted_v2_matches_jax_and_brute_force(k):
     assert float(frac) <= frac0
 
 
-def test_stateful_matcher_knn3_matches_dense_on_sorted_map(monkeypatch):
+def test_stateful_matcher_knn3_matches_dense_on_sorted_map(monkeypatch,
+                                                          detail_telemetry):
     """Two scans in one batch, a cold and a warm iteration: the top-k
     survivor route gives the dense route's matches on the sorted map, and
     carries the third distance as its bound."""
@@ -179,13 +184,16 @@ def test_stateful_matcher_knn3_matches_dense_on_sorted_map(monkeypatch):
     assert bool(torch.isinf(state[1]).all())
     for shift in (0.0, 0.03):
         moved = reading.replace(points=reading.points + shift)
-        got, state = mat.find_closests_in_stateful(moved, ref_sorted, aux, state)
+        with telemetry.call("find_closests_in_stateful"):
+            got, state = mat.find_closests_in_stateful(moved, ref_sorted, aux,
+                                                       state)
         want = mat.find_closests_in(moved, ref_sorted)
         assert got.dists.shape == (2, q.shape[0], 3)
         assert torch.equal(got.dists, want.dists)
         assert torch.equal(got.ids, want.ids)
         assert torch.equal(state[1], got.dists[..., -1])
-    assert len(mat.survivor_fractions) == 2
+    shares = [r["counters"]["survivor_share"] for r in telemetry.snapshot()]
+    assert len(shares) == 2 and all(np.shape(s) == (1, 2) for s in shares)
 
 
 @pytest.mark.parametrize("case", ["auto", "knn5", "streaming"])

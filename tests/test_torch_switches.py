@@ -46,6 +46,7 @@ import torch
 from jax.experimental import pallas as pl
 from test_torch_batch import _room, _yaw_pose
 from test_torch_blockgrid import BENCH, _chain, _terrain, _prior_error
+from torch_telemetry_fixture import detail_telemetry  # noqa: F401
 
 import libpointmatcher_tpu as pm
 import libpointmatcher_tpu.ops.knn_pallas as kp
@@ -231,7 +232,8 @@ def test_mxu_switch_serves_sequence_and_batch_through_k9(monkeypatch, room):
         assert ang < ROT_TOL and tr < TRANS_TOL
 
 
-def test_mxu_switch_leaves_the_survivor_route_exact(monkeypatch, room):
+def test_mxu_switch_leaves_the_survivor_route_exact(monkeypatch, room,
+                                                   detail_telemetry):
     """Route choice does not read the switch: under ``PMTPU_SERVE_SKIP=1``
     the batch takes the survivor route (K2 + K3), launches no dense search
     and gives the result it gives without the switch."""
@@ -243,7 +245,7 @@ def test_mxu_switch_leaves_the_survivor_route_exact(monkeypatch, room):
     counts = _count_k1_k9(monkeypatch)
     monkeypatch.setenv("PMTPU_KNN_IMPL", "mxu")
     T, info = register_batch_to_map(seq, clouds, seed=1)
-    assert counts == {"K1": 0, "K9": 0} and seq.matcher.survivor_fractions
+    assert counts == {"K1": 0, "K9": 0} and detail_telemetry("survivor_share")
     assert np.array_equal(T, want[0])
 
 

@@ -307,14 +307,20 @@ def serve(seq, mesh=None, device=CPU):
     """The serving cases' batch: :func:`serve_inputs`' three scans from the
     identity (moved into the map's frame for the big map)."""
     import libpointmatcher_tpu_torch as pt
+    from libpointmatcher_tpu_torch import telemetry
     from libpointmatcher_tpu_torch.parallel import register_batch_to_map
 
     _, scans, _, _ = serve_inputs()
     clouds = [pt.PointCloud.from_numpy(s, device=device) for s in scans]
-    T, info = register_batch_to_map(seq, clouds, seed=SERVE_SEED, mesh=mesh)
+    telemetry.set_level("detail")
+    try:
+        T, info = register_batch_to_map(seq, clouds, seed=SERVE_SEED, mesh=mesh)
+        shares = telemetry.snapshot()[-1]["counters"].get("survivor_share", [])
+    finally:
+        telemetry.set_level("spans")
     return {"T": T, "iterations": info["iterations"], "codes": info["codes"],
             "point_used_ratio": info["point_used_ratio"],
-            "survivor_steps": len(getattr(seq.matcher, "survivor_fractions", []))}
+            "survivor_steps": len(shares)}
 
 
 def pairs_run(mesh=None, device=CPU, count=PAIRS):
@@ -433,12 +439,12 @@ def single_ops(out: dict, device=CPU) -> None:
     rs, rsm, rt3, ct = sweep_tables(r, rm)
     out["sweep_rt3"], out["sweep_ct"] = rt3, ct
     ub = torch.full((len(q),), float("inf"), device=device)
-    d, i, _ = sweep.nn1_sorted_v2(t(q), t(qm), ub, t(rt3), t(ct))
+    d, i = sweep.nn1_sorted_v2(t(q), t(qm), ub, t(rt3), t(ct))
     out["sweep_cold_d"], out["sweep_cold_i"] = _np(d), _np(i)
     q2 = warm_queries(q)
-    d, i, _ = sweep.nn1_sorted_v2(t(q2), t(qm),
-                                  t(sweep_bound(q, q2, out["sweep_cold_d"])),
-                                  t(rt3), t(ct))
+    d, i = sweep.nn1_sorted_v2(t(q2), t(qm),
+                               t(sweep_bound(q, q2, out["sweep_cold_d"])),
+                               t(rt3), t(ct))
     out["sweep_warm_d"], out["sweep_warm_i"] = _np(d), _np(i)
     for tag, qq in (("cold", q), ("warm", q2)):
         d, i = knn.knn_brute_force(t(qq), t(qm), t(rs), t(rsm), k=1)

@@ -7,11 +7,12 @@ Phases, each fatal on failure:
 1. device: the card's name and power limit, torch and CUDA versions;
    compute capability 9.0 is required;
 2. build: every kernel source of ``libpointmatcher_tpu_torch/csrc``
-   (knn.cu, sweep.cu, tile.cu, skip.cu, knn_variants.cu), one nvcc each,
-   all started together; ptxas's register and spill report, and no spill
-   in knn.cu (K1, K9 and every K5 list length), in sweep.cu (K2, K3/K4,
-   every K6 list length), in tile.cu (K7, every K8 list length, T4, T5)
-   nor in knn_variants.cu (T1, T2, T3);
+   (knn.cu, sweep.cu, tile.cu, skip.cu, knn_variants.cu, plane.cu), one
+   nvcc each, all started together; ptxas's register and spill report, and
+   no spill in knn.cu (K1, K9 and every K5 list length), in sweep.cu (K2,
+   K3/K4, every K6 list length), in tile.cu (K7, every K8 list length, T4,
+   T5), in knn_variants.cu (T1, T2, T3) nor in plane.cu (the point-to-plane
+   minimizer's moments and solve);
 3. dense kernels: K1, K9 and K5 against their plain torch versions on the
    card, at the serving shapes 20480 x 12459 and 25000 x 100000, timed with
    CUDA events beside the plain version and a ``torch.cdist`` yardstick
@@ -44,8 +45,10 @@ Phases, each fatal on failure:
    map (K2 + K4), the ~30 000-row map (K2 + K3) and the map of a
    25 000-point scene (under 16 384 rows: K1), each pose held to the
    ground truth; the launches of each run, counted from 0, equal the
-   lockstep iteration count on the route's kernels and 0 on the others;
-   the same batch with ``block=False`` gives the same poses; the 8 scans'
+   lockstep iteration count on the route's kernels and on P1 (the
+   point-to-plane minimizer's kernel pair) and 0 on the others; the same
+   batch with ``block=False`` gives the same poses (its minimizer inputs
+   recorded at the second iteration); the 8 scans'
    reading draws formed on the card equal the same draws formed on the CPU
    bit for bit, and the host time of each batch's prep (the scans'
    chains, draws included, order, compaction and stacking) is logged;
@@ -59,7 +62,13 @@ Phases, each fatal on failure:
    and K4 at K3's, each sweep also at the 1024-query fold and with only its
    longest list kept; the sweeps' bound counts the pairs the route sweeps
    (its 256-query tiles), and the pairs of the 1024-query fold and the bound
-   over them, with the list statistics, are logged beside it;
+   over them, with the list statistics, are logged beside it. P1 at the
+   K4 route's recorded minimizer inputs, its 8 scans repeated to the
+   benchmark's batch of 32: equal to its plain version in the integer
+   statistics and the used ratio, x = [ω, t] within 1e-5·‖x‖∞ + 4e-7,
+   two launches bit for bit, timed with CUDA events (200 calls) beside its
+   bound (each input byte once), its plain version and the minimizer's
+   torch body (the GEMM and ``torch.linalg.eigh`` with its host wait);
 9. K6, the top-k survivor sweep, against its plain version for k = 2, 3
    and 4 on the 8 scans of phase 6 against the ~30 000-row map, cold and
    with a transported bound, at K2's own 256-query flags (the route's):
@@ -74,8 +83,8 @@ Phases, each fatal on failure:
    K4, K3 and dense maps, then with ``knn`` = 3 under
    ``PMTPU_SERVE_SKIP=1`` on the K3 map (K2 + K6). Every pose is held to
    the ground truth; the launches of each run, counted from 0, equal the
-   lane iterations of both passes on the route's kernels and 0 on the
-   others; the plain queue's first 8 scans equal a
+   lane iterations of both passes on the route's kernels and on P1 and 0
+   on the others; the plain queue's first 8 scans equal a
    ``register_batch_to_map`` of the same 8 in iterations and codes;
    registrations per second are logged. Each c2f run records the inputs of
    its coarse pass's first two matcher calls (8 lanes at the coarse pool's
@@ -308,8 +317,8 @@ Phases, each fatal on failure:
    stacked on the host (the port's path) and moved one by one (the path of
    scans that differ in channels), in turns, equal bit for bit, each path's
    prep host ms and batch ms logged. ``PMTPU_CACHE_DIR``: a
-   subprocess with a fresh directory builds the five CUDA sources and the
-   native library there, and a second one loads all six with no compiler
+   subprocess with a fresh directory builds the six CUDA sources and the
+   native library there, and a second one loads all seven with no compiler
    run (``subprocess.run`` refused in it); both gated.
 
 The second-to-last line is the JSON of kernels, the last line
@@ -466,9 +475,11 @@ def detail_share(name: str, fn, *args, **kwargs):
 def reset_launch_counts() -> None:
     """Every kernel wrapper's launch count to 0."""
     from libpointmatcher_tpu_torch.ops import (knn_cuda, knn_variants_cuda,
-                                               skip_cuda, sweep_cuda, tile_cuda)
+                                               plane_cuda, skip_cuda, sweep_cuda,
+                                               tile_cuda)
 
-    for mod in (knn_cuda, sweep_cuda, tile_cuda, skip_cuda, knn_variants_cuda):
+    for mod in (knn_cuda, sweep_cuda, tile_cuda, skip_cuda, knn_variants_cuda,
+                plane_cuda):
         mod.reset_launch_counts()
 
 
@@ -517,6 +528,11 @@ KERNELS = {
     "T1 knn1_chunked": ("tools/knn_variants.py:26", 9),
     "T2 knn1_transposed": ("tools/knn_variants.py:122", 9),
     "T3 knn1_mxu": ("tools/knn_variants.py:195", 8),
+    # no Pallas kernel: the JAX package's XLA-fused normal equations and its
+    # Jacobi solve; per valid pair slot F (9), dot (8), w·F (6), the 21
+    # products and sums of A (42), b (12), the residual (3), the weight (1)
+    "P1 point_to_plane": ("libpointmatcher_tpu/minimizers.py:375 + "
+                          "libpointmatcher_tpu/utils/smalleig.py:124", 81),
 }
 # K2's work at its inputs (csrc/sweep.cu::survivors_bounds): fp32
 # operations per (query, chunk) pair that pass 1 (the bound) and pass 2 (the
@@ -861,6 +877,84 @@ def record_survivor_kernels(torch, sc, sweep, qs, qm, ub_t, tab, names,
         out.append(rec)
     log(f"[kernel] {label} route's recorded inputs: lists {json.dumps(stats)}")
     return out
+
+
+#: the benchmark's batch, to which P1's recorded serving scans are repeated
+PLANE_BATCH = 32
+
+
+def record_plane_kernel(torch, pc, inputs, launches, label):
+    """P1 on one serving step's recorded minimizer inputs, the scans
+    repeated to ``PLANE_BATCH``: the kernel pair against its plain version
+    (the integer statistics and the used ratio equal, x = [ω, t] within
+    1e-5·‖x‖∞ + 4e-7, as ``tests/test_torch_plane_cuda.py`` holds it), two
+    launches bit for bit, then timed with CUDA events beside its bound
+    (each input byte once; 81 operations a valid slot), its plain version
+    and the minimizer's torch body (the ``[6 x P]·[P x 6]`` GEMM and
+    ``torch.linalg.eigh``, whose host read of its flags the events span)
+    → the kernel record."""
+    from libpointmatcher_tpu_torch.cloud import PointCloud
+    from libpointmatcher_tpu_torch.matchers import Matches
+    from libpointmatcher_tpu_torch.minimizers import (PointToPlaneErrorMinimizer,
+                                                      build_stats)
+    from libpointmatcher_tpu_torch.utils import se3
+
+    name = "P1 point_to_plane"
+    pts, msk, ref_p, ref_n, d, ids, w = inputs
+    scans = pts.shape[0]
+    rep = -(-PLANE_BATCH // scans)
+    pts, msk, d, ids, w = (t.repeat(rep, *([1] * (t.ndim - 1)))[:PLANE_BATCH]
+                           for t in (pts, msk, d, ids, w))
+    args = (pts, msk, ref_p, ref_n, d, ids, w)
+    run = lambda: pc.point_to_plane(*args)
+    plain = lambda: pc.point_to_plane_plain(*args)
+    got, again, want = run(), run(), plain()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{name}: two launches differ")
+    for field in ("point_used_ratio", "rejected_matches", "rejected_points"):
+        if not torch.equal(getattr(got, field), getattr(want, field)):
+            raise AssertionError(f"{name}: {field} differs from the plain version")
+    x, x_plain = se3.pose_to_vec(got.T.double()), se3.pose_to_vec(want.T.double())
+    gap = (x - x_plain).abs()
+    scale = x_plain.abs().amax(dim=-1, keepdim=True)
+    if not bool(torch.all(gap <= 1e-5 * scale + 4e-7)):
+        raise AssertionError(f"{name}: x differs from the plain version by "
+                             f"{float((gap / scale).max()):.3g} of |x|")
+    for field in ("weighted_point_used_ratio", "residual"):
+        a, b = getattr(got, field), getattr(want, field)
+        if not torch.allclose(a, b, rtol=1e-5, atol=0):
+            raise AssertionError(f"{name}: {field} differs from the plain version")
+    B, n, k = d.shape
+    valid = int((torch.isfinite(d) & (w != 0)).sum())
+    # points and mask bytes, distance, id and weight a slot, the two map
+    # tables, the outputs
+    nbytes = B * n * 13 + B * n * k * 12 + 2 * ref_p.numel() * 4 + B * 21 * 4
+    bms, by = bound_of(KERNELS[name][1] * valid, nbytes)
+    ms = cuda_ms(torch, run, 200)
+    plain_ms = cuda_ms(torch, plain, 2)
+    minimizer = PointToPlaneErrorMinimizer()
+    reading = PointCloud(pts, msk)
+    reference = PointCloud(ref_p, descriptors={"normals": ref_n})
+    matches = Matches(d, ids)
+
+    def torch_body():
+        T, pairs, _, dot = minimizer._solve(reading, reference, w, matches)
+        return T, build_stats(reading, w, matches,
+                              torch.sum(pairs.w * dot * dot, dim=-1))
+
+    library_ms = cuda_ms(torch, torch_body, 5)
+    rec = {"name": name, "route": "cuda",
+           "source": "libpointmatcher_tpu_torch/csrc/plane.cu",
+           "replaces": KERNELS[name][0], "launches": launches,
+           "max_abs_err": float(gap.max()), "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bms, "bound_by": by, "library_ms": library_ms}
+    log(f"[kernel] main path {name} at the {label} route's minimizer inputs, "
+        f"{scans} scans repeated to {B} x {n} points x k = {k} "
+        f"against {ref_p.shape[0]} map rows, {valid} valid slots, {nbytes} "
+        f"bytes; the torch body (GEMM + eigh, its host wait included) as "
+        f"library_ms: " + json.dumps(rec))
+    return rec
 
 
 class InputRecorder:
@@ -3646,7 +3740,7 @@ class switch:
 
 
 #: phase 27's probe of PMTPU_CACHE_DIR, run as ``python -c PROBE build|load``
-#: with the variable set: it loads the five kernel libraries (one nvcc
+#: with the variable set: it loads the six kernel libraries (one nvcc
 #: each, together, where one is missing) and the native IO library and
 #: prints where they lie and which this process built; ``load`` refuses
 #: any compiler run
@@ -3655,13 +3749,14 @@ import json, subprocess, sys, time
 from concurrent.futures import ThreadPoolExecutor
 from libpointmatcher_tpu_torch.io import native
 from libpointmatcher_tpu_torch.ops import (knn_cuda, knn_variants_cuda,
-                                           skip_cuda, sweep_cuda, tile_cuda)
+                                           plane_cuda, skip_cuda, sweep_cuda,
+                                           tile_cuda)
 if sys.argv[1] == "load":
     def refuse(*a, **k):
         raise AssertionError("a compiler ran: " + str(a[0][0]))
     subprocess.run = refuse
 libs = [m.LIBRARY for m in (knn_cuda, sweep_cuda, tile_cuda, skip_cuda,
-                            knn_variants_cuda)]
+                            knn_variants_cuda, plane_cuda)]
 t = time.perf_counter()
 with ThreadPoolExecutor(len(libs)) as pool:
     list(pool.map(lambda lib: lib.load(), libs))
@@ -3711,7 +3806,7 @@ def cache_dir_probe():
                                  f"{sorted(p.name for p in cache.iterdir())}")
     finally:
         shutil.rmtree(cache.parent, ignore_errors=True)
-    log(f"[switches] PMTPU_CACHE_DIR: 5 CUDA libraries and the native one "
+    log(f"[switches] PMTPU_CACHE_DIR: 6 CUDA libraries and the native one "
         f"built into a fresh directory in {build['s']:.2f} s, loaded by a "
         f"second process with no compiler run in {load['s']:.2f} s")
     return build["s"], load["s"]
@@ -3936,6 +4031,7 @@ def main() -> int:
     from libpointmatcher_tpu_torch.ops import morton, skip, sweep
     from libpointmatcher_tpu_torch.ops import knn_cuda as kc
     from libpointmatcher_tpu_torch.ops import knn_variants_cuda as kv
+    from libpointmatcher_tpu_torch.ops import plane_cuda as pc
     from libpointmatcher_tpu_torch.ops import skip_cuda as skc
     from libpointmatcher_tpu_torch.ops import sweep_cuda as sc
     from libpointmatcher_tpu_torch.ops import tile_cuda as tc
@@ -3958,7 +4054,8 @@ def main() -> int:
 
     # ---- 2. build
     t0 = time.perf_counter()
-    libs = (kc.LIBRARY, sc.LIBRARY, tc.LIBRARY, skc.LIBRARY, kv.LIBRARY)
+    libs = (kc.LIBRARY, sc.LIBRARY, tc.LIBRARY, skc.LIBRARY, kv.LIBRARY,
+            pc.LIBRARY)
     with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source, together
         list(pool.map(lambda lib: lib.load(), libs))
     log(f"[build] {', '.join(lib.source.name for lib in libs)} built in "
@@ -3967,9 +4064,9 @@ def main() -> int:
         for line in lib.build_log.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"[build] {lib.source.name}: {line.strip()}")
-    # the dense, survivor, tile and variant kernels keep their lists,
-    # accumulators and staging in registers
-    for lib in (kc.LIBRARY, sc.LIBRARY, tc.LIBRARY, kv.LIBRARY):
+    # the dense, survivor, tile, variant and point-to-plane kernels keep
+    # their lists, accumulators, staging and 6x6 systems in registers
+    for lib in (kc.LIBRARY, sc.LIBRARY, tc.LIBRARY, kv.LIBRARY, pc.LIBRARY):
         spills = [ln.strip() for ln in lib.build_log.splitlines()
                   if any(int(x) for x in re.findall(r"(\d+) bytes spill", ln))]
         if spills:
@@ -4162,7 +4259,8 @@ def main() -> int:
             T, info = register_batch_to_map(s_seq, clouds,
                                             T_inits=cell["T_inits"], seed=1)
             ms = 1e3 * (time.perf_counter() - t)
-        counts = launches()
+        # P1 beside the matcher's kernels: one launch an iteration
+        counts = dict(launches(), P1=pc.point_to_plane.launches)
         it = int(info["iterations"].max())
         fracs = [round(float(np.mean(f)), 4) for f in detail_share(
             "survivor_share", register_batch_to_map, s_seq, clouds,
@@ -4180,17 +4278,21 @@ def main() -> int:
             if not (np.isfinite(Ti).all() and ang < ROT_TOL and tr < TRANS_TOL):
                 raise AssertionError(f"{route} serving scan {i}: pose error "
                                      f"{ang}, {tr}")
-        want = route_launches(route, it)
+        want = dict(route_launches(route, it), P1=it)
         if counts != want:
             raise AssertionError(f"{route} serving launches {counts}, "
                                  f"expected {want}")
         cell["launches"] = counts
         cell["batch_out"] = T, info
-        with InputRecorder(sweep) as rec:
+        with InputRecorder(sweep) as rec, \
+                InputRecorder(pc, "point_to_plane", keep=2) as plane_rec:
+            # the wrapper counts its launches on what its module's name holds
+            plane_rec.launches = 0
             pending = register_batch_to_map(s_seq, clouds,
                                             T_inits=cell["T_inits"], seed=1,
                                             block=False)
             T2, _ = pending.result()
+        cell["plane_inputs"] = plane_rec.calls[-1]
         if not np.allclose(T2, T, atol=1e-6):
             raise AssertionError(f"{route}: block=False gave other poses")
         cell["inputs"] = (rec.calls[min(1, len(rec.calls) - 1)][:3]
@@ -4209,6 +4311,11 @@ def main() -> int:
                                            cell["tab"], names, serve_launches,
                                            route)
         torch.cuda.empty_cache()
+    records.append(record_plane_kernel(torch, pc, serve["K4"].pop("plane_inputs"),
+                                       serve["K4"]["launches"]["P1"], "K4"))
+    for cell in serve.values():
+        cell.pop("plane_inputs", None)
+    torch.cuda.empty_cache()
 
     # ---- 9. K6 on the 8 scans of phase 6, against the ~30 000-row map
     cell = serve["K3"]
@@ -4251,8 +4358,9 @@ def main() -> int:
         for coarse in (None, COARSE):
             T, info, counts, steps, recorded = run_queue(
                 torch, register_queue_to_map, q_seq, cell, coarse,
-                launches, f"{route} route")
-            want = route_launches(route, steps)
+                lambda: dict(launches(), P1=pc.point_to_plane.launches),
+                f"{route} route")
+            want = dict(route_launches(route, steps), P1=steps)
             if counts != want:
                 raise AssertionError(f"{route} queue launches {counts}, "
                                      f"expected {want}")

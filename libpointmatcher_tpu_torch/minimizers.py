@@ -9,6 +9,12 @@ A batch of scans (reading ``[B, N, d]``, matches ``[B, N, knn]``) against
 one shared reference, or against one reference each (``[B, M, d]``, the
 pair-parallel registration), gives one transform and one set of statistics per
 scan.
+
+On the card, ``PointToPlaneErrorMinimizer`` for 3-D input at six degrees of
+freedom runs as one hand-written kernel pair (``ops/plane_cuda.py``,
+``csrc/plane.cu``): the normal equations, the JAX package's Jacobi solve and
+the statistics, with no host read. Every other case keeps the torch body
+below, whose ``torch.linalg.eigh`` reads its error flags on the host.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import torch
 
 from . import telemetry
 from .errors import InvalidParameter
+from .ops import plane_cuda
 from .registry import Param, Parametrizable, Registrar
 from .utils import se3
 
@@ -280,8 +287,10 @@ class PointToPlaneErrorMinimizer(ErrorMinimizer):
         if self.force2D and self.force4DOF:
             raise InvalidParameter("force2D and force4DOF are mutually exclusive")
 
-    def _solve(self, reading, reference, weights, matches):
-        """→ ``(T, pairs, normals [..., P, d], dot [..., P])``."""
+    def _solve(self, reading, reference, weights, matches,
+               solve=solve_possibly_underdetermined):
+        """→ ``(T, pairs, normals [..., P, d], dot [..., P])``; ``solve``
+        takes the normal equations ``(A, b)`` to ``x``."""
         d = reading.dim
         pairs = make_pairs(reading, reference, weights, matches)
         normals = gather_rows(reference.get_descriptor("normals"),
@@ -308,7 +317,7 @@ class PointToPlaneErrorMinimizer(ErrorMinimizer):
         wF = w[..., None] * F
         A = wF.mT @ F          # (reference: PointToPlane.cpp:213-230)
         b = -(wF.mT @ dot[..., None])[..., 0]
-        x = solve_possibly_underdetermined(A, b)
+        x = solve(A, b)
 
         if d == 2:
             T = se3.from_rt(se3.rot2d(x[..., 0]), x[..., 1:3])
@@ -323,7 +332,41 @@ class PointToPlaneErrorMinimizer(ErrorMinimizer):
             T = se3.from_rt(se3.rodrigues(x[..., :3]), x[..., 3:6])
         return T, pairs, normals, dot
 
+    def _kernel_path(self, reading) -> bool:
+        """Whether :meth:`compute` runs on the kernel pair of
+        ``ops/plane_cuda.py``: on the card, for 3-D input at six degrees of
+        freedom, and not for the WithCov minimizer, which needs the
+        per-pair arrays. Every other case keeps :meth:`_solve`."""
+        return (not self.PRODUCES_COVARIANCE and reading.device.type == "cuda"
+                and reading.dim == 3 and not self.force2D and not self.force4DOF)
+
+    def _kernel(self, reading, reference, weights, matches):
+        """:meth:`compute` on the kernel pair. A reference laid out over a
+        mesh gives each scan a table of its pairs' map rows and normals,
+        gathered over the mesh, read at slot ids ``0..n·k−1``: every slot
+        reads the values the single-device tables hold, in the same order,
+        so the result is the single-device one bit for bit."""
+        points = reference.points
+        normals = reference.get_descriptor("normals")
+        ids = matches.ids
+        if getattr(reference, "mesh", None) is not None:
+            *b, n, k = ids.shape
+            rows = torch.clamp(ids, min=0).to(torch.int64).reshape(*b, n * k)
+            points = gather_rows(points, rows, reference)
+            normals = gather_rows(normals, rows, reference)
+            ids = torch.arange(n * k, dtype=torch.int32, device=ids.device
+                               ).reshape(n, k).expand(ids.shape)
+        out = plane_cuda.point_to_plane(reading.points, reading.mask, points,
+                                        normals, matches.dists, ids, weights)
+        return out.T, MinimizerStats(
+            out.point_used_ratio, out.weighted_point_used_ratio,
+            out.residual, None, out.rejected_matches, out.rejected_points)
+
     def compute(self, reading, reference, weights, matches):
+        on_kernel = self._kernel_path(reading)
+        telemetry.sample("minimize_kernel_share", float(on_kernel))
+        if on_kernel:
+            return self._kernel(reading, reference, weights, matches)
         T, pairs, _, dot = self._solve(reading, reference, weights, matches)
         residual = torch.sum(pairs.w * dot * dot, dim=-1)
         return T, build_stats(reading, weights, matches, residual)
@@ -422,6 +465,7 @@ class PointToPlaneWithCovErrorMinimizer(PointToPlaneErrorMinimizer):
     )
 
     def compute(self, reading, reference, weights, matches):
+        telemetry.sample("minimize_kernel_share", 0.0)
         T, pairs, normals, dot = self._solve(reading, reference, weights, matches)
         residual = torch.sum(pairs.w * dot * dot, dim=-1)
         cov = _censi_covariance(pairs, normals, T, self.sensorStdDev)

@@ -41,8 +41,11 @@ Counters: ``steps``, the engine steps of the call's loops;
 ``host_syncs``, every wait on the engine's device that the call causes
 (:func:`sync`); at the ``detail``
 level only, ``survivor_share`` and ``skip_share``, one value per matcher
-step (per scan), which the survivor and v1 routes compute only then. The
-kernel wrappers' ``launches`` attributes stay the launch counters.
+step (per scan), which the survivor and v1 routes compute only then, and
+``minimize_kernel_share``, one value per point-to-plane minimize (1.0 on
+the kernel pair of ``ops/plane_cuda.py``, 0.0 on the torch solve; its mean
+is the share of the call's steps that ran on the kernel). The kernel
+wrappers' ``launches`` attributes stay the launch counters.
 
 Levels (:func:`set_level`): ``"spans"``, the default, records spans and
 counters on ``time.perf_counter()`` and issues no device operation,

@@ -749,10 +749,12 @@ def test_host_syncs_equal_sync_debug_warnings(cuda, monkeypatch, driver,
                                               clouds_on):
     """The telemetry's ``host_syncs`` of a warm serving call on the survivor
     route equals the synchronising operations that torch's sync debug mode
-    reports during it (less the mode's notice that it is a prototype)."""
+    reports during it (less the mode's notice that it is a prototype);
+    ``step.minimize``, the point-to-plane kernel pair, reports none."""
     import warnings
 
     from libpointmatcher_tpu_torch import telemetry
+    from libpointmatcher_tpu_torch.ops import plane_cuda
 
     monkeypatch.setenv("PMTPU_SERVE_SKIP", "1")
     world, scans, _, _ = _serving_scene(8)
@@ -768,6 +770,18 @@ def test_host_syncs_equal_sync_debug_warnings(cuda, monkeypatch, driver,
             return register_queue_to_map(seq, clouds, seed=3, lanes=2)
     serve()                         # builds the kernels and the map's tables
     torch.cuda.synchronize()
+    minimize = seq.error_minimizer.compute
+    minimize_warnings = []
+
+    def counted(*args):
+        before = len(caught)
+        out = minimize(*args)
+        minimize_warnings.append(sum("synchroniz" in str(w.message)
+                                     for w in caught[before:]))
+        return out
+
+    monkeypatch.setattr(seq.error_minimizer, "compute", counted)
+    plane_cuda.reset_launch_counts()
     telemetry.set_level("spans")
     telemetry.reset()
     with warnings.catch_warnings(record=True) as caught:
@@ -782,6 +796,9 @@ def test_host_syncs_equal_sync_debug_warnings(cuda, monkeypatch, driver,
     rec, = telemetry.snapshot()
     assert rec["entry"] == f"register_{driver}_to_map"
     assert rec["counters"]["host_syncs"] == len(syncs) > 0
+    assert len(minimize_warnings) == rec["counters"]["steps"] > 0
+    assert plane_cuda.point_to_plane.launches == len(minimize_warnings)
+    assert not any(minimize_warnings)
 
 
 def test_register_batch_on_card_matches_cpu(cuda):

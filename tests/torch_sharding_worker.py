@@ -358,6 +358,53 @@ def _np(t):
     return t.cpu().numpy()
 
 
+PLANE_SEED = 6
+
+
+def plane_inputs():
+    """The point-to-plane minimize's inputs: 3 scans of 400 points, k = 3,
+    matched to a 1 000-row map with unit normals; some rows masked, some
+    slots at inf distance (id −1) or zero weight."""
+    rng = np.random.default_rng(PLANE_SEED)
+    r = rng.uniform(-4, 4, size=(1000, 3)).astype(np.float32)
+    nrm = rng.normal(size=(1000, 3))
+    nrm = (nrm / np.linalg.norm(nrm, axis=1, keepdims=True)).astype(np.float32)
+    ids = rng.integers(0, 1000, size=(3, 400, 3)).astype(np.int32)
+    q = (r[ids[..., 0]] + rng.normal(scale=0.02, size=(3, 400, 3))
+         ).astype(np.float32)
+    qm = rng.random((3, 400)) > 0.05
+    d = rng.random((3, 400, 3)).astype(np.float32)
+    d[(rng.random(d.shape) < 0.05) | ~qm[..., None]] = np.inf
+    ids[~np.isfinite(d)] = -1
+    w = rng.random((3, 400, 3)).astype(np.float32)
+    w[rng.random(w.shape) < 0.05] = 0.0
+    return q, qm, r, nrm, d, ids, w
+
+
+def plane_route(mesh=None, device=CPU) -> dict:
+    """:func:`plane_inputs` through the point-to-plane minimizer's kernel
+    route (``PointToPlaneErrorMinimizer._kernel``: the kernel pair on the
+    card, its plain version on the CPU), the map laid out over ``mesh``
+    (on one device without) → the transforms and statistics."""
+    from libpointmatcher_tpu_torch.cloud import PointCloud
+    from libpointmatcher_tpu_torch.matchers import Matches
+    from libpointmatcher_tpu_torch.minimizers import PointToPlaneErrorMinimizer
+    from libpointmatcher_tpu_torch.parallel import sharding
+
+    dev = mesh.device if mesh is not None else device
+    q, qm, r, nrm, d, ids, w = (_t(a, dev) for a in plane_inputs())
+    ref = PointCloud(r, descriptors={"normals": nrm})
+    if mesh is not None:
+        ref = sharding.shard_cloud(ref, mesh)
+    T, st = PointToPlaneErrorMinimizer()._kernel(PointCloud(q, qm), ref, w,
+                                                 Matches(d, ids))
+    return {"plane_T": _np(T), "plane_residual": _np(st.residual),
+            "plane_used": _np(st.point_used_ratio),
+            "plane_weighted": _np(st.weighted_point_used_ratio),
+            "plane_rejected_matches": _np(st.nb_rejected_matches),
+            "plane_rejected_points": _np(st.nb_rejected_points)}
+
+
 def sweep_tables(r, rm):
     """The Morton-sorted map's rows and its two survivor-sweep tables."""
     from libpointmatcher_tpu_torch.ops import morton, sweep
@@ -410,6 +457,7 @@ def sharded_ops(mesh, out: dict) -> None:
         t(q2), t(qm), t(sweep_bound(q, q2, out["sweep_cold_d"])), t(rt3p),
         t(ctp), mesh)
     out["sweep_warm_d"], out["sweep_warm_i"] = _np(d), _np(i)
+    out.update(plane_route(mesh))
 
 
 def single_ops(out: dict, device=CPU) -> None:
@@ -450,6 +498,7 @@ def single_ops(out: dict, device=CPU) -> None:
         d, i = knn.knn_brute_force(t(qq), t(qm), t(rs), t(rsm), k=1)
         out[f"sweep_{tag}_brute_d"] = _np(d[:, 0])
         out[f"sweep_{tag}_brute_i"] = _np(i[:, 0])
+    out.update(plane_route(None, device))
 
 
 def special_rows(mesh, out: dict) -> None:
